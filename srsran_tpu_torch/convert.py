@@ -1,0 +1,37 @@
+"""Turn reference configuration objects into the port's counterparts.
+
+`from_reference(obj)` reads the dataclass fields of a `srsran_tpu` `Cell`,
+`DlGrant`, `ChestDlConfig`, `OfdmConfig` or `TbCoding` and builds the port's
+class of the same name, so that both packages decode one configuration.
+It goes by the class name and the fields (duck typing), so this package
+needs no import of the reference (which would import jax).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+
+from .phy.chest.chest_dl import ChestDlConfig
+from .phy.common import CP, Cell
+from .phy.modem import Mod
+from .phy.ofdm import OfdmConfig
+from .phy.phch.pdsch import DlGrant
+from .phy.phch.sch import TbCoding
+
+_CLASSES = {c.__name__: c for c in (Cell, DlGrant, ChestDlConfig, OfdmConfig, TbCoding)}
+_ENUMS = {e.__name__: e for e in (CP, Mod)}
+
+
+def _value(v):
+    if isinstance(v, enum.Enum):
+        return _ENUMS[type(v).__name__](v.value)
+    return v
+
+
+def from_reference(obj):
+    """The port's counterpart of a reference config dataclass."""
+    cls = _CLASSES.get(type(obj).__name__)
+    if cls is None or not dataclasses.is_dataclass(obj):
+        raise TypeError(f"no counterpart for {type(obj).__name__}")
+    return cls(**{f.name: _value(getattr(obj, f.name)) for f in dataclasses.fields(cls)})

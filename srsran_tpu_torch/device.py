@@ -1,0 +1,33 @@
+"""Device selection and per-device caching of host-built tables."""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+
+def require_cuda() -> torch.device:
+    """The first CUDA device; raises when PyTorch sees no GPU (never falls
+    back to the CPU)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("srsran_tpu_torch: no CUDA device is available")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+@lru_cache(maxsize=1024)
+def table(fn, *args, device: torch.device, dtype: torch.dtype | None = None):
+    """`fn(*args)` — a host table (numpy array, or tuple of them) — as
+    tensors on `device`, built and copied once per (fn, args, device, dtype).
+
+    `args` must be hashable (ints, tuples, frozen config dataclasses).
+    A None entry stays None."""
+    out = fn(*args)
+
+    def conv(a):
+        if a is None:
+            return None
+        return torch.as_tensor(np.ascontiguousarray(a), device=device, dtype=dtype)
+
+    return tuple(conv(a) for a in out) if isinstance(out, tuple) else conv(out)

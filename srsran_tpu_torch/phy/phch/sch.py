@@ -1,0 +1,107 @@
+"""DL-SCH transport-block decode, TS 36.212 §5.3.2.
+
+Counterpart of the device decode in `srsran_tpu/phy/phch/sch.py`:
+per-codeblock de-rate-match with filler bits pinned to a strong 0,
+one batched turbo decode per distinct (K, CRC polynomial), CB CRC24B
+(when C > 1), reassembly and the TB CRC24A.  A leading batch axis of
+subframes is written out: every codeblock of every subframe in a
+(K, poly) group decodes in one `turbo_decode`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..common import LTE_CRC24A, LTE_CRC24B
+from ..crc import crc_compute, crc_table
+from ..fec.cbsegm import CbSegm, cbsegm
+from ..fec.rate_match import turbo_rate_match_rx
+from ..fec.turbo import turbo_decode
+
+FILLER_LLR = np.float32(-1e4)  # filler bits are known 0 (LLR>0 ⇒ 1)
+
+
+def _e_split(g: int, c: int, qm: int, nof_layers: int = 1) -> list[int]:
+    """Per-codeblock rate-matching output sizes (TS 36.212 §5.1.4.1.2)."""
+    g_prime = g // (nof_layers * qm)
+    gamma = g_prime % c
+    e_minus = nof_layers * qm * (g_prime // c)
+    e_plus = nof_layers * qm * int(np.ceil(g_prime / c))
+    return [e_minus if i <= c - 1 - gamma else e_plus for i in range(c)]
+
+
+@dataclasses.dataclass(frozen=True)
+class TbCoding:
+    """Static coding layout for one transport block."""
+
+    tbs: int
+    g: int  # total bits available on the channel
+    qm: int  # modulation order (2/4/6/8)
+    rv: int = 0
+    nof_layers: int = 1
+
+    @property
+    def segm(self) -> CbSegm:
+        return cbsegm(self.tbs)
+
+    def e_sizes(self) -> list[int]:
+        return _e_split(self.g, self.segm.C, self.qm, self.nof_layers)
+
+
+def dlsch_decode_multi_device(llrs, cfgs, max_iterations: int = 5):
+    """Decode ≥1 codewords jointly.
+
+    llrs: list of codeword LLRs (B, g_i) float32; cfgs: matching TbCoding.
+    Returns [(tb_bits (B, tbs) uint8, ok (B,) bool)] per codeword.
+    """
+    # (codeword, cb index, k, e, f, codeword offset, crc poly)
+    groups: dict[tuple[int, int], list[tuple]] = {}
+    for ci, cfg in enumerate(cfgs):
+        s = cfg.segm
+        es = cfg.e_sizes()
+        offs = np.concatenate([[0], np.cumsum(es)])
+        poly = LTE_CRC24B if s.C > 1 else LTE_CRC24A
+        for i, k in enumerate(s.cb_sizes):
+            f = s.F if i == 0 else 0
+            groups.setdefault((k, poly), []).append((ci, i, es[i], f, int(offs[i])))
+
+    decoded: dict[tuple[int, int], torch.Tensor] = {}
+    ok: dict[tuple[int, int], torch.Tensor] = {}
+    for (k, poly), ents in groups.items():
+        rows = []
+        for ci, _i, e, f, off in ents:
+            d = turbo_rate_match_rx(llrs[ci][:, off : off + e], k, cfgs[ci].rv, n_filler=f)
+            if f:
+                d[:, 0, :f] = float(FILLER_LLR)
+            rows.append(d)
+        d_llr = torch.stack(rows, dim=1)  # (B, ncb, 3, K+4)
+        b, ncb = d_llr.shape[:2]
+        bits, _post, _n_it = turbo_decode(d_llr.reshape(b * ncb, 3, k + 4), k, max_iterations,
+                                          crc_table=crc_table(poly, k, d_llr.device))
+        # the CRC over all K bits (message and its CRC) is zero iff it passes
+        cb_ok = torch.all(crc_compute(bits, poly) == 0, dim=-1)
+        bits, cb_ok = bits.reshape(b, ncb, k), cb_ok.reshape(b, ncb)
+        for j, (ci, i, *_rest) in enumerate(ents):
+            decoded[(ci, i)] = bits[:, j]
+            ok[(ci, i)] = cb_ok[:, j]
+
+    out = []
+    for ci, cfg in enumerate(cfgs):
+        s = cfg.segm
+        crc_len = 24 if s.C > 1 else 0
+        parts = [decoded[(ci, i)][:, (s.F if i == 0 else 0) : k - crc_len]
+                 for i, k in enumerate(s.cb_sizes)]
+        bits = torch.cat(parts, dim=-1)
+        tb = bits[:, : cfg.tbs]
+        tb_ok = torch.all(crc_compute(tb, LTE_CRC24A) == bits[:, cfg.tbs :], dim=-1)
+        cw_ok = torch.stack([ok[(ci, i)] for i in range(s.C)], dim=-1).all(dim=-1)
+        out.append((tb, tb_ok & cw_ok))
+    return out
+
+
+def dlsch_decode_device(llr: torch.Tensor, cfg: TbCoding, max_iterations: int = 5):
+    """Decode one codeword: LLRs (B, g) → (tb_bits (B, tbs) uint8, ok (B,) bool)."""
+    return dlsch_decode_multi_device([llr], [cfg], max_iterations)[0]

@@ -1,0 +1,66 @@
+"""The port's UE DL SISO subframe decode against the JAX reference's
+`ue_dl_subframe` (jitted and vmapped on the CPU, scan MAP backend), on the
+same two noisy subframes made by the reference's own transmitter."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from srsran_tpu.phy.chest.refsignal_dl import put_crs_np
+from srsran_tpu.phy.common import Cell
+from srsran_tpu.phy.fec.cbsegm import cbsegm
+from srsran_tpu.phy.modem import Mod
+from srsran_tpu.phy.ofdm import OfdmConfig, ofdm_tx_sf
+from srsran_tpu.phy.phch.pdsch import DlGrant, pdsch_encode_np
+from srsran_tpu.pipeline import ue_dl_subframe as ref_ue_dl_subframe
+from srsran_tpu_torch.convert import from_reference
+from srsran_tpu_torch.pipeline import ue_dl_subframe
+
+torch.set_num_threads(1)
+
+
+# (PRB, modulation, tbs, noise amplitude): 6 PRB QPSK with one codeblock;
+# 25 PRB QAM16 and QAM64 with tbs picked for C=2, F=56 and two K sizes
+CASES = [(6, Mod.QPSK, 504, 0.3), (25, Mod.QAM16, 6208, 0.08), (25, Mod.QAM64, 9024, 0.04)]
+
+
+@pytest.mark.parametrize("prb,mod,tbs,amp", CASES)
+def test_ue_dl_subframe_matches_reference(prb, mod, tbs, amp):
+    rng = np.random.default_rng(prb * 100 + int(mod))
+    cell = Cell(nof_prb=prb, id=7)
+    grant = DlGrant(prb=tuple(range(prb)), mod=mod, tbs=tbs)
+    if prb == 25:
+        s = cbsegm(tbs)
+        assert s.C > 1 and s.F > 0 and s.K_minus != s.K_plus
+    tb = rng.integers(0, 2, tbs).astype(np.uint8)
+    grid = pdsch_encode_np(cell, 2, 1, grant, tb)
+    put_crs_np(grid, cell, 2)
+    tx = np.asarray(ofdm_tx_sf(OfdmConfig.from_cell(cell, normalize=True), grid))[0]
+    shape = (2, 1, tx.size)
+    rx = (tx[None, None] + amp * (rng.standard_normal(shape)
+                                  + 1j * rng.standard_normal(shape))).astype(np.complex64)
+
+    ref_fn = jax.jit(jax.vmap(ref_ue_dl_subframe(cell, 2, 1, grant, max_iterations=6)))
+    ref_tb, ref_ok, ref_snr = (np.asarray(v) for v in ref_fn(rx))
+    fn = ue_dl_subframe(from_reference(cell), 2, 1, from_reference(grant), 6, device="cpu")
+    got_tb, got_ok, got_snr = fn(torch.from_numpy(rx))
+
+    assert got_tb.shape == (2, tbs) and got_tb.dtype == torch.uint8
+    np.testing.assert_array_equal(got_tb.numpy(), ref_tb)
+    assert got_ok.dtype == torch.bool
+    np.testing.assert_array_equal(got_ok.numpy(), ref_ok)
+    # snr_db from FFT + einsum sums in another order: 1e-3 dB
+    np.testing.assert_allclose(got_snr.numpy(), ref_snr, atol=1e-3)
+    assert got_ok.all() and (got_tb.numpy() == tb).all()
+
+
+def test_ue_dl_subframe_checks_its_inputs():
+    cell = from_reference(Cell(nof_prb=6))
+    grant = from_reference(DlGrant(prb=tuple(range(6)), tbs=504))
+    fn = ue_dl_subframe(cell, 2, 1, grant, device="cpu")
+    with pytest.raises(ValueError):
+        fn(torch.zeros((1, 1, cell.sf_len), dtype=torch.complex64, device="meta"))
+    with pytest.raises(NotImplementedError):
+        ue_dl_subframe(cell, 2, 1, from_reference(DlGrant(prb=(0,), tbs=16, tx_scheme="diversity")),
+                       device="cpu")
