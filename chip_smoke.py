@@ -7,15 +7,29 @@ Phases (each prints its own lines; any failure exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the MAP kernel (csrc/map_window.cu) from the sources, timed;
   3. the kernel against its plain PyTorch version on the card at the
-     main path's MAP shapes (K=5632: lw=88, T=32, 88 and 1408 codeblocks;
-     and K=512): posteriors within atol 1e-4, identical hard bits;
+     main paths' MAP shapes: static mode at K=5632 (lw=88, T=32, 88 and
+     1408 codeblocks) and K=512; dynamic-K mode at K_max=6144 (lw=96,
+     T=24, 32 codeblocks of mixed K), 2112 and 768, compared below each
+     codeblock's K: posteriors within atol 1e-4, identical hard bits;
   4. the UE DL SISO slice at full width — 100 PRB, MCS 26 QAM64, B=128
      subframes — through `ue_dl_subframe`: the two stored reference
      subframes of `srsran_tpu_torch/testdata/ue_dl_siso_20mhz.npz` must give
      the reference's crc_ok and TB bits, every CRC-passing TB must equal the
      transmitted one, and the kernel must have been launched;
   5. times with CUDA events after warmup: ms per B=128 batch and Mbps of
-     CRC-passing TBs, and the MAP kernel against the plain version per pass.
+     CRC-passing TBs, and the MAP kernel against the plain version per pass;
+  6. the dynamic-grant decode at full width — one `DynamicUeDl` on a
+     100 PRB cell, stimuli rendered by the port's host transmitter from a
+     seed: a 40-grant scheduler-style mix (MCS 0-28 x random contiguous
+     allocations x subframes 0-9), MCS 28 on 100 PRB, the headline grant
+     against `ue_dl_subframe` on the same samples, HARQ rv 0 → rv 2 at low
+     SNR, and the stored grants of
+     `srsran_tpu_torch/testdata/ue_dl_dynamic_20mhz.npz` against the
+     reference's results; the dynamic-K kernel mode must have been launched;
+  7. times of that path: ms per TTI (CUDA events, and host wall beside
+     them) for MCS 28 on 100 PRB and for a 6 PRB QPSK grant, kernel
+     launches per TTI, and the dynamic-K kernel mode against the plain
+     version per pass at 1024 lanes.
 Prints one JSON line of kernel results, then as its last line
 {"ok": true, "device": {...}}.  TF32 stays off: the channel-estimate
 einsums and the CRC products keep full fp32.
@@ -35,7 +49,21 @@ import torch
 B = 128
 MAP_ATOL = 1e-4
 SNR_ATOL_DB = 1e-3
-FIXTURE = Path(__file__).resolve().parent / "srsran_tpu_torch" / "testdata" / "ue_dl_siso_20mhz.npz"
+TESTDATA = Path(__file__).resolve().parent / "srsran_tpu_torch" / "testdata"
+FIXTURE = TESTDATA / "ue_dl_siso_20mhz.npz"
+FIXTURE_DYN = TESTDATA / "ue_dl_dynamic_20mhz.npz"
+# published peaks of one H100 SXM: HBM bytes/s, fp32 operations/s outside
+# the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_FP32_S = 67e12
+# add/max operations of the recursion: a training step runs one alpha and
+# one beta step (2 x (2 + 16 + 8)); a window position runs an alpha step
+# (26), the beta branches (18) and maxima (8), and one posterior (16 + 14 + 1)
+OPS_TRAIN_STEP = 52
+OPS_WINDOW_POS = 83
+DYN_KS = {6144: (6144, 6080, 5824, 4800, 3136, 2112, 512, 40),
+          2112: (2112, 2048, 1056, 528, 1408, 40),
+          768: (768, 512, 384, 40)}
 
 
 def check(cond: bool, msg: str):
@@ -66,6 +94,60 @@ def map_inputs(k: int, ncb: int, seed: int, device):
     return map_window_inputs(lx, lz, lxt, lzt, k)
 
 
+def wall_ms(fn, n: int) -> float:
+    """Mean host milliseconds of fn() over n runs, ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def map_bound(ins, T: int, lw: int, kq=None):
+    """(bound_ms, bound_by) of one MAP pass on these inputs: the larger of
+    its bytes (every input read once, the output written once) over the
+    card's memory rate and its add/max operations over the fp32 rate."""
+    bn = ins[2].shape[1]
+    nbytes = sum(t.numel() * t.element_size() for t in ins) + lw * bn * 4
+    if kq is not None:
+        nbytes += kq.numel() * kq.element_size()
+    ops = bn * (OPS_TRAIN_STEP * T + OPS_WINDOW_POS * lw)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_FP32_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def dyn_map_inputs(k_max: int, ks, seed: int, device):
+    """Lane-layout inputs of one dynamic-K MAP pass: codeblocks of the sizes
+    `ks` in K_max buffers, zero LLRs beyond each K, random exact tail betas.
+    Returns (ins (9 tensors), T, lw, kq, below_k (B, K_max) bool)."""
+    from srsran_tpu_torch.phy.fec.turbo import map_window_lanes
+    from srsran_tpu_torch.phy.fec.turbo_dyn import lane_kq
+
+    rng = np.random.default_rng(seed)
+    k_vec = torch.tensor(ks, device=device)
+    below_k = torch.arange(k_max, device=device)[None, :] < k_vec[:, None]
+    lx, lz = (torch.from_numpy(4.0 * rng.standard_normal((len(ks), k_max)).astype(np.float32))
+              .to(device) * below_k for _ in range(2))
+    beta_k = torch.from_numpy(4.0 * rng.standard_normal((len(ks), 8)).astype(np.float32)).to(device)
+    *ins, T, lw = map_window_lanes(lx, lz, beta_k, k_max)
+    ins[7] = torch.zeros_like(ins[7])  # b_mask: kq == lw takes its place
+    return ins, T, lw, lane_kq(k_vec, k_max), below_k
+
+
+def render(cell, ofdm, sf_idx: int, grant, tb: np.ndarray, rng, amp: float) -> np.ndarray:
+    """One noisy subframe (1, sf_len) complex64 carrying `tb` under `grant`,
+    from the port's host transmitter (CFI 1)."""
+    from srsran_tpu_torch.phy.chest.refsignal_dl import put_crs_np
+    from srsran_tpu_torch.phy.ofdm import ofdm_tx_sf
+    from srsran_tpu_torch.phy.phch.pdsch import pdsch_encode_np
+
+    grid = put_crs_np(pdsch_encode_np(cell, sf_idx, 1, grant, tb), cell, sf_idx)
+    rx = ofdm_tx_sf(ofdm, torch.from_numpy(grid)).numpy()
+    rx = rx + amp * (rng.standard_normal(rx.shape) + 1j * rng.standard_normal(rx.shape))
+    return rx.astype(np.complex64)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -73,10 +155,13 @@ def main() -> int:
     from srsran_tpu_torch.device import require_cuda
     from srsran_tpu_torch.phy.common import Cell
     from srsran_tpu_torch.phy.fec import turbo_cuda
-    from srsran_tpu_torch.phy.fec.turbo import map_windows_plain
+    from srsran_tpu_torch.phy.fec.turbo import map_windows_plain, unlane
     from srsran_tpu_torch.phy.modem import Mod
+    from srsran_tpu_torch.phy.ofdm import OfdmConfig
     from srsran_tpu_torch.phy.phch.pdsch import DlGrant
+    from srsran_tpu_torch.phy.phch.ra import dl_mcs_to_mod, dl_tbs
     from srsran_tpu_torch.pipeline import ue_dl_subframe
+    from srsran_tpu_torch.pipeline_dynamic import DynamicUeDl
 
     # phase 1: the card
     dev = require_cuda()
@@ -111,6 +196,21 @@ def main() -> int:
         max_err = max(max_err, err)
         if ncb == 1408:
             headline = (ins, T, lw)
+    max_err_dyn = 0.0
+    for k_max, ks in DYN_KS.items():
+        ks = ks * (32 // len(ks))
+        ins, T, lw, kq, below_k = dyn_map_inputs(k_max, ks, seed=k_max, device=dev)
+        got = unlane(turbo_cuda.map_windows(*ins, T=T, lw=lw, kq=kq), len(ks), k_max)
+        ref = unlane(map_windows_plain(*ins, T, lw, kq=kq), len(ks), k_max)
+        torch.cuda.synchronize()
+        err = float((got - ref)[below_k].abs().max())
+        same_bits = bool(torch.equal((got > 0)[below_k], (ref > 0)[below_k]))
+        print(f"map dyn K_max={k_max} codeblocks={len(ks)} K={sorted(set(ks))} T={T} lw={lw} "
+              f"bn={ins[2].shape[1]}: max_abs_err below K {err:.3g}, "
+              f"hard bits identical {same_bits}")
+        check(bool(torch.isfinite(got[below_k]).all()), f"non-finite posteriors at K_max={k_max}")
+        check(err <= MAP_ATOL and same_bits, f"dyn kernel disagrees with plain at K_max={k_max}")
+        max_err_dyn = max(max_err_dyn, err)
 
     # phase 4: the slice at full width
     fx = np.load(FIXTURE)
@@ -129,10 +229,10 @@ def main() -> int:
     tb_tx = torch.from_numpy(np.unpackbits(fx["tb_packed"], count=tbs)).to(dev)
     ref_tb = torch.from_numpy(np.unpackbits(fx["ref_tb_packed"], axis=-1, count=tbs)).to(dev)
 
-    turbo_cuda.LAUNCHES = 0
+    turbo_cuda.LAUNCHES = turbo_cuda.LAUNCHES_DYN = 0
     tb, ok, snr_db = fn(samples)
     torch.cuda.synchronize()
-    launches = turbo_cuda.LAUNCHES
+    launches = turbo_cuda.LAUNCHES - turbo_cuda.LAUNCHES_DYN
     n_ok = int(ok.sum())
     print(f"slice: 100 PRB MCS 26 B={B}: crc_ok {n_ok}/{B}, map launches {launches}, "
           f"snr_db[:2] {snr_db[:2].tolist()} (reference {fx['ref_snr_db'].tolist()})")
@@ -156,10 +256,127 @@ def main() -> int:
     print(f"slice: {slice_ms:.3f} ms per B={B} batch, {mbps:.1f} Mbps of CRC-passing TBs")
     print(f"map pass at bn={ins[2].shape[1]}: kernel {kern_ms:.4f} ms, plain {plain_ms:.3f} ms")
 
-    print(json.dumps({"kernels": [{
-        "name": "map_window", "route": "cuda", "source": "srsran_tpu_torch/csrc/map_window.cu",
-        "replaces": "srsran_tpu/phy/fec/turbo_pallas.py:99", "launches": launches,
-        "max_abs_err": max_err, "ms": kern_ms, "plain_ms": plain_ms}]}))
+    bound_ms, bound_by = map_bound(ins, T, lw)
+    print(f"map pass at bn={ins[2].shape[1]}: bound {bound_ms:.4f} ms by {bound_by}")
+
+    # phase 6: the dynamic-grant decode at full width
+    ue = DynamicUeDl(cell, cfi=1, max_iterations=int(fx["max_iterations"]))
+    check(ue.device == dev, "DynamicUeDl did not take the card by default")
+    ofdm = OfdmConfig.from_cell(cell, normalize=True)
+    turbo_cuda.LAUNCHES = turbo_cuda.LAUNCHES_DYN = 0
+
+    def decode_and_check(tag, sf_idx, grant, tb_sent, rx, soft=None, want_ok=True):
+        tb_hat, ok_, soft_, n_it = ue.decode(rx, sf_idx, grant, soft)
+        check(tb_hat.shape == (grant.tbs,) and tb_hat.dtype == np.uint8, f"{tag}: TB shape/dtype")
+        check(soft_.device == dev and bool(torch.isfinite(soft_).all()), f"{tag}: softbuffer")
+        check(ok_ == want_ok, f"{tag}: crc_ok {ok_}, expected {want_ok}")
+        if want_ok:
+            check(bool((tb_hat == tb_sent).all()), f"{tag}: TB differs from the sent one")
+        return tb_hat, soft_, n_it
+
+    # (a) scheduler-style random grant mix
+    rng = np.random.default_rng(7)
+    built_at, n_mix = [], 0
+    for i in range(40):
+        sf_idx, mcs = int(rng.integers(0, 10)), int(rng.integers(0, 29))
+        l = int(rng.integers(1, nof_prb + 1))
+        s0 = int(rng.integers(0, nof_prb + 1 - l))
+        g = DlGrant(prb=tuple(range(s0, s0 + l)), mod=dl_mcs_to_mod(mcs),
+                    tbs=dl_tbs(mcs, l), rnti=0x46)
+        tb_sent = rng.integers(0, 2, g.tbs).astype(np.uint8)
+        rx = render(cell, ofdm, sf_idx, g, tb_sent, rng, 0.05)
+        decode_and_check(f"mix {i} (sf {sf_idx}, MCS {mcs}, PRB {s0}+{l}, tbs {g.tbs})",
+                         sf_idx, g, tb_sent, rx)
+        built_at.append(ue.total_compiles)
+        n_mix += 1
+    print(f"dynamic: grant mix {n_mix}/{n_mix} TBs ok; stage keys built {ue.stats}")
+    check(ue.stats["compiles_a"] <= 10, "more stage A keys than subframes")
+    check(ue.stats["compiles_b"] <= 15 and ue.stats["compiles_c"] <= 14,
+          "stage keys exceed the bucket grid")
+    check(built_at[-1] - built_at[-len(built_at) // 4] <= 2,
+          f"the last quarter of the mix still builds stages: {built_at}")
+
+    # (b) MCS 28 on 100 PRB
+    g28 = DlGrant(prb=tuple(range(nof_prb)), mod=dl_mcs_to_mod(28), tbs=dl_tbs(28, nof_prb), rnti=0x46)
+    tb28 = rng.integers(0, 2, g28.tbs).astype(np.uint8)
+    rx28 = render(cell, ofdm, 3, g28, tb28, rng, 0.05)
+    _, _, n_it28 = decode_and_check("MCS 28", 3, g28, tb28, rx28)
+    print(f"dynamic: MCS 28 on {nof_prb} PRB, tbs {g28.tbs}: ok, {n_it28} iterations")
+
+    # (c) the headline grant: the TB of the static path on the same samples
+    tb_h, _, n_it_h = decode_and_check("headline grant", int(fx["sf_idx"]), grant, tb_tx.cpu().numpy(),
+                                       fx["rx"][0], want_ok=bool(fx["ref_crc_ok"][0]))
+    check(bool((tb_h == tb[0].cpu().numpy()).all()), "dynamic and static paths give different TBs")
+    print(f"dynamic: headline grant equals ue_dl_subframe's TB, {n_it_h} iterations")
+
+    # (d) HARQ: rv 0 alone fails at low SNR, rv 2 combines and decodes
+    tbs_h = dl_tbs(16, nof_prb)
+    tb_harq = rng.integers(0, 2, tbs_h).astype(np.uint8)
+    g0 = DlGrant(prb=tuple(range(nof_prb)), mod=dl_mcs_to_mod(16), tbs=tbs_h, rv=0)
+    g2 = DlGrant(prb=tuple(range(nof_prb)), mod=dl_mcs_to_mod(16), tbs=tbs_h, rv=2)
+    _, soft, _ = decode_and_check("HARQ rv 0", 1, g0, tb_harq,
+                                  render(cell, ofdm, 1, g0, tb_harq, rng, 0.42), want_ok=False)
+    decode_and_check("HARQ rv 2", 2, g2, tb_harq,
+                     render(cell, ofdm, 2, g2, tb_harq, rng, 0.42), soft=soft)
+    print("dynamic: HARQ rv 0 fails alone, rv 2 combines and decodes")
+
+    # (e) stored grants with the reference's results
+    fd = np.load(FIXTURE_DYN)
+    ue_fx = DynamicUeDl(cell, cfi=1, max_iterations=int(fd["max_iterations"]))
+    for i in range(len(fd["mcs"])):
+        l, s0, mcs = int(fd["prb_len"][i]), int(fd["prb_start"][i]), int(fd["mcs"][i])
+        g = DlGrant(prb=tuple(range(s0, s0 + l)), mod=dl_mcs_to_mod(mcs), tbs=dl_tbs(mcs, l),
+                    rnti=int(fd["rnti"]))
+        tb_hat, ok_, _, n_it = ue_fx.decode(fd["rx"][i], int(fd["sf_idx"][i]), g)
+        ref_tb = np.unpackbits(fd["ref_tb_packed"][i], count=g.tbs)
+        check(ok_ == bool(fd["ref_crc_ok"][i]) and n_it == int(fd["ref_n_it"][i]),
+              f"stored grant {i}: crc_ok {ok_}, {n_it} iterations; reference "
+              f"{bool(fd['ref_crc_ok'][i])}, {int(fd['ref_n_it'][i])}")
+        # a TB that does not converge has no bits to hold: rounding
+        # differences grow from one iteration to the next
+        check(not ok_ or bool((tb_hat == ref_tb).all()),
+              f"stored grant {i}: TB bits differ from the reference")
+    print(f"dynamic: {len(fd['mcs'])} stored grants give the reference's crc_ok "
+          f"{fd['ref_crc_ok'].tolist()}, iterations {fd['ref_n_it'].tolist()} and, where the CRC "
+          f"passes, TB bits")
+    torch.cuda.synchronize()
+    launches_dyn = turbo_cuda.LAUNCHES_DYN
+    check(launches_dyn > 0, "the dynamic path did not launch the dynamic-K kernel mode")
+    check(turbo_cuda.LAUNCHES == launches_dyn, "the dynamic path launched the static mode")
+    print(f"dynamic: {ue.stats['ttis'] + ue_fx.stats['ttis']} TTIs, "
+          f"dynamic-K map launches {launches_dyn}")
+
+    # phase 7: times of the dynamic path
+    g6 = DlGrant(prb=tuple(range(47, 53)), mod=dl_mcs_to_mod(5), tbs=dl_tbs(5, 6), rnti=0x46)
+    tb6 = rng.integers(0, 2, g6.tbs).astype(np.uint8)
+    rx6 = torch.from_numpy(render(cell, ofdm, 3, g6, tb6, rng, 0.05)).to(dev)
+    rx28_d = torch.from_numpy(rx28).to(dev)
+    for tag, g, rx in ((f"MCS 28 {nof_prb} PRB (tbs {g28.tbs})", g28, rx28_d),
+                       (f"MCS 5 6 PRB (tbs {g6.tbs})", g6, rx6)):
+        ue.decode(rx, 3, g)  # warm the tables of this grant
+        before = turbo_cuda.LAUNCHES_DYN
+        dev_ms = cuda_ms(lambda: ue.decode(rx, 3, g), 10)
+        per_tti = (turbo_cuda.LAUNCHES_DYN - before) / 10
+        host_ms = wall_ms(lambda: ue.decode(rx, 3, g), 10)
+        print(f"dynamic: {tag}: {dev_ms:.3f} ms per TTI by CUDA events, {host_ms:.3f} ms host "
+              f"wall, {per_tti:g} map launches per TTI")
+    ins_d, T_d, lw_d, kq_d, _ = dyn_map_inputs(6144, DYN_KS[6144] * 2, seed=1, device=dev)
+    kern_dyn_ms = cuda_ms(lambda: turbo_cuda.map_windows(*ins_d, T=T_d, lw=lw_d, kq=kq_d), 50)
+    plain_dyn_ms = cuda_ms(lambda: map_windows_plain(*ins_d, T_d, lw_d, kq=kq_d), 3)
+    static_small_ms = cuda_ms(lambda: turbo_cuda.map_windows(*ins_d, T=T_d, lw=lw_d), 50)
+    bound_dyn_ms, bound_dyn_by = map_bound(ins_d, T_d, lw_d, kq_d)
+    print(f"map dyn pass at bn={ins_d[2].shape[1]}: kernel {kern_dyn_ms:.4f} ms (static mode on "
+          f"the same lanes {static_small_ms:.4f} ms), plain {plain_dyn_ms:.3f} ms, "
+          f"bound {bound_dyn_ms:.5f} ms by {bound_dyn_by}")
+
+    common = {"route": "cuda", "source": "srsran_tpu_torch/csrc/map_window.cu", "library_ms": None}
+    print(json.dumps({"kernels": [
+        dict(common, name="map_window", replaces="srsran_tpu/phy/fec/turbo_pallas.py:99",
+             launches=launches, max_abs_err=max_err, ms=kern_ms, plain_ms=plain_ms,
+             bound_ms=bound_ms, bound_by=bound_by),
+        dict(common, name="map_window_dyn", replaces="srsran_tpu/phy/fec/turbo_pallas.py:232",
+             launches=launches_dyn, max_abs_err=max_err_dyn, ms=kern_dyn_ms,
+             plain_ms=plain_dyn_ms, bound_ms=bound_dyn_ms, bound_by=bound_dyn_by)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

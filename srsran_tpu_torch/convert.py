@@ -5,12 +5,19 @@
 class of the same name, so that both packages decode one configuration.
 It goes by the class name and the fields (duck typing), so this package
 needs no import of the reference (which would import jax).
+
+State that crosses between the packages is the HARQ softbuffer of the
+dynamic-grant decode: `softbuffer_from_reference` takes the reference's
+array (as numpy) onto a device of the port.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+
+import numpy as np
+import torch
 
 from .phy.chest.chest_dl import ChestDlConfig
 from .phy.common import CP, Cell
@@ -35,3 +42,10 @@ def from_reference(obj):
     if cls is None or not dataclasses.is_dataclass(obj):
         raise TypeError(f"no counterpart for {type(obj).__name__}")
     return cls(**{f.name: _value(getattr(obj, f.name)) for f in dataclasses.fields(cls)})
+
+
+def softbuffer_from_reference(softbuffer, device) -> torch.Tensor:
+    """A HARQ softbuffer (b_bucket, 3, k_bucket+4) returned by the
+    reference's `DynamicUeDl.decode`, as a float32 tensor on `device` that
+    the port's `DynamicUeDl.decode` takes."""
+    return torch.from_numpy(np.array(softbuffer, dtype=np.float32)).to(device)

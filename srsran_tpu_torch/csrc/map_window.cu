@@ -1,8 +1,9 @@
 // Windowed max-log-MAP pass of the LTE 8-state RSC trellis, for Hopper
 // (sm_90a).  Replaces the Pallas TPU kernel `turbo_pallas._map_kernel`
-// (srsran_tpu/phy/fec/turbo_pallas.py, launched by map_windows_pallas) and
-// computes what its dyn=False mode computes; the plain PyTorch version is
-// `srsran_tpu_torch.phy.fec.turbo.map_windows_plain`.
+// (srsran_tpu/phy/fec/turbo_pallas.py, launched by map_windows_pallas) in
+// both of its modes: the static one (dyn=False, one K per launch) and the
+// dynamic-K one (dyn=True, the `kq` input; see below).  The plain PyTorch
+// version is `srsran_tpu_torch.phy.fec.turbo.map_windows_plain`.
 //
 // Layout: a lane is one (codeblock, window) pair; every input is
 // (rows, bn) float32 with the lane index fastest, so a warp's loads of one
@@ -18,6 +19,14 @@
 //      each, L(t) = max_s(alpha+beta1) - max_s(alpha+beta0), one from the
 //      live alpha with a stored beta, one from a stored alpha with the live
 //      beta.  An odd lw emits its middle position between the halves.
+//   4. dynamic-K mode (template parameter DYN): codeblocks of any size
+//      K <= K_max share one launch.  Positions >= K carry zero LLRs
+//      (erasures), and each lane gets kq = K - w*lw when that lies in
+//      [1, lw], else 0.  Wherever the live backward carry is beta at local
+//      position q == kq it is replaced by the lane's b_known (the
+//      codeblock's exact tail beta_K) before it is stored or used; q == lw
+//      takes the place of b_mask, which is all zero in this mode.
+//      Posteriors at positions >= K are garbage by contract.
 // Metrics stay in registers (8 alpha + 8 beta per thread).  No
 // renormalisation: float32 holds a window's metric growth, and constant
 // offsets cancel in the posterior.  -1e30 stands for minus infinity and
@@ -28,7 +37,10 @@
 // bn = 1408 codeblocks x 64 windows = 90112 lanes) about 140 MB of inputs
 // and outputs move per pass, plus the metric scratch (lw x 8 floats per
 // lane, ~254 MB written and read once).  The arithmetic is ~30 add/max per
-// step and lane.
+// step and lane.  The dynamic-K mode runs one transport block per launch
+// (K_max=6144: T=24, lw=96, at most 16 codeblocks x 64 windows = 1024
+// lanes, 8 blocks on 132 SMs): its bytes move in under a microsecond and
+// its time is the launch plus the serial chain of T + lw = 120 steps.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -101,13 +113,14 @@ __device__ __forceinline__ void load8(const float* src, size_t stride, float v[8
   for (int s = 0; s < 8; ++s) v[s] = src[s * stride];
 }
 
+template <bool DYN>
 __global__ void map_window_kernel(
     const float* __restrict__ axt, const float* __restrict__ azt,
     const float* __restrict__ ax, const float* __restrict__ az,
     const float* __restrict__ bxt, const float* __restrict__ bzt,
     const float* __restrict__ amask, const float* __restrict__ bmask,
-    const float* __restrict__ bknown, float* __restrict__ out,
-    float* __restrict__ scr, int T, int lw, int bn) {
+    const float* __restrict__ bknown, const int* __restrict__ kq,
+    float* __restrict__ out, float* __restrict__ scr, int T, int lw, int bn) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= bn) return;
   const size_t n = (size_t)bn;  // row stride
@@ -130,9 +143,11 @@ __global__ void map_window_kernel(
     for (int s = 1; s < 8; ++s) a[s] = kNegInf;
   }
   if (bmask[lane] > 0.0f) load8(bknown + lane, n, b);
+  const int kqv = DYN ? kq[lane] : 0;  // local position of beta_K, 0 = none
 
   for (int i = 0; i < h; ++i) {
     const int m = lw - 1 - i;
+    if (DYN && kqv == lw - i) load8(bknown + lane, n, b);  // b is beta_{lw-i}
     store8(A + (size_t)i * 8 * n, n, a);
     store8(B + (size_t)i * 8 * n, n, b);
     alpha_step(a, ax[i * n + lane], az[i * n + lane]);
@@ -140,6 +155,7 @@ __global__ void map_window_kernel(
   }
   if (lw & 1) {  // middle position h: alpha_h and beta_{h+1} are both live
     const float x = ax[h * n + lane], z = az[h * n + lane];
+    if (DYN && kqv == h + 1) load8(bknown + lane, n, b);
     out[h * n + lane] = posterior(a, b, x, z);
     alpha_step(a, x, z);
     beta_step(b, x, z);
@@ -150,6 +166,7 @@ __global__ void map_window_kernel(
     const int m = h - 1 - i;   // mirrored position: stored alpha, live beta_{m+1}
     const float xj = ax[j * n + lane], zj = az[j * n + lane];
     const float xm = ax[m * n + lane], zm = az[m * n + lane];
+    if (DYN && kqv == m + 1) load8(bknown + lane, n, b);
     float st[8];
     load8(B + (size_t)m * 8 * n, n, st);  // B[h-1-i] = beta_{j+1}
     out[j * n + lane] = posterior(a, st, xj, zj);
@@ -160,19 +177,40 @@ __global__ void map_window_kernel(
   }
 }
 
+// Launches one mode on `stream`; returns cudaGetLastError() after the
+// launch (0 = launched).
+template <bool DYN>
+int launch(const float* axt, const float* azt, const float* ax, const float* az,
+           const float* bxt, const float* bzt, const float* amask,
+           const float* bmask, const float* bknown, const int* kq, float* out,
+           float* scr, int T, int lw, int bn, void* stream) {
+  if (T < 0 || T > lw || lw < 1 || bn < 1) return (int)cudaErrorInvalidValue;
+  const int threads = 128;
+  const int blocks = (bn + threads - 1) / threads;
+  map_window_kernel<DYN><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      axt, azt, ax, az, bxt, bzt, amask, bmask, bknown, kq, out, scr, T, lw, bn);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Launches the pass on `stream`; returns cudaGetLastError() after the launch
-// (0 = launched).  `scr` holds 2 * (lw / 2) * 8 * bn floats.
+// The static mode.  `scr` holds 2 * (lw / 2) * 8 * bn floats.
 extern "C" int map_window_launch(
     const float* axt, const float* azt, const float* ax, const float* az,
     const float* bxt, const float* bzt, const float* amask, const float* bmask,
     const float* bknown, float* out, float* scr, int T, int lw, int bn,
     void* stream) {
-  if (T < 0 || T > lw || lw < 1 || bn < 1) return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  const int blocks = (bn + threads - 1) / threads;
-  map_window_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      axt, azt, ax, az, bxt, bzt, amask, bmask, bknown, out, scr, T, lw, bn);
-  return (int)cudaGetLastError();
+  return launch<false>(axt, azt, ax, az, bxt, bzt, amask, bmask, bknown, nullptr,
+                       out, scr, T, lw, bn, stream);
+}
+
+// The dynamic-K mode: as above plus `kq` (bn ints, see the header).
+extern "C" int map_window_dyn_launch(
+    const float* axt, const float* azt, const float* ax, const float* az,
+    const float* bxt, const float* bzt, const float* amask, const float* bmask,
+    const float* bknown, const int* kq, float* out, float* scr, int T, int lw,
+    int bn, void* stream) {
+  if (kq == nullptr) return (int)cudaErrorInvalidValue;
+  return launch<true>(axt, azt, ax, az, bxt, bzt, amask, bmask, bknown, kq, out,
+                      scr, T, lw, bn, stream);
 }

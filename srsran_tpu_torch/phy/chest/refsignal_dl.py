@@ -78,3 +78,13 @@ def crs_sequence_port(cell: Cell, sf_idx: int, port: int) -> np.ndarray:
             for slot in range(2) for ref in range(2)
         ])
     return np.stack([_crs_values(cell, 2 * sf_idx + slot, 1) for slot in range(2)])
+
+
+def put_crs_np(grid: np.ndarray, cell: Cell, sf_idx: int) -> np.ndarray:
+    """Insert CRS into a (nports, nsymb_sf, nre) numpy grid (tx side)."""
+    for p in range(min(cell.nof_ports, grid.shape[0], 4)):
+        syms, freqs = crs_positions(cell, p)
+        seq = crs_sequence_port(cell, sf_idx, p)
+        for s in range(len(syms)):
+            grid[p, syms[s], freqs[s]] = seq[s]
+    return grid

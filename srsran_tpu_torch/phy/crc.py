@@ -51,6 +51,13 @@ def crc_matrix_np(poly: int, length: int) -> np.ndarray:
     return m
 
 
+def crc_attach_np(bits: np.ndarray, poly: int) -> np.ndarray:
+    """Host: append the CRC to a {0,1} uint8 bit array."""
+    m = crc_matrix_np(poly, len(bits))
+    crc = (bits.astype(np.uint32) @ m.astype(np.uint32)) & 1
+    return np.concatenate([bits.astype(np.uint8), crc.astype(np.uint8)])
+
+
 def crc_table(poly: int, length: int, device) -> torch.Tensor:
     """`crc_matrix_np` as a float32 tensor on `device` (cached)."""
     return table(crc_matrix_np, poly, length, device=torch.device(device), dtype=torch.float32)

@@ -1,6 +1,7 @@
 """Turbo de-rate-matching, TS 36.212 §5.1.4.1.
 
-Counterpart of the receive side of `srsran_tpu/phy/fec/rate_match.py`:
+Counterpart of `srsran_tpu/phy/fec/rate_match.py` (the transmit side as
+host numpy, for stimuli):
 the host derives, per (K, E, rv, filler), one index vector into the flat
 (3*(K+4),) d-stream array (circular buffer, dummy-bit skipping, rv start
 k0); on the device the de-rate-match is one `index_add_` that sums
@@ -77,6 +78,12 @@ def turbo_rm_indices(k: int, e: int, rv: int, n_filler: int = 0) -> np.ndarray:
     stream = w[order][valid_mask[order]]
     reps = -(-e // len(stream))
     return np.tile(stream, reps)[:e].astype(np.int32)
+
+
+def turbo_rate_match_tx(d: np.ndarray, e: int, rv: int = 0, n_filler: int = 0) -> np.ndarray:
+    """Host: d (..., 3, K+4) coded bits → the e rate-matched bits (..., e)."""
+    k = d.shape[-1] - 4
+    return d.reshape(d.shape[:-2] + (-1,))[..., turbo_rm_indices(k, e, rv, n_filler)]
 
 
 def turbo_rate_match_rx(llr_e: torch.Tensor, k: int, rv: int = 0,

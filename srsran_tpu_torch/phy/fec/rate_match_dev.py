@@ -1,0 +1,152 @@
+"""Turbo de-rate-matching with the index arithmetic done on the device
+(TS 36.212 §5.1.4.1).
+
+Counterpart of the part of `srsran_tpu/phy/fec/rate_match_dev.py` that the
+dynamic-grant decode reaches.  The static path (`rate_match.py`) builds one
+host index vector per (K, E, rv, filler) and caches it; here the sub-block
+interleaver, the <NULL>-skipping circular buffer and the rv start are
+closed-form index arithmetic on a few integers per codeblock that arrive as
+data, so one set of shapes serves every (K, E, rv, filler).
+
+A transport block has at most 3 codeblock layouts (codeblock 0 with its
+filler bits, K-, K+): the per-position tables are built per layout variant,
+batched over a leading variant axis, and each codeblock picks its variant's
+row.  Modulo on possibly negative operands is `torch.remainder` (floor
+modulo) throughout; indices are int64.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ...device import table
+from .rate_match import NCOLS, RM_PERM_TC
+
+
+def ncb_max(k_max: int) -> int:
+    """Static circular-buffer bound for codeblocks up to k_max."""
+    d = k_max + 4
+    return 3 * (-(-d // NCOLS)) * NCOLS
+
+
+def _perm_tables():
+    inv_perm = np.empty(NCOLS, np.int64)
+    inv_perm[RM_PERM_TC] = np.arange(NCOLS)
+    return RM_PERM_TC, inv_perm
+
+
+def _valid_rank_dev(k: torch.Tensor, f: torch.Tensor, k_max: int):
+    """Validity mask and inclusive rank over the circular buffer, in
+    unrotated order.  k, f: (V,) int64 codeblock size and filler count.
+    Returns (valid (V, NCB) bool, rank_incl (V, NCB), r, kp, nd, ncb (V, 1))."""
+    NCB = ncb_max(k_max)
+    perm, _ = table(_perm_tables, device=k.device)
+    k, f = k[:, None], f[:, None]
+    d = k + 4
+    r = (d + NCOLS - 1) // NCOLS
+    kp = NCOLS * r
+    nd = kp - d
+    ncb = 3 * kp
+    m = torch.arange(NCB, device=k.device)[None, :]
+    ca = torch.clamp(m // r, 0, NCOLS - 1)
+    ya = (m % r) * NCOLS + perm[ca]
+    j = m - kp
+    i1 = torch.clamp(j // 2, min=0)  # j < 0 only where region A wins the select
+    cb = torch.clamp(i1 // r, 0, NCOLS - 1)
+    yb1 = (i1 % r) * NCOLS + perm[cb]
+    yb2 = (perm[cb] + NCOLS * (i1 % r) + 1) % kp
+    is_even = torch.remainder(j, 2) == 0
+    in_a = m < kp
+    stream = torch.where(in_a, 0, torch.where(is_even, 1, 2))
+    y = torch.where(in_a, ya, torch.where(is_even, yb1, yb2))
+    dpos = y - nd
+    # filler bits are <NULL> in streams 0 and 1
+    valid = (y >= nd) & (m < ncb) & ~((stream < 2) & (dpos < f))
+    rank_incl = torch.cumsum(valid.to(torch.int64), dim=1)
+    return valid, rank_incl, r, kp, nd, ncb
+
+
+def _j0_variant_dev(k: torch.Tensor, f: torch.Tensor, rv: torch.Tensor, k_max: int):
+    """Per-layout-variant first-fold index table.  k, f: (V,) int64; rv:
+    0-d integer tensor.  Returns (j0 (V, 3*(k_max+4)), n_valid (V,)):
+    j0[v, p] is the rank of flat d-stream position p in the rv-rotated
+    transmitted sequence — position p accumulates llr[off + j0 + t*n_valid]
+    over the folds t — or the dump index NCB where p is <NULL>, filler or
+    beyond K."""
+    dflat = 3 * (k_max + 4)
+    NCB = ncb_max(k_max)
+    _, inv_perm = table(_perm_tables, device=k.device)
+
+    _valid, rank_incl, r, kp, nd, _ncb = _valid_rank_dev(k, f, k_max)
+    d = k[:, None] + 4
+    n_valid = torch.clamp(3 * d - 2 * f[:, None], min=1)
+    k0 = r * (24 * rv + 2)  # ncb = 96r, so ceil(ncb / (8r)) = 12
+    r0 = torch.gather(rank_incl, 1, k0 - 1)  # k0 >= 2r >= 2
+
+    p = torch.arange(dflat, device=k.device)[None, :]
+    stream = p // (k_max + 4)
+    dpos = p % (k_max + 4)
+    y = dpos + nd
+    m01 = inv_perm[y % NCOLS] * r + y // NCOLS
+    u = torch.remainder(y + kp - 1, kp)  # stream 2: (y2 - 1) mod kp = P[c] + 32*row
+    m2 = inv_perm[u % NCOLS] * r + u // NCOLS
+    m_flat = torch.where(stream == 0, m01,
+                         torch.where(stream == 1, kp + 2 * m01, kp + 2 * m2 + 1))
+    ok = (dpos < d) & ~((stream < 2) & (dpos < f[:, None]))
+    rank = torch.gather(rank_incl, 1, torch.clamp(m_flat, 0, NCB - 1))
+    j0 = torch.remainder(rank - 1 - r0, n_valid)
+    return torch.where(ok, j0, NCB), n_valid[:, 0]
+
+
+def codeword_d_fill_grouped_dev(llr_pad, start, e_eff, cls, k3, f3, rv, k_max: int,
+                                rep: int, folds: int | None = None):
+    """De-rate-match one TTI's whole codeword.
+
+    llr_pad: (G_MAX + NCB_MAX,) zero-padded codeword LLRs.
+    start/e_eff: (B_CB,) int64 per-codeblock codeword offsets / lengths
+    (0 = unused slot).  cls: (B_CB,) int64 variant index in [0, 3).
+    k3/f3: (3,) int64 variant size / filler count.  rv: 0-d integer tensor.
+    rep: static bound on the repetition folds ceil(e / n_valid); folds: the
+    number of folds this codeword needs where the host knows it (the
+    reference's rolled loop stops there too), else `rep` are taken.
+    Returns (B_CB, 3, k_max+4) accumulated d-stream LLRs: position p holds
+    the sum of every transmitted bit that maps to it (the HARQ `+=` of the
+    rate-matching receiver); <NULL>, filler and beyond-K positions are 0."""
+    NCB = ncb_max(k_max)
+    b_cb = start.shape[0]
+    j0_3, nv3 = _j0_variant_dev(k3, f3, rv, k_max)
+    nv = nv3[cls][:, None]  # (B_CB, 1)
+
+    # fold the codeword onto the circular positions of each codeblock:
+    # acc[c, m] = sum_t llr[start_c + m + t*nv_c], masked to m + t*nv_c < e_c.
+    # A fold that starts past the buffer is masked out whole, so its index
+    # is clamped into range rather than read.
+    marange = torch.arange(NCB, device=llr_pad.device)[None, :]
+    last = llr_pad.shape[0] - 1
+    acc = llr_pad.new_zeros((b_cb, NCB))
+    for t in range(rep if folds is None else min(folds, rep)):
+        pos = marange + t * nv
+        seg = llr_pad[torch.clamp(start[:, None] + pos, max=last)]
+        acc = acc + torch.where(pos < e_eff[:, None], seg, 0.0)
+    acc = torch.cat([acc, acc.new_zeros((b_cb, 1))], dim=1)  # dump slot NCB
+
+    fill = torch.gather(acc, 1, j0_3[cls])
+    fill = torch.where((e_eff > 0)[:, None], fill, 0.0)
+    return fill.reshape(b_cb, 3, k_max + 4)
+
+
+def qpp_dev(cb_k, f1, f2, k_max: int):
+    """QPP interleaver and its inverse on the device:
+    per[i] = (f1·i + f2·i²) mod k, identity beyond k (as `turbo_decode_dyn`
+    expects).  cb_k/f1/f2: (B,) int64; a size below 1 (an unused variant)
+    counts as 1.  Returns (per, inv), each (B, k_max) int64."""
+    bsz = cb_k.shape[0]
+    i = torch.arange(k_max, device=cb_k.device)[None, :]
+    k = torch.clamp(cb_k, min=1)[:, None]
+    # (f1·i + f2·i²) mod k == (i · ((f1 + f2·i) mod k)) mod k
+    t = (f1[:, None] + (f2[:, None] * i) % k) % k
+    per = torch.where(i < k, (i * t) % k, i)
+    # rows are permutations, so the scatter writes every slot exactly once
+    inv = torch.empty_like(per).scatter_(1, per, i.expand(bsz, k_max))
+    return per, inv

@@ -13,6 +13,7 @@ Counterpart of the decoder in `srsran_tpu/phy/fec/turbo.py`:
   `map_windows_plain`, the reference's scan recursion.
 * Iterations stop once every codeblock passes its CRC; converged
   codeblocks are frozen (one host read of ``done.all()`` per iteration).
+* `turbo_encode_np` is the reference's host encoder (numpy), for stimuli.
 
 LLRs are float32 with **positive LLR = bit 1**.  All codeblocks in a batch
 share one K.
@@ -86,6 +87,67 @@ def _trellis():
         tail_next=tail_next,
         tail_parity=tail_parity,
     )
+
+
+# --- encoder (host, for stimuli) ---------------------------------------------
+
+
+def _rsc_encode_np(bits: np.ndarray):
+    """Parity stream of one RSC encoder; returns (parity, final_regs).
+
+    Vectorized over the whole block: the feedback register sequence
+    a = (1/g0)·u over GF(2) with g0 = 1+D²+D³ has an impulse response of
+    period 7 ([1,0,1,1,1,0,0]), so a[i] reduces to four per-phase
+    prefix-XORs Q[i]^Q[i-2]^Q[i-3]^Q[i-4] where Q[j] is the running XOR of
+    u over the j mod 7 phase class.  Parity is then g1(D)·a with
+    g1 = 1+D+D³."""
+    u = np.asarray(bits, np.uint8)
+    k = len(u)
+    if k == 0:
+        return np.zeros(0, np.uint8), 0
+    q = np.empty(k, np.uint8)
+    for p in range(7):
+        q[p::7] = np.bitwise_xor.accumulate(u[p::7])
+    a = q.copy()
+    for c in (2, 3, 4):
+        a[c:] ^= q[: k - c]
+    z = a.copy()
+    z[1:] ^= a[:-1]
+    z[3:] ^= a[:-3]
+    # register (a[i-1], a[i-2], a[i-3]) in the _trellis() state encoding
+    s = int(a[-3] if k >= 3 else 0) << 2 | int(a[-2] if k >= 2 else 0) << 1 | int(a[-1])
+    return z, s
+
+
+def _rsc_tail_np(s: int):
+    """3 tail steps: returns (sys_bits[3], parity_bits[3])."""
+    t = _trellis()
+    xs, zs = [], []
+    for _ in range(3):
+        xs.append(int(t["tail_bit"][s]))
+        zs.append(int(t["tail_parity"][s]))
+        s = int(t["tail_next"][s])
+    assert s == 0
+    return np.array(xs, np.uint8), np.array(zs, np.uint8)
+
+
+def turbo_encode_np(bits: np.ndarray) -> np.ndarray:
+    """Encode one codeblock → d-streams array (3, K+4), TS 36.212 §5.1.3.2.
+
+    Rows are d^(0), d^(1), d^(2); the 12 tail bits are distributed over the
+    last 4 columns as the spec orders them."""
+    k = len(bits)
+    per = qpp_interleaver_np(k)
+    p1, s1 = _rsc_encode_np(bits)
+    p2, s2 = _rsc_encode_np(bits[per])
+    x1, z1 = _rsc_tail_np(s1)  # encoder 1 tail: x_K..x_K+2, z_K..z_K+2
+    x2, z2 = _rsc_tail_np(s2)
+    d = np.zeros((3, k + 4), np.uint8)
+    d[0, :k], d[1, :k], d[2, :k] = bits, p1, p2
+    d[0, k:] = [x1[0], z1[1], x2[0], z2[1]]
+    d[1, k:] = [z1[0], x1[2], z2[0], x2[2]]
+    d[2, k:] = [x1[1], z1[2], x2[1], z2[2]]
+    return d
 
 
 def _window_layout(k: int) -> tuple[int, int]:
@@ -167,7 +229,7 @@ def _step_tables():
 
 
 def map_windows_plain(ax_tr, az_tr, ax, az, bx_tr, bz_tr, a_mask, b_mask, b_known,
-                      T: int, lw: int) -> torch.Tensor:
+                      T: int, lw: int, kq: torch.Tensor | None = None) -> torch.Tensor:
     """The windowed MAP pass over all lanes in plain torch — the scan
     recursion of the reference's `map_decoder`, on the kernel's inputs.
 
@@ -175,6 +237,9 @@ def map_windows_plain(ax_tr, az_tr, ax, az, bx_tr, bz_tr, a_mask, b_mask, b_know
     bx_tr/bz_tr: (T, bn) the T positions after it; ax/az: (lw, bn) the
     window; a_mask/b_mask: (1, bn) 1.0 on window-0 / last-window lanes;
     b_known: (8, bn) exact beta_K for last-window lanes.
+    kq: optional (1, bn) int32, the dynamic-K mode: where the backward
+    carry is beta at local position q == kq (1..lw, 0 = never) it is
+    replaced by b_known (the reference's mid-scan injection).
     Returns the posterior LLRs (lw, bn) float32."""
     ps0, ps1, spu0, spu1, spp0, spp1, ns0, ns1, sp0, sp1 = table(
         _step_tables, device=ax.device)
@@ -203,6 +268,8 @@ def map_windows_plain(ax_tr, az_tr, ax, az, bx_tr, bz_tr, a_mask, b_mask, b_know
         a = alpha_step(a, ax[j], az[j])
     out = torch.empty((lw, bn), dtype=torch.float32, device=ax.device)
     for j in range(lw - 1, -1, -1):
+        if kq is not None:  # b is beta at position j + 1
+            b = torch.where(kq == j + 1, b_known, b)
         b0, b1 = beta_branches(b, ax[j], az[j])
         out[j] = (torch.max(alphas[j] + b1, dim=0).values
                   - torch.max(alphas[j] + b0, dim=0).values)
@@ -218,8 +285,9 @@ def _lane_masks(b: int, nw: int):
             (lane_w == nw - 1).astype(np.float32)[None, :])
 
 
-def map_window_inputs(lx, lz, lx_tail, lz_tail, k: int):
-    """The lane layout of one constituent pass: returns
+def map_window_lanes(lx, lz, beta_k, k: int):
+    """The lane layout of one constituent pass from (B, K) LLRs and the
+    exact tail beta_K (B, 8): returns
     (ax_tr, az_tr, ax, az, bx_tr, bz_tr, a_mask, b_mask, b_known, T, lw)
     for `map_windows` (see `map_windows_plain` for the shapes)."""
     nw, lw = _window_layout(k)
@@ -243,10 +311,20 @@ def map_window_inputs(lx, lz, lx_tail, lz_tail, k: int):
 
     x, z = 0.5 * lx, 0.5 * lz
     a_mask, b_mask = table(_lane_masks, b, nw, device=lx.device)
-    beta_k = _beta_tail(lx_tail, lz_tail)  # (B, 8)
     b_known = beta_k.T[:, :, None].expand(8, b, nw).reshape(8, bn).contiguous()
     return (before(x), before(z), main(x), main(z), after(x), after(z),
             a_mask, b_mask, b_known, T, lw)
+
+
+def map_window_inputs(lx, lz, lx_tail, lz_tail, k: int):
+    """`map_window_lanes` with beta_K taken from the (B, 3) tail LLRs."""
+    return map_window_lanes(lx, lz, _beta_tail(lx_tail, lz_tail), k)
+
+
+def unlane(llr: torch.Tensor, b: int, k: int) -> torch.Tensor:
+    """Posteriors (lw, B*nw) in lane layout → (B, K)."""
+    lw = llr.shape[0]
+    return llr.reshape(lw, b, k // lw).permute(1, 2, 0).reshape(b, k)
 
 
 def map_decoder(lx, lz, lx_tail, lz_tail, k: int) -> torch.Tensor:
@@ -262,8 +340,7 @@ def map_decoder(lx, lz, lx_tail, lz_tail, k: int) -> torch.Tensor:
         llr = map_windows_plain(*ins, T, lw)
     else:
         llr = turbo_cuda.map_windows(*ins, T=T, lw=lw)
-    b = lx.shape[0]
-    return llr.reshape(lw, b, k // lw).permute(1, 2, 0).reshape(b, k)
+    return unlane(llr, lx.shape[0], k)
 
 
 # --- full iterative decoder ---------------------------------------------------

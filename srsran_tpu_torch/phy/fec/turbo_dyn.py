@@ -1,0 +1,155 @@
+"""Dynamic-K turbo decoding: codeblocks of any of the 188 LTE sizes
+K <= K_max decode in one batch with one set of shapes.
+
+Counterpart of `srsran_tpu/phy/fec/turbo_dyn.py`.  The codeblock size is
+data:
+
+* LLRs live in (B, 3, K_max+4) buffers; positions >= K are zeroed, so every
+  trellis step beyond K is an erasure and alpha/beta below K are untouched.
+* The exact tail state (beta at position K) is injected mid-pass: the lane
+  whose window holds position K swaps its backward carry for the
+  tail-derived beta there (the MAP kernel's dynamic-K mode, its `kq` input).
+* The QPP interleaver and its inverse are inputs, (B, K_max) per-row gather
+  indices, identity beyond K.
+* CRC early stop uses the leading-zeros invariance of CRCs with zero
+  initial value: each row's bits are rolled to the tail of the K_max buffer
+  and multiplied with one fixed (K_max, 48) CRC24A|CRC24B matrix.
+
+The early stop is a host loop with one `done.all()` read per iteration, as
+in `turbo.turbo_decode`.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from ...device import table
+from ..common import LTE_CRC24A, LTE_CRC24B
+from ..crc import crc_matrix_np
+from . import turbo_cuda
+from .turbo import (_beta_tail, _window_layout, dstream_tails, map_window_lanes,
+                    map_windows_plain, unlane)
+
+
+def _window_starts(b: int, nw: int, lw: int) -> np.ndarray:
+    """(1, B*nw) int32 first position of every lane's window."""
+    return np.tile(np.arange(nw, dtype=np.int32) * lw, b)[None, :]
+
+
+def lane_kq(k_vec: torch.Tensor, k_max: int) -> torch.Tensor:
+    """The kernel's `kq` input, (1, B*nw) int32: K_i - w*lw where that lies
+    in [1, lw] (the lane whose window holds beta_K), else 0."""
+    nw, lw = _window_layout(k_max)
+    starts = table(_window_starts, k_vec.shape[0], nw, lw, device=k_vec.device)
+    k_local = torch.repeat_interleave(k_vec.to(torch.int32), nw)[None, :] - starts
+    return torch.where((k_local >= 1) & (k_local <= lw), k_local, 0).to(torch.int32)
+
+
+def map_decoder_dyn(lx, lz, beta_k, k_vec, k_max: int) -> torch.Tensor:
+    """One constituent max-log-MAP pass over dynamic-size codeblocks.
+
+    lx, lz: (B, K_max) systematic+apriori / parity LLRs, zero beyond each
+    codeblock's true size.  beta_k: (B, 8) exact beta at position K (from
+    the tail bits).  k_vec: (B,) integer true sizes.
+    Returns posteriors (B, K_max) float32, garbage beyond K (callers mask).
+    On a CUDA tensor this launches the Hopper kernel in its dynamic-K mode,
+    on a CPU tensor it runs `map_windows_plain`."""
+    *ins, b_mask, b_known, T, lw = map_window_lanes(lx, lz, beta_k, k_max)
+    b_mask = torch.zeros_like(b_mask)  # kq == lw takes its place
+    kq = lane_kq(k_vec, k_max)
+    if lx.device.type == "cpu":
+        llr = map_windows_plain(*ins, b_mask, b_known, T, lw, kq=kq)
+    else:
+        llr = turbo_cuda.map_windows(*ins, b_mask, b_known, T=T, lw=lw, kq=kq)
+    return unlane(llr, lx.shape[0], k_max)
+
+
+def roll_to_tail(bits: torch.Tensor, k_vec: torch.Tensor) -> torch.Tensor:
+    """Right-align each row's first K_i entries in the (B, K_max) buffer,
+    zeros before them (entries beyond K_i are dropped)."""
+    k_max = bits.shape[1]
+    src = torch.arange(k_max, device=bits.device)[None, :] + (k_vec[:, None] - k_max)
+    return torch.where(src >= 0, torch.gather(bits, 1, src.clamp(min=0)), 0)
+
+
+def crc_ok_ab(bits: torch.Tensor, k_vec, crc_table, crc_is_b) -> torch.Tensor:
+    """Per-row CRC verdict (B,) bool of {0,1} bits (B, K_max), zero beyond
+    K_i, against the fixed (K_max, 48) CRC24A|CRC24B matrix; crc_is_b picks
+    the polynomial per row."""
+    acc = torch.matmul(roll_to_tail(bits, k_vec).to(torch.float32), crc_table)
+    zero = (acc.to(torch.int32) & 1) == 0
+    return torch.where(crc_is_b, zero[:, 24:].all(dim=-1), zero[:, :24].all(dim=-1))
+
+
+def turbo_decode_dyn(d_llr, k_vec, per, inv, valid, k_max: int, max_iterations: int = 5,
+                     crc_table=None, crc_is_b=None):
+    """Decode a batch of dynamic-size codeblocks.
+
+    d_llr: (B, 3, K_max+4) d-stream LLRs — each codeblock's data in columns
+    [0, K_i), its 4 tail columns at [K_i, K_i+4), zeros elsewhere.
+    k_vec: (B,) integer true sizes.  per/inv: (B, K_max) int64 QPP
+    permutation and inverse, identity beyond K_i.  valid: (B,) bool —
+    padded slots count as already done.
+    crc_table: optional (K_max, 48) float32, columns [:24] the CRC24A
+    matrix and [24:] CRC24B (`crc_table_ab`); crc_is_b: (B,) bool selects
+    the polynomial that gates a row's early stop.
+    Returns (bits (B, K_max) uint8, zero beyond K; posteriors (B, K_max);
+    n_iters (B,) int32 — the iteration at which each row's CRC first
+    passed, or the loop's iteration count if it never did).
+
+    One iteration does two interleaves (natural→interleaved of ext1,
+    interleaved→natural of ext2): the posterior for output and early stop
+    is the natural-order sum sys + ext1 + ext2."""
+    b = d_llr.shape[0]
+    dev = d_llr.device
+    k_vec = k_vec.to(torch.int64)
+    in_mask = torch.arange(k_max, device=dev)[None, :] < k_vec[:, None]  # (B, K_max)
+    zero = d_llr.new_zeros(())
+
+    sys = torch.where(in_mask, d_llr[:, 0, :k_max], zero)
+    p1 = torch.where(in_mask, d_llr[:, 1, :k_max], zero)
+    p2 = torch.where(in_mask, d_llr[:, 2, :k_max], zero)
+
+    tail_cols = (k_vec[:, None, None] + torch.arange(4, device=dev)).expand(b, 3, 4)
+    lx1_t, lz1_t, lx2_t, lz2_t = dstream_tails(torch.gather(d_llr, 2, tail_cols))
+    beta_k1 = _beta_tail(lx1_t, lz1_t)  # (B, 8)
+    beta_k2 = _beta_tail(lx2_t, lz2_t)
+    sys_int = torch.where(in_mask, torch.gather(sys, 1, per), zero)
+
+    def crc_pass(post):
+        if crc_table is None:
+            return torch.zeros((b,), dtype=torch.bool, device=dev)
+        return crc_ok_ab((in_mask & (post > 0)).to(torch.uint8), k_vec, crc_table, crc_is_b)
+
+    ext2 = torch.zeros((b, k_max), dtype=torch.float32, device=dev)
+    post = torch.zeros_like(ext2)
+    done = ~valid
+    it_vec = torch.zeros((b,), dtype=torch.int32, device=dev)
+    n_loop = 0
+    while n_loop < max_iterations and not bool(done.all()):
+        x1 = sys + ext2
+        ext1 = torch.where(in_mask, map_decoder_dyn(x1, p1, beta_k1, k_vec, k_max) - x1, zero)
+        in2 = sys_int + torch.gather(ext1, 1, per)
+        ext2_int = map_decoder_dyn(in2, p2, beta_k2, k_vec, k_max) - in2
+        new_ext2 = torch.where(in_mask, torch.gather(ext2_int, 1, inv), zero)
+        # converged rows stay frozen
+        ext2 = torch.where(done[:, None], ext2, new_ext2)
+        post = torch.where(done[:, None], post, sys + ext1 + new_ext2)
+        new_done = done | crc_pass(post)
+        n_loop += 1
+        it_vec = torch.where(new_done & ~done, n_loop, it_vec)
+        done = new_done
+    it_vec = torch.where(done, it_vec, n_loop)  # never converged: the loop count
+    bits = (in_mask & (post > 0)).to(torch.uint8)
+    return bits, post, it_vec
+
+
+@lru_cache(maxsize=64)
+def crc_table_ab(k_max: int) -> np.ndarray:
+    """Fixed (K_max, 48) float32 CRC24A|CRC24B matrix for dynamic-K checks."""
+    a = crc_matrix_np(LTE_CRC24A, k_max).astype(np.float32)
+    bb = crc_matrix_np(LTE_CRC24B, k_max).astype(np.float32)
+    return np.concatenate([a, bb], axis=1)

@@ -1,13 +1,16 @@
-"""Soft demodulator, TS 36.211 §7.1.
+"""Soft demodulator and host modulation mapper, TS 36.211 §7.1.
 
 Counterpart of `demod_soft` in `srsran_tpu/phy/modem.py`: the zone-based
 max-log approximation — the first I/Q LLR pair is the negated symbol, each
 further pair is ``abs(prev) - threshold``.  Positive LLR ⇒ bit 1.
+`modulate_np` is the reference's host mapper (constellations from the 3GPP
+Gray-mapping recursion), for stimuli.
 """
 
 from __future__ import annotations
 
 import enum
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -23,6 +26,52 @@ class Mod(enum.IntEnum):
     @property
     def bits_per_symbol(self) -> int:
         return (1, 2, 4, 6, 8)[self]
+
+
+def _pam_levels(nbits: int) -> np.ndarray:
+    """Gray-mapped PAM amplitude for each bit pattern (TS 36.211 §7.1):
+    unnormalized odd levels for all 2^nbits patterns."""
+    if nbits == 0:
+        return np.array([1.0])
+
+    def f(bits):
+        if len(bits) == 1:
+            return 2.0 - (1.0 - 2.0 * bits[0])
+        return 2.0 ** len(bits) - (1.0 - 2.0 * bits[0]) * f(bits[1:])
+
+    out = np.empty(2**nbits)
+    for idx in range(2**nbits):
+        out[idx] = f([(idx >> (nbits - 1 - i)) & 1 for i in range(nbits)])
+    return out
+
+
+@lru_cache(maxsize=None)
+def constellation_np(mod: Mod) -> np.ndarray:
+    """Symbol table indexed by the MSB-first packed bit word."""
+    if mod == Mod.BPSK:
+        a = 1.0 / np.sqrt(2.0)
+        return np.array([a + 1j * a, -a - 1j * a], dtype=np.complex64)
+    m = mod.bits_per_symbol
+    half = m // 2
+    # even bits (b0, b2, ..) steer I, odd bits Q; the first bit of each
+    # axis is the sign, the others the magnitude
+    norm = {2: np.sqrt(2.0), 4: np.sqrt(10.0), 6: np.sqrt(42.0), 8: np.sqrt(170.0)}[m]
+    mag = _pam_levels(half - 1)
+    table = np.empty(2**m, dtype=np.complex64)
+    for idx in range(2**m):
+        bits = [(idx >> (m - 1 - i)) & 1 for i in range(m)]
+        ib, qb = bits[0::2], bits[1::2]
+        i_val = (1.0 - 2.0 * ib[0]) * mag[int("".join(map(str, ib[1:])) or "0", 2)]
+        q_val = (1.0 - 2.0 * qb[0]) * mag[int("".join(map(str, qb[1:])) or "0", 2)]
+        table[idx] = (i_val + 1j * q_val) / norm
+    return table
+
+
+def modulate_np(mod: Mod, bits) -> np.ndarray:
+    """Host: {0,1} bits (n*m,) → complex64 symbols (n,), for stimuli."""
+    m = mod.bits_per_symbol
+    b = np.asarray(bits, np.uint8).reshape(-1, m).astype(np.int64)
+    return constellation_np(mod)[b @ (1 << np.arange(m - 1, -1, -1, dtype=np.int64))]
 
 
 def _interleave(*llrs: torch.Tensor) -> torch.Tensor:

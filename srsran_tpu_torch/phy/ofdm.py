@@ -1,4 +1,4 @@
-"""OFDM demodulation (CP strip + FFT), TS 36.211 §6.12.
+"""OFDM demodulation (CP strip + FFT) and modulation, TS 36.211 §6.12.
 
 Counterpart of `srsran_tpu/phy/ofdm.py` (receive side): per symbol, skip
 the CP, FFT(N), optional window-offset phase compensation, then pick the
@@ -140,3 +140,26 @@ def ofdm_rx_sf(cfg: OfdmConfig, samples: torch.Tensor) -> torch.Tensor:
         grid = grid * (1.0 / np.sqrt(n))
     return grid.to(torch.complex64)
 
+
+
+def ofdm_tx_sf(cfg: OfdmConfig, grid: torch.Tensor) -> torch.Tensor:
+    """Modulate one subframe: (..., nsymb_sf, nof_re) complex64 grid →
+    (..., sf_sz) complex64 (the reference's `_ofdm_tx_sf_impl`)."""
+    n = cfg.symbol_sz
+    nre = cfg.nof_re
+    nsym = 2 * cfg.nsymb_slot
+    bins = grid.new_zeros(grid.shape[:-2] + (nsym, n), dtype=torch.complex64)
+    bins[..., 1 : 1 + nre // 2] = grid[..., nre // 2 :]
+    bins[..., n - nre // 2 :] = grid[..., : nre // 2]
+    sym = torch.fft.ifft(bins, dim=-1) * n  # the reference IFFT is unnormalized
+    if cfg.normalize:
+        sym = sym * (1.0 / np.sqrt(n))
+    pieces = []
+    for i, l in enumerate(list(range(cfg.nsymb_slot)) * 2):
+        cp = cp_len_norm(l, n) if cfg.cp == CP.NORM else cp_len_ext(n)
+        pieces += [sym[..., i, n - cp :], sym[..., i, :]]
+    out = torch.cat(pieces, dim=-1)
+    shift, _ = table(_phase_tables, cfg, device=grid.device)
+    if shift is not None:
+        out = out * shift
+    return out.to(torch.complex64)

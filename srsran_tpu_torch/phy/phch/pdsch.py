@@ -1,7 +1,8 @@
-"""PDSCH grant, RE indices and scrambling c_init — host side.
+"""PDSCH grant, RE indices, scrambling c_init and host encode — host side.
 
-Copies of `DlGrant`, `pdsch_re_indices` (FDD, full subframe) and
-`pdsch_cinit` from `srsran_tpu/phy/phch/pdsch.py`.  RE mapping is a
+Copies of `DlGrant`, `pdsch_re_indices` (FDD, full subframe),
+`pdsch_cinit` and `pdsch_encode_np` (port 0) from
+`srsran_tpu/phy/phch/pdsch.py`.  RE mapping is a
 host-built flat index table per (cell, sf, cfi, PRB set); on the device
 the receive side is one gather with that table.
 """
@@ -14,7 +15,10 @@ from functools import lru_cache
 import numpy as np
 
 from ..common import Cell
-from ..modem import Mod
+from ..modem import Mod, modulate_np
+from ..scrambling import scramble_bits
+from ..sequence import gold_sequence
+from .sch import TbCoding, dlsch_encode_np
 
 MOD_QM = {Mod.QPSK: 2, Mod.QAM16: 4, Mod.QAM64: 6, Mod.QAM256: 8}
 
@@ -84,3 +88,19 @@ def pdsch_re_indices(cell: Cell, sf_idx: int, cfi: int, prb: tuple[int, ...]) ->
 def pdsch_cinit(rnti: int, sf_idx: int, cell_id: int, q: int = 0) -> int:
     """TS 36.211 §6.3.1 PDSCH scrambling c_init."""
     return (rnti << 14) + (q << 13) + (sf_idx << 9) + cell_id
+
+
+def pdsch_encode_np(cell: Cell, sf_idx: int, cfi: int, grant: DlGrant,
+                    tb_bits: np.ndarray) -> np.ndarray:
+    """Host TX: encode one TB into a (1, nsymb, nre) complex64 grid (no CRS),
+    port 0 only."""
+    if grant.tx_scheme != "port0":
+        raise NotImplementedError(f"tx_scheme {grant.tx_scheme!r} is not ported")
+    idx = pdsch_re_indices(cell, sf_idx, cfi, grant.prb)
+    coding = TbCoding(tbs=grant.tbs, g=len(idx) * grant.qm, qm=grant.qm, rv=grant.rv)
+    bits = dlsch_encode_np(tb_bits, coding)
+    seq = gold_sequence(pdsch_cinit(grant.rnti, sf_idx, cell.id), len(bits))
+    sym = modulate_np(grant.mod, scramble_bits(bits, seq))
+    grid = np.zeros((1, cell.nsymb_per_sf, cell.nof_re_per_symbol), np.complex64)
+    grid.reshape(1, -1)[:, idx] = sym[None, :]
+    return grid

@@ -1,0 +1,35 @@
+"""DL MCS → (modulation, I_TBS) and the TBS lookup, TS 36.213 §7.1.7 —
+host side.  Copy of the downlink part of `srsran_tpu/phy/phch/ra.py`; the
+spec tables are in `tbs_data.py`."""
+
+from __future__ import annotations
+
+from ..modem import Mod
+from .tbs_data import DL_MCS_TBS_IDX, DL_MCS_TBS_IDX_256QAM, TBS_TABLE
+
+
+def dl_mcs_to_mod(mcs: int, use_256qam: bool = False) -> Mod:
+    """TS 36.213 Table 7.1.7.1-1 (/-1A)."""
+    bounds = ((4, Mod.QPSK), (10, Mod.QAM16), (19, Mod.QAM64), (27, Mod.QAM256)) if use_256qam \
+        else ((9, Mod.QPSK), (16, Mod.QAM16), (28, Mod.QAM64))
+    for last, mod in bounds:
+        if mcs <= last:
+            return mod
+    raise ValueError(f"reserved MCS {mcs}")
+
+
+def dl_mcs_to_itbs(mcs: int, use_256qam: bool = False) -> int:
+    return (DL_MCS_TBS_IDX_256QAM if use_256qam else DL_MCS_TBS_IDX)[mcs]
+
+
+def tbs_lookup(i_tbs: int, n_prb: int) -> int:
+    """TS 36.213 Table 7.1.7.2.1-1."""
+    return TBS_TABLE[i_tbs][n_prb - 1]
+
+
+def dl_tbs(mcs: int, n_prb: int, use_256qam: bool = False, dwpts: bool = False) -> int:
+    """TBS of a DL grant.  ``dwpts``: a TDD special subframe uses
+    max(1, 0.75*n_prb) as the table column (TS 36.213 §7.1.7)."""
+    if dwpts:
+        n_prb = max(1, int(0.75 * n_prb))
+    return tbs_lookup(dl_mcs_to_itbs(mcs, use_256qam), n_prb)

@@ -1,4 +1,4 @@
-"""DL-SCH transport-block decode, TS 36.212 §5.3.2.
+"""DL-SCH transport-block decode (and host encode), TS 36.212 §5.3.2.
 
 Counterpart of the device decode in `srsran_tpu/phy/phch/sch.py`:
 per-codeblock de-rate-match with filler bits pinned to a strong 0,
@@ -16,10 +16,10 @@ import numpy as np
 import torch
 
 from ..common import LTE_CRC24A, LTE_CRC24B
-from ..crc import crc_compute, crc_table
+from ..crc import crc_attach_np, crc_compute, crc_table
 from ..fec.cbsegm import CbSegm, cbsegm
-from ..fec.rate_match import turbo_rate_match_rx
-from ..fec.turbo import turbo_decode
+from ..fec.rate_match import turbo_rate_match_rx, turbo_rate_match_tx
+from ..fec.turbo import turbo_decode, turbo_encode_np
 
 FILLER_LLR = np.float32(-1e4)  # filler bits are known 0 (LLR>0 ⇒ 1)
 
@@ -49,6 +49,27 @@ class TbCoding:
 
     def e_sizes(self) -> list[int]:
         return _e_split(self.g, self.segm.C, self.qm, self.nof_layers)
+
+
+def dlsch_encode_np(tb_bits: np.ndarray, cfg: TbCoding) -> np.ndarray:
+    """Host encoder: TB bits (tbs,) → codeword bits (g,), for stimuli."""
+    s = cfg.segm
+    assert len(tb_bits) == cfg.tbs
+    b = crc_attach_np(tb_bits.astype(np.uint8), LTE_CRC24A)
+    cbs = []
+    pos = 0
+    for i, k in enumerate(s.cb_sizes):
+        f = s.F if i == 0 else 0
+        take = k - f - (24 if s.C > 1 else 0)
+        cb = np.concatenate([np.zeros(f, np.uint8), b[pos : pos + take]])
+        pos += take
+        cbs.append(crc_attach_np(cb, LTE_CRC24B) if s.C > 1 else cb)
+    assert pos == len(b)
+    es = cfg.e_sizes()
+    out = [turbo_rate_match_tx(turbo_encode_np(cb), es[i], cfg.rv,
+                               n_filler=s.F if i == 0 else 0)
+           for i, cb in enumerate(cbs)]
+    return np.concatenate(out).astype(np.uint8)
 
 
 def dlsch_decode_multi_device(llrs, cfgs, max_iterations: int = 5):

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from .device import table
+from .device import require_cuda, table
 from .phy.chest.chest_dl import chest_dl
 from .phy.common import Cell
 from .phy.mimo import predecode_single_mrc
@@ -24,17 +24,20 @@ from .phy.sequence import gold_sequence_signs
 
 
 def ue_dl_subframe(cell: Cell, sf_idx: int, cfi: int, grant: DlGrant,
-                   max_iterations: int = 5, *, device):
+                   max_iterations: int = 5, *, device=None):
     """Build the UE DL subframe decode for one (cell, subframe, grant).
 
     Returns fn(samples (B, nrx, sf_len) complex64 on `device`) ->
       (tb_bits (B, tbs) uint8, crc_ok (B,) bool, snr_db (B,) float32).
     The RE index table and the scrambling signs move to `device` once.
+    `device=None` means the first CUDA device (and raises when there is
+    none); the tests pass "cpu".
     """
     if grant.tx_scheme != "port0":
         raise NotImplementedError(f"tx_scheme {grant.tx_scheme!r} is not ported")
     ofdm = OfdmConfig.from_cell(cell, normalize=True)
-    idx = table(pdsch_re_indices, cell, sf_idx, cfi, grant.prb, device=torch.device(device),
+    device = require_cuda() if device is None else torch.device(device)
+    idx = table(pdsch_re_indices, cell, sf_idx, cfi, grant.prb, device=device,
                 dtype=torch.int64)
     device = idx.device  # with its index ("cuda" → "cuda:0")
     g = idx.numel() * grant.qm

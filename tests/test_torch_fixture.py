@@ -1,18 +1,21 @@
-"""The committed stimulus fixture of the port is what
+"""The committed stimulus fixtures of the port are what
 `tools/make_torch_fixture.py` builds from the JAX reference, and the port
-decodes its two stored noisy subframes (100 PRB MCS 26) as the reference
-did."""
+decodes what they store as the reference did: the two noisy subframes of
+the static path (100 PRB MCS 26) and the grants of the dynamic path."""
 
 import importlib.util
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
 from srsran_tpu_torch.phy.common import Cell
 from srsran_tpu_torch.phy.modem import Mod
 from srsran_tpu_torch.phy.phch.pdsch import DlGrant
+from srsran_tpu_torch.phy.phch.ra import dl_mcs_to_mod, dl_tbs
 from srsran_tpu_torch.pipeline import ue_dl_subframe
+from srsran_tpu_torch.pipeline_dynamic import DynamicUeDl
 
 torch.set_num_threads(1)
 
@@ -53,3 +56,42 @@ def test_port_decodes_fixture_like_reference():
         tb.numpy(), np.unpackbits(fx["ref_tb_packed"], axis=-1, count=tbs))
     np.testing.assert_array_equal(ok.numpy(), fx["ref_crc_ok"])
     np.testing.assert_allclose(snr_db.numpy(), fx["ref_snr_db"], atol=1e-3)
+
+
+def test_dynamic_fixture_is_current():
+    tool = load_tool()
+    fd = np.load(tool.OUT_DYN)
+    for key, val in tool.DYN_CONFIG.items():
+        assert fd[key] == val, key
+    n = len(tool.DYN_GRANTS)
+    cols = np.stack([fd[k] for k in ("mcs", "prb_start", "prb_len", "sf_idx", "noise_amp")], axis=1)
+    np.testing.assert_array_equal(cols, np.asarray(tool.DYN_GRANTS))
+    assert fd["rx"].shape == (n, 1, 30720) and fd["rx"].dtype == np.complex64
+    assert fd["ref_crc_ok"].tolist() == [True, True, True, False]
+    assert fd["ref_n_it"].tolist() == [3, 2, 1, 6]
+    # the stored subframe is the reference's rendering of the seeded TB plus
+    # the seeded noise; a CRC-passing reference TB is the sent one
+    for i in (1, 2):
+        grant, tb, tx = tool.dynamic_grant(i)
+        assert int(fd["tbs"][i]) == grant.tbs == tb.size
+        np.testing.assert_array_equal(np.unpackbits(fd["ref_tb_packed"][i], count=tb.size), tb)
+        rng = np.random.default_rng(tool.DYN_CONFIG["seed"] + 100 + i)
+        noise = rng.standard_normal((1, tx.size)) + 1j * rng.standard_normal((1, tx.size))
+        np.testing.assert_allclose(fd["rx"][i], tx[None, :] + tool.DYN_GRANTS[i][4] * noise,
+                                   rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("i", [0, 1, 2, 3])
+def test_port_decodes_dynamic_fixture_like_reference(i):
+    fd = np.load(ROOT / "srsran_tpu_torch" / "testdata" / "ue_dl_dynamic_20mhz.npz")
+    cell = Cell(nof_prb=int(fd["nof_prb"]), nof_ports=1, id=int(fd["cell_id"]))
+    ue = DynamicUeDl(cell, cfi=int(fd["cfi"]), max_iterations=int(fd["max_iterations"]),
+                     device="cpu")
+    l, s0, mcs = int(fd["prb_len"][i]), int(fd["prb_start"][i]), int(fd["mcs"][i])
+    grant = DlGrant(prb=tuple(range(s0, s0 + l)), mod=dl_mcs_to_mod(mcs), tbs=dl_tbs(mcs, l),
+                    rnti=int(fd["rnti"]))
+    assert grant.tbs == int(fd["tbs"][i])
+    tb, ok, _, n_it = ue.decode(fd["rx"][i], int(fd["sf_idx"][i]), grant)
+    assert (ok, n_it) == (bool(fd["ref_crc_ok"][i]), int(fd["ref_n_it"][i]))
+    if ok:  # a decode that does not converge has no bits to hold
+        np.testing.assert_array_equal(tb, np.unpackbits(fd["ref_tb_packed"][i], count=grant.tbs))

@@ -15,7 +15,13 @@ import srsran_tpu.phy.crc as r_crc
 import srsran_tpu.phy.fec.cbsegm as r_cbsegm
 import srsran_tpu.phy.fec.rate_match as r_rm
 import srsran_tpu.phy.fec.turbo as r_turbo
+import srsran_tpu.phy.modem as r_modem
+import srsran_tpu.phy.ofdm as r_ofdm
 import srsran_tpu.phy.phch.pdsch as r_pdsch
+import srsran_tpu.phy.phch.ra as r_ra
+import srsran_tpu.phy.phch.sch as r_sch
+import srsran_tpu.phy.phch.tbs_data as r_tbs_data
+import srsran_tpu.phy.scrambling as r_scr
 import srsran_tpu.phy.sequence as r_seq
 import srsran_tpu_torch.phy.chest.chest_dl as t_chest
 import srsran_tpu_torch.phy.chest.refsignal_dl as t_rs
@@ -24,7 +30,13 @@ import srsran_tpu_torch.phy.crc as t_crc
 import srsran_tpu_torch.phy.fec.cbsegm as t_cbsegm
 import srsran_tpu_torch.phy.fec.rate_match as t_rm
 import srsran_tpu_torch.phy.fec.turbo as t_turbo
+import srsran_tpu_torch.phy.modem as t_modem
+import srsran_tpu_torch.phy.ofdm as t_ofdm
 import srsran_tpu_torch.phy.phch.pdsch as t_pdsch
+import srsran_tpu_torch.phy.phch.ra as t_ra
+import srsran_tpu_torch.phy.phch.sch as t_sch
+import srsran_tpu_torch.phy.phch.tbs_data as t_tbs_data
+import srsran_tpu_torch.phy.scrambling as t_scr
 import srsran_tpu_torch.phy.sequence as t_seq
 from srsran_tpu_torch.convert import from_reference
 
@@ -144,3 +156,101 @@ def test_chest_tables(smooth, interp):
             for a, b in zip(t_chest._chest_tables(port, 2, cfg, p),
                             r_chest._chest_tables(ref, 2, cfg_ref, p)):
                 np.testing.assert_array_equal(a, b)
+
+
+# --- the host transmitter (stimuli), bit for bit ------------------------------
+
+
+def test_ra_tables_every_mcs_and_prb():
+    for name in ("DL_MCS_TBS_IDX", "DL_MCS_TBS_IDX_256QAM", "UL_MCS_TBS_IDX", "TBS_TABLE"):
+        assert getattr(t_tbs_data, name) == getattr(r_tbs_data, name), name
+    for q256, n_mcs in ((False, 29), (True, 28)):
+        for mcs in range(n_mcs):
+            assert int(t_ra.dl_mcs_to_mod(mcs, q256)) == int(r_ra.dl_mcs_to_mod(mcs, q256))
+            assert t_ra.dl_mcs_to_itbs(mcs, q256) == r_ra.dl_mcs_to_itbs(mcs, q256)
+            for prb in range(1, 111):
+                assert t_ra.dl_tbs(mcs, prb, q256) == r_ra.dl_tbs(mcs, prb, q256)
+                assert t_ra.dl_tbs(mcs, prb, q256, dwpts=True) == r_ra.dl_tbs(mcs, prb, q256, dwpts=True)
+        with pytest.raises(ValueError):
+            t_ra.dl_mcs_to_mod(n_mcs, q256)
+    assert t_ra.tbs_lookup(26, 100) == r_ra.tbs_lookup(26, 100) == 75376
+
+
+@pytest.mark.parametrize("k", [40, 136, 1056, 6144])
+def test_turbo_encoder_and_crc_attach(k):
+    rng = np.random.default_rng(k)
+    msg = rng.integers(0, 2, k - 24).astype(np.uint8)
+    for poly in (t_common.LTE_CRC24A, t_common.LTE_CRC24B):
+        cb = t_crc.crc_attach_np(msg, poly)
+        np.testing.assert_array_equal(cb, r_crc.crc_attach_np(msg, poly))
+    d = t_turbo.turbo_encode_np(cb)
+    assert d.shape == (3, k + 4) and d.dtype == np.uint8
+    np.testing.assert_array_equal(d, r_turbo.turbo_encode_np(cb))
+    for rv in range(4):
+        for e, f in ((3 * k, 0), (4000, 8)):
+            np.testing.assert_array_equal(t_rm.turbo_rate_match_tx(d, e, rv, f),
+                                          np.asarray(r_rm.turbo_rate_match_tx(d, e, rv, f)))
+
+
+@pytest.mark.parametrize("mod", [0, 1, 2, 3, 4])
+def test_modulate_and_scramble_bits(mod):
+    rng = np.random.default_rng(mod)
+    bits = rng.integers(0, 2, 240).astype(np.uint8)
+    seq = t_seq.gold_sequence(0x2345, 240)
+    np.testing.assert_array_equal(t_scr.scramble_bits(bits, seq),
+                                  np.asarray(r_scr.scramble_bits(bits, seq)))
+    np.testing.assert_array_equal(t_modem.constellation_np(t_modem.Mod(mod)),
+                                  r_modem.constellation_np(r_modem.Mod(mod)))
+    np.testing.assert_array_equal(t_modem.modulate_np(t_modem.Mod(mod), bits),
+                                  r_modem.modulate_np(r_modem.Mod(mod), bits))
+
+
+# (nof_prb, cell id, subframe, mcs, first PRB, number of PRB, rv): one
+# codeblock with filler, K- and K+ codeblocks, the PSS/PBCH subframe, a
+# retransmission
+TX_CASES = [(6, 0, 0, 3, 0, 6, 0), (25, 7, 5, 12, 3, 20, 2), (50, 301, 2, 20, 0, 50, 0),
+            (100, 301, 9, 28, 0, 100, 3)]
+
+
+@pytest.mark.parametrize("nof_prb,cell_id,sf_idx,mcs,s0,l,rv", TX_CASES)
+def test_host_transmitter(nof_prb, cell_id, sf_idx, mcs, s0, l, rv):
+    ref_cell, cell = cells(nof_prb=nof_prb, id=cell_id, nof_ports=1)
+    tbs = r_ra.dl_tbs(mcs, l)
+    ref_grant = r_pdsch.DlGrant(prb=tuple(range(s0, s0 + l)), mod=r_ra.dl_mcs_to_mod(mcs),
+                                tbs=tbs, rv=rv, rnti=0x46)
+    grant = from_reference(ref_grant)
+    tb = np.random.default_rng(mcs).integers(0, 2, tbs).astype(np.uint8)
+    g = len(r_pdsch.pdsch_re_indices(ref_cell, sf_idx, 1, ref_grant.prb)) * grant.qm
+    np.testing.assert_array_equal(
+        t_sch.dlsch_encode_np(tb, t_sch.TbCoding(tbs=tbs, g=g, qm=grant.qm, rv=rv)),
+        r_sch.dlsch_encode_np(tb, r_sch.TbCoding(tbs=tbs, g=g, qm=grant.qm, rv=rv)))
+    ref_grid = r_pdsch.pdsch_encode_np(ref_cell, sf_idx, 1, ref_grant, tb)
+    grid = t_pdsch.pdsch_encode_np(cell, sf_idx, 1, grant, tb)
+    assert grid.dtype == np.complex64
+    np.testing.assert_array_equal(grid, ref_grid)
+    np.testing.assert_array_equal(t_rs.put_crs_np(grid, cell, sf_idx),
+                                  r_rs.put_crs_np(ref_grid, ref_cell, sf_idx))
+    # the IFFT: complex64 on both sides, equal within fp32 FFT rounding
+    ref_tx = np.asarray(r_ofdm.ofdm_tx_sf(r_ofdm.OfdmConfig.from_cell(ref_cell, normalize=True),
+                                          ref_grid))
+    tx = t_ofdm.ofdm_tx_sf(t_ofdm.OfdmConfig.from_cell(cell, normalize=True),
+                           torch.from_numpy(grid))
+    assert tx.dtype == torch.complex64 and tuple(tx.shape) == ref_tx.shape == (1, cell.sf_len)
+    assert np.abs(tx.numpy() - ref_tx).max() <= 1e-5 * np.abs(ref_tx).max()
+
+
+def test_ofdm_tx_rx_round_trip_with_shift():
+    """`ofdm_tx_sf` followed by `ofdm_rx_sf` gives the grid back, also with
+    the extended CP and the half-subcarrier shift (undone by the opposite
+    shift at the receiver)."""
+    rng = np.random.default_rng(0)
+    for kw in (dict(nof_prb=6), dict(nof_prb=15, cp=t_common.CP.EXT, freq_shift_f=0.5)):
+        cfg = t_ofdm.OfdmConfig(normalize=True, **kw)
+        ref_cfg = r_ofdm.OfdmConfig(normalize=True, **dict(kw, cp=r_common.CP(int(kw.get("cp", 0)))))
+        shape = (2, 2 * cfg.nsymb_slot, cfg.nof_re)
+        grid = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+        tx = t_ofdm.ofdm_tx_sf(cfg, torch.from_numpy(grid))
+        ref_tx = np.asarray(r_ofdm.ofdm_tx_sf(ref_cfg, grid))
+        assert np.abs(tx.numpy() - ref_tx).max() <= 1e-5 * np.abs(ref_tx).max()
+        rx_cfg = dataclasses.replace(cfg, freq_shift_f=-cfg.freq_shift_f)
+        np.testing.assert_allclose(t_ofdm.ofdm_rx_sf(rx_cfg, tx).numpy(), grid, atol=1e-5)

@@ -11,6 +11,7 @@ ROOT = Path(__file__).resolve().parents[1]
 def test_import_leaves_jax_out():
     code = (
         "import sys, srsran_tpu_torch.pipeline, srsran_tpu_torch.convert\n"
+        "import srsran_tpu_torch.pipeline_dynamic, srsran_tpu_torch.phy.phch.ra, chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'srsran_tpu.'))"
         " or m == 'srsran_tpu']\n"
         "assert not bad, bad\n"
@@ -21,6 +22,6 @@ def test_import_leaves_jax_out():
 def test_sources_never_import_jax():
     pattern = re.compile(r"^\s*(import|from) (jax|srsran_tpu)\b", re.M)
     files = sorted((ROOT / "srsran_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 15
+    assert len(files) > 20
     for path in files:
         assert not pattern.search(path.read_text()), path

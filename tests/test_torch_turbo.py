@@ -5,7 +5,10 @@
 `backend="scan"` and the Pallas kernel in interpret mode
 (`backend="pallas_interpret"`, as `tests/test_turbo.py` runs it on the
 CPU).  The CUDA kernel itself is compared with the plain version on the
-card by `chip_smoke.py`.
+card by `chip_smoke.py`.  The same holds for the dynamic-K mode:
+`map_decoder_dyn` runs `map_windows_plain(kq=)` here and is held to the
+reference's `map_decoder_dyn` (scan: atol 1e-4; Pallas interpret: atol
+2e-3, the reference's own bar), below each codeblock's K.
 """
 
 import jax
@@ -16,10 +19,12 @@ import torch
 
 import srsran_tpu.phy.crc as r_crc
 import srsran_tpu.phy.fec.turbo as r_turbo
+import srsran_tpu.phy.fec.turbo_dyn as r_dyn
 from srsran_tpu.phy.common import LTE_CRC24B
 from srsran_tpu_torch.phy.crc import crc_table
 from srsran_tpu_torch.phy.fec import turbo_cuda
 from srsran_tpu_torch.phy.fec import turbo as t_turbo
+from srsran_tpu_torch.phy.fec import turbo_dyn as t_dyn
 
 torch.set_num_threads(1)
 
@@ -45,6 +50,51 @@ def test_map_decoder_matches_reference(k, backend):
     assert turbo_cuda.LAUNCHES == launches  # a CPU tensor never reaches the kernel
     assert got.shape == (2, k) and got.dtype == np.float32
     np.testing.assert_allclose(got, ref, atol=1e-4)
+
+
+# mixed-K batches: K == K_max (beta_K enters at q == lw of the last window),
+# the smallest K, multiples of the window length (lw = 96 at K_max 2112,
+# 64 at 768), and sizes that leave whole windows as erasures
+DYN_BATCHES = {2112: [2112, 40, 1056, 2048, 528, 192, 2080], 768: [768, 40, 512, 384, 704]}
+
+
+@pytest.mark.parametrize("backend,atol", [("scan", 1e-4), ("pallas_interpret", 2e-3)])
+@pytest.mark.parametrize("k_max", list(DYN_BATCHES))
+def test_map_decoder_dyn_matches_reference(k_max, backend, atol):
+    ks = np.array(DYN_BATCHES[k_max], np.int32)
+    b = len(ks)
+    rng = np.random.default_rng(k_max)
+    below_k = np.arange(k_max)[None, :] < ks[:, None]
+    lx, lz = (2.0 * rng.standard_normal((b, k_max)).astype(np.float32) * below_k
+              for _ in range(2))
+    beta_k = rng.standard_normal((b, 8)).astype(np.float32)
+    ref = np.asarray(r_dyn.map_decoder_dyn(jnp.asarray(lx), jnp.asarray(lz), jnp.asarray(beta_k),
+                                           jnp.asarray(ks), k_max, backend=backend))
+    launches = turbo_cuda.LAUNCHES
+    got = t_dyn.map_decoder_dyn(torch.from_numpy(lx), torch.from_numpy(lz),
+                                torch.from_numpy(beta_k), torch.from_numpy(ks), k_max).numpy()
+    assert turbo_cuda.LAUNCHES == launches  # a CPU tensor never reaches the kernel
+    assert got.shape == (b, k_max) and got.dtype == np.float32
+    np.testing.assert_allclose(got[below_k], ref[below_k], atol=atol)
+    np.testing.assert_array_equal(got[below_k] > 0, ref[below_k] > 0)
+
+
+def test_map_windows_plain_kq_is_the_static_pass_at_full_size():
+    """With every codeblock at K == K_max the dynamic-K mode (b_mask zero,
+    kq == lw on the last window) equals the static pass bit for bit, and
+    kq == 0 everywhere leaves beta to its training."""
+    k, b = 768, 3
+    lx, lz, lxt, lzt = (torch.from_numpy(a) for a in map_args(k, b, seed=1))
+    *ins, T, lw = t_turbo.map_window_inputs(lx, lz, lxt, lzt, k)
+    kq = t_dyn.lane_kq(torch.full((b,), k), k)
+    assert kq.dtype == torch.int32 and kq.shape == (1, b * (k // lw))
+    assert torch.equal(kq > 0, ins[7] > 0) and int(kq.max()) == lw
+    static = t_turbo.map_windows_plain(*ins, T, lw)
+    no_mask = ins[:7] + [torch.zeros_like(ins[7]), ins[8]]
+    assert torch.equal(t_turbo.map_windows_plain(*no_mask, T, lw, kq=kq), static)
+    untouched = t_turbo.map_windows_plain(*no_mask, T, lw, kq=torch.zeros_like(kq))
+    assert torch.equal(untouched, t_turbo.map_windows_plain(*no_mask, T, lw))
+    assert not torch.equal(untouched, static)
 
 
 def test_map_windows_plain_odd_window():
@@ -80,6 +130,17 @@ def test_map_windows_rejects_what_it_cannot_launch():
         turbo_cuda.map_windows(*ins, T=T + 1, lw=lw)
     with pytest.raises(ValueError, match="contiguous"):
         turbo_cuda.map_windows(*ins[:2], torch.zeros((bn, lw)).T, *ins[3:], T=T, lw=lw)
+    # the dynamic-K input is checked like the others
+    kq = torch.zeros((1, bn), dtype=torch.int32)
+    with pytest.raises(ValueError, match="no kernel"):
+        turbo_cuda.map_windows(*ins, T=T, lw=lw, kq=kq)
+    with pytest.raises(ValueError, match="kq has dtype"):
+        turbo_cuda.map_windows(*ins, T=T, lw=lw, kq=kq.float())
+    with pytest.raises(ValueError, match="kq has shape"):
+        turbo_cuda.map_windows(*ins, T=T, lw=lw, kq=kq[0])
+    with pytest.raises(ValueError, match="kq is on"):
+        turbo_cuda.map_windows(*ins, T=T, lw=lw, kq=kq.to("meta"))
+    assert turbo_cuda.LAUNCHES == turbo_cuda.LAUNCHES_DYN == 0
 
 
 @pytest.mark.parametrize("k,ebn0", [(512, 1.0), (2048, 0.8)])

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Build the UE DL SISO stimulus fixture of the PyTorch port from the JAX
-reference, on the CPU.
+"""Build the stimulus fixtures of the PyTorch port from the JAX reference,
+on the CPU: the UE DL SISO one and the dynamic-grant one.
 
 The configuration is the repo's headline row (`bench.py` `bench_ue_dl_siso`):
 20 MHz (100 PRB), cell 301, subframe 2, CFI 1, MCS 26 QAM64, port 0.  The
@@ -13,6 +13,14 @@ reference's TB, crc_ok and snr_db for those two subframes, plus the
 configuration.  `chip_smoke.py` decodes the noisy subframes with the port
 and holds the result to the stored reference.
 
+The dynamic-grant fixture (`ue_dl_dynamic_20mhz.npz`) holds a few grants of
+the same 20 MHz cell (`DYN_GRANTS`: MCS, PRB allocation, subframe, noise
+amplitude), each rendered by the reference's transmitter with a seeded TB
+and seeded noise and decoded by the reference's `DynamicUeDl` (6
+iterations): the noisy subframes and the reference's TB bits, crc_ok and
+iteration count.  `chip_smoke.py` decodes them with the port's
+`DynamicUeDl` and holds the result to the stored reference.
+
 Run from the repo root:  JAX_PLATFORMS=cpu python tools/make_torch_fixture.py
 """
 
@@ -22,9 +30,18 @@ from pathlib import Path
 
 import numpy as np
 
-OUT = Path(__file__).resolve().parents[1] / "srsran_tpu_torch" / "testdata" / "ue_dl_siso_20mhz.npz"
+TESTDATA = Path(__file__).resolve().parents[1] / "srsran_tpu_torch" / "testdata"
+OUT = TESTDATA / "ue_dl_siso_20mhz.npz"
+OUT_DYN = TESTDATA / "ue_dl_dynamic_20mhz.npz"
 CONFIG = dict(nof_prb=100, cell_id=301, sf_idx=2, cfi=1, mcs=26, noise_amp=0.09,
               max_iterations=6, seed=20261016)
+# (mcs, first PRB, number of PRB, subframe, noise amplitude): 13 codeblocks
+# of K=6144; K- and K+ codeblocks at 16QAM over the PSS/SSS subframe; one
+# small QPSK codeblock with filler bits in subframe 0; a 64QAM TB in noise
+# that it cannot decode in
+DYN_GRANTS = ((28, 0, 100, 1, 0.07), (14, 20, 37, 5, 0.25), (3, 47, 6, 0, 0.6),
+              (22, 30, 60, 7, 0.2))
+DYN_CONFIG = dict(nof_prb=100, cell_id=301, cfi=1, rnti=0x46, max_iterations=6, seed=20261017)
 
 
 def reference_config():
@@ -58,6 +75,63 @@ def clean_tx():
     return tb, tx.astype(np.complex64)
 
 
+def dynamic_grant(i: int):
+    """(reference grant, tb bits, clean tx (sf_len,) complex64) of DYN_GRANTS[i]."""
+    import jax
+
+    from srsran_tpu.phy.chest.refsignal_dl import put_crs_np
+    from srsran_tpu.phy.common import Cell
+    from srsran_tpu.phy.ofdm import OfdmConfig, ofdm_tx_sf
+    from srsran_tpu.phy.phch.pdsch import DlGrant, pdsch_encode_np
+    from srsran_tpu.phy.phch.ra import dl_mcs_to_mod, dl_tbs
+
+    mcs, s0, l, sf_idx, _amp = DYN_GRANTS[i]
+    cell = Cell(nof_prb=DYN_CONFIG["nof_prb"], nof_ports=1, id=DYN_CONFIG["cell_id"])
+    grant = DlGrant(prb=tuple(range(s0, s0 + l)), mod=dl_mcs_to_mod(mcs), tbs=dl_tbs(mcs, l),
+                    rnti=DYN_CONFIG["rnti"])
+    rng = np.random.default_rng(DYN_CONFIG["seed"] + i)
+    tb = rng.integers(0, 2, grant.tbs).astype(np.uint8)
+    with jax.default_device(jax.devices("cpu")[0]):
+        grid = pdsch_encode_np(cell, sf_idx, DYN_CONFIG["cfi"], grant, tb)
+        put_crs_np(grid, cell, sf_idx)
+        tx = np.asarray(ofdm_tx_sf(OfdmConfig.from_cell(cell, normalize=True), grid))[0]
+    return grant, tb, tx.astype(np.complex64)
+
+
+def main_dynamic():
+    from srsran_tpu.phy.common import Cell
+    from srsran_tpu.pipeline_dynamic import DynamicUeDl
+
+    cell = Cell(nof_prb=DYN_CONFIG["nof_prb"], nof_ports=1, id=DYN_CONFIG["cell_id"])
+    ue = DynamicUeDl(cell, cfi=DYN_CONFIG["cfi"], max_iterations=DYN_CONFIG["max_iterations"])
+    rxs, tbs, ref_tb, ref_ok, ref_it = [], [], [], [], []
+    for i, (_mcs, _s0, _l, sf_idx, amp) in enumerate(DYN_GRANTS):
+        grant, tb, tx = dynamic_grant(i)
+        rng = np.random.default_rng(DYN_CONFIG["seed"] + 100 + i)
+        rx = (tx[None, :] + amp * (rng.standard_normal((1, tx.size))
+                                   + 1j * rng.standard_normal((1, tx.size)))).astype(np.complex64)
+        tb_hat, ok, _soft, n_it = ue.decode(rx, sf_idx, grant)
+        print(f"grant {i}: tbs {grant.tbs}, crc_ok {ok}, iterations {n_it}, "
+              f"TB equal {bool((tb_hat == tb).all())}")
+        rxs.append(rx)
+        tbs.append(grant.tbs)
+        ref_tb.append(np.packbits(tb_hat))
+        ref_ok.append(ok)
+        ref_it.append(n_it)
+    packed = np.zeros((len(ref_tb), max(len(p) for p in ref_tb)), np.uint8)
+    for i, p in enumerate(ref_tb):
+        packed[i, : len(p)] = p
+    cols = np.asarray(DYN_GRANTS)
+    np.savez(
+        OUT_DYN, rx=np.stack(rxs), tbs=np.asarray(tbs), ref_tb_packed=packed,
+        ref_crc_ok=np.asarray(ref_ok), ref_n_it=np.asarray(ref_it),
+        mcs=cols[:, 0].astype(np.int64), prb_start=cols[:, 1].astype(np.int64),
+        prb_len=cols[:, 2].astype(np.int64), sf_idx=cols[:, 3].astype(np.int64),
+        noise_amp=cols[:, 4], **{k: np.asarray(v) for k, v in DYN_CONFIG.items()},
+    )
+    print(f"wrote {OUT_DYN}")
+
+
 def main():
     import jax
 
@@ -85,3 +159,4 @@ def main():
 
 if __name__ == "__main__":
     main()
+    main_dynamic()
