@@ -5,19 +5,25 @@ Run from the repo root:  python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the MAP kernel (csrc/map_window.cu) from the sources, timed;
-  3. the kernel against its plain PyTorch version on the card at the
-     main paths' MAP shapes: static mode at K=5632 (lw=88, T=32, 88 and
-     1408 codeblocks) and K=512; dynamic-K mode at K_max=6144 (lw=96,
-     T=24, 32 codeblocks of mixed K), 2112 and 768, compared below each
-     codeblock's K: posteriors within atol 1e-4, identical hard bits;
+  2. build the MAP kernel (csrc/map_window.cu) from the sources, timed,
+     and print its registers and spills as ptxas reports them;
+  3. the kernel (`turbo_cuda.map_pass`, (B, K) LLRs in, posteriors out)
+     against its plain PyTorch version (`turbo.map_pass_plain`) on the card
+     at the main paths' MAP shapes: static mode at K=5632 (lw=88, T=32, 88
+     and 1408 codeblocks) and K=512, at K=40 (one window), 6080 (76 windows
+     of 80), 6144, and one odd window length (3 windows of 45); dynamic-K
+     mode at K_max=6144 (lw=96, T=24, 32 codeblocks of mixed K), 2112 and
+     768, compared below each codeblock's K: posteriors within atol 1e-4,
+     identical hard bits;
   4. the UE DL SISO slice at full width — 100 PRB, MCS 26 QAM64, B=128
      subframes — through `ue_dl_subframe`: the two stored reference
      subframes of `srsran_tpu_torch/testdata/ue_dl_siso_20mhz.npz` must give
      the reference's crc_ok and TB bits, every CRC-passing TB must equal the
      transmitted one, and the kernel must have been launched;
   5. times with CUDA events after warmup: ms per B=128 batch and Mbps of
-     CRC-passing TBs, and the MAP kernel against the plain version per pass;
+     CRC-passing TBs, and the MAP kernel against the plain version per pass
+     (the kernel's launches queued behind a busy card, so that the time is
+     the device's and not the host's);
   6. the dynamic-grant decode at full width — one `DynamicUeDl` on a
      100 PRB cell, stimuli rendered by the port's host transmitter from a
      seed: a 40-grant scheduler-style mix (MCS 0-28 x random contiguous
@@ -29,7 +35,7 @@ Phases (each prints its own lines; any failure exits non-zero):
   7. times of that path: ms per TTI (CUDA events, and host wall beside
      them) for MCS 28 on 100 PRB and for a 6 PRB QPSK grant, kernel
      launches per TTI, and the dynamic-K kernel mode against the plain
-     version per pass at 1024 lanes.
+     version per pass at 16 codeblocks of K_max 6144.
 Prints one JSON line of kernel results, then as its last line
 {"ok": true, "device": {...}}.  TF32 stays off: the channel-estimate
 einsums and the CRC products keep full fp32.
@@ -38,6 +44,7 @@ einsums and the CRC products keep full fp32.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -82,16 +89,30 @@ def cuda_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
+def queued_ms(fn, n: int) -> float:
+    """Mean device milliseconds of fn()'s kernels over n runs queued behind a
+    busy card (a spin of some tens of milliseconds), so that a host slower
+    than the kernel does not count; fn must not synchronize."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(5e7))
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
 def map_inputs(k: int, ncb: int, seed: int, device):
-    """Lane-layout inputs of one MAP pass over ncb random codeblocks."""
-    from srsran_tpu_torch.phy.fec.turbo import map_window_inputs
+    """(lx, lz, beta_k) of one MAP pass over ncb random codeblocks of size k."""
+    from srsran_tpu_torch.phy.fec.turbo import _beta_tail
 
     rng = np.random.default_rng(seed)
     lx, lz = (torch.from_numpy(4.0 * rng.standard_normal((ncb, k)).astype(np.float32)).to(device)
               for _ in range(2))
     lxt, lzt = (torch.from_numpy(4.0 * rng.standard_normal((ncb, 3)).astype(np.float32)).to(device)
                 for _ in range(2))
-    return map_window_inputs(lx, lz, lxt, lzt, k)
+    return lx, lz, _beta_tail(lxt, lzt)
 
 
 def wall_ms(fn, n: int) -> float:
@@ -104,35 +125,30 @@ def wall_ms(fn, n: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / n
 
 
-def map_bound(ins, T: int, lw: int, kq=None):
+def map_bound(lx, lz, beta_k, layout, k_vec=None):
     """(bound_ms, bound_by) of one MAP pass on these inputs: the larger of
-    its bytes (every input read once, the output written once) over the
-    card's memory rate and its add/max operations over the fp32 rate."""
-    bn = ins[2].shape[1]
-    nbytes = sum(t.numel() * t.element_size() for t in ins) + lw * bn * 4
-    if kq is not None:
-        nbytes += kq.numel() * kq.element_size()
-    ops = bn * (OPS_TRAIN_STEP * T + OPS_WINDOW_POS * lw)
+    the bytes the function must move (lx, lz, beta_k and k_vec read once,
+    the (B, K) posteriors written once) over the card's memory rate and its
+    add/max operations over the fp32 rate."""
+    nw, lw, T = layout
+    ins = [lx, lz, beta_k] + ([] if k_vec is None else [k_vec])
+    nbytes = sum(t.numel() * t.element_size() for t in ins) + lx.numel() * 4
+    ops = lx.shape[0] * nw * (OPS_TRAIN_STEP * T + OPS_WINDOW_POS * lw)
     t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_FP32_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def dyn_map_inputs(k_max: int, ks, seed: int, device):
-    """Lane-layout inputs of one dynamic-K MAP pass: codeblocks of the sizes
-    `ks` in K_max buffers, zero LLRs beyond each K, random exact tail betas.
-    Returns (ins (9 tensors), T, lw, kq, below_k (B, K_max) bool)."""
-    from srsran_tpu_torch.phy.fec.turbo import map_window_lanes
-    from srsran_tpu_torch.phy.fec.turbo_dyn import lane_kq
-
+    """Inputs of one dynamic-K MAP pass: codeblocks of the sizes `ks` in
+    K_max buffers, zero LLRs beyond each K, random exact tail betas.
+    Returns (lx, lz, beta_k, k_vec (B,) int32, below_k (B, K_max) bool)."""
     rng = np.random.default_rng(seed)
-    k_vec = torch.tensor(ks, device=device)
+    k_vec = torch.tensor(ks, device=device, dtype=torch.int32)
     below_k = torch.arange(k_max, device=device)[None, :] < k_vec[:, None]
     lx, lz = (torch.from_numpy(4.0 * rng.standard_normal((len(ks), k_max)).astype(np.float32))
               .to(device) * below_k for _ in range(2))
     beta_k = torch.from_numpy(4.0 * rng.standard_normal((len(ks), 8)).astype(np.float32)).to(device)
-    *ins, T, lw = map_window_lanes(lx, lz, beta_k, k_max)
-    ins[7] = torch.zeros_like(ins[7])  # b_mask: kq == lw takes its place
-    return ins, T, lw, lane_kq(k_vec, k_max), below_k
+    return lx, lz, beta_k, k_vec, below_k
 
 
 def render(cell, ofdm, sf_idx: int, grant, tb: np.ndarray, rng, amp: float) -> np.ndarray:
@@ -148,19 +164,41 @@ def render(cell, ofdm, sf_idx: int, grant, tb: np.ndarray, rng, amp: float) -> n
     return rx.astype(np.complex64)
 
 
+def load_slice(dev):
+    """The UE DL SISO slice at full width: the fixture's cell and grant
+    (100 PRB, MCS 26), `ue_dl_subframe` for them, and B subframes of samples
+    on `dev`: the two stored ones, then the stored transmit signal with
+    seeded noise.  Returns (fx, cell, grant, fn, samples)."""
+    from srsran_tpu_torch.phy.common import Cell
+    from srsran_tpu_torch.phy.modem import Mod
+    from srsran_tpu_torch.phy.phch.pdsch import DlGrant
+    from srsran_tpu_torch.pipeline import ue_dl_subframe
+
+    fx = np.load(FIXTURE)
+    nof_prb = int(fx["nof_prb"])
+    cell = Cell(nof_prb=nof_prb, nof_ports=1, id=int(fx["cell_id"]))
+    grant = DlGrant(prb=tuple(range(nof_prb)), mod=Mod.QAM64, tbs=int(fx["tbs"]))
+    fn = ue_dl_subframe(cell, int(fx["sf_idx"]), int(fx["cfi"]), grant,
+                        int(fx["max_iterations"]), device=dev)
+    tx = fx["tx"]
+    rng = np.random.default_rng(int(fx["seed"]) + 2)
+    shape = (B - 2, 1, tx.size)
+    noisy = (tx[None, None, :] + float(fx["noise_amp"]) * (
+        rng.standard_normal(shape) + 1j * rng.standard_normal(shape))).astype(np.complex64)
+    samples = torch.from_numpy(np.concatenate([fx["rx"], noisy])).to(dev)
+    return fx, cell, grant, fn, samples
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     from srsran_tpu_torch.device import require_cuda
-    from srsran_tpu_torch.phy.common import Cell
     from srsran_tpu_torch.phy.fec import turbo_cuda
-    from srsran_tpu_torch.phy.fec.turbo import map_windows_plain, unlane
-    from srsran_tpu_torch.phy.modem import Mod
+    from srsran_tpu_torch.phy.fec.turbo import map_pass_plain, pass_layout
     from srsran_tpu_torch.phy.ofdm import OfdmConfig
     from srsran_tpu_torch.phy.phch.pdsch import DlGrant
     from srsran_tpu_torch.phy.phch.ra import dl_mcs_to_mod, dl_tbs
-    from srsran_tpu_torch.pipeline import ue_dl_subframe
     from srsran_tpu_torch.pipeline_dynamic import DynamicUeDl
 
     # phase 1: the card
@@ -178,54 +216,56 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = turbo_cuda.build()
     print(f"build: {time.perf_counter() - t0:.1f} s ({lib.name})")
+    usage = subprocess.run([turbo_cuda._nvcc(), *turbo_cuda.NVCC_FLAGS[:4], "-Xptxas", "-v", "-cubin",
+                            "-o", str(lib.with_suffix(".cubin")), str(turbo_cuda.SOURCE)],
+                           capture_output=True, text=True, check=True).stderr
+    kernels = re.findall(
+        r"Compiling entry function '\w*kernelILb(\d)E.*?frame, (.*?spill loads).*?Used (\d+) registers",
+        usage, re.DOTALL)
+    check(len(kernels) == 2, f"ptxas reported {len(kernels)} kernels, expected 2")
+    for dyn, spills, regs in kernels:
+        print(f"build: {'dynamic-K' if dyn == '1' else 'static'} mode {regs} registers, {spills}")
 
     # phase 3: kernel against plain on the card
     max_err = 0.0
     headline = None
-    for k, ncb in ((5632, 88), (5632, 1408), (512, 64)):
-        *ins, T, lw = map_inputs(k, ncb, seed=k + ncb, device=dev)
-        got = turbo_cuda.map_windows(*ins, T=T, lw=lw)
-        ref = map_windows_plain(*ins, T, lw)
+    for k, ncb, layout in ((5632, 88, None), (5632, 1408, None), (512, 64, None), (40, 300, None),
+                           (6080, 16, None), (6144, 16, None), (135, 64, (3, 45, 32))):
+        lx, lz, beta_k = map_inputs(k, ncb, seed=k + ncb, device=dev)
+        nw, lw, T = layout or pass_layout(k)
+        got = turbo_cuda.map_pass(lx, lz, beta_k, nw, lw, T)
+        ref = map_pass_plain(lx, lz, beta_k, k, layout=layout)
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
         same_bits = bool(torch.equal(got > 0, ref > 0))
-        print(f"map K={k} codeblocks={ncb} T={T} lw={lw} bn={ins[2].shape[1]}: "
-              f"max_abs_err {err:.3g}, hard bits identical {same_bits}")
+        cpb, smem = turbo_cuda.launch_plan(ncb, nw, lw, torch.cuda.get_device_properties(dev)
+                                           .multi_processor_count)
+        print(f"map K={k} codeblocks={ncb} nw={nw} lw={lw} T={T} ({cpb} codeblocks and {smem} B "
+              f"of shared memory a block): max_abs_err {err:.3g}, hard bits identical {same_bits}")
         check(bool(torch.isfinite(got).all()), f"non-finite posteriors at K={k}")
         check(err <= MAP_ATOL and same_bits, f"kernel disagrees with plain at K={k}")
         max_err = max(max_err, err)
         if ncb == 1408:
-            headline = (ins, T, lw)
+            headline = (lx, lz, beta_k, (nw, lw, T))
     max_err_dyn = 0.0
     for k_max, ks in DYN_KS.items():
         ks = ks * (32 // len(ks))
-        ins, T, lw, kq, below_k = dyn_map_inputs(k_max, ks, seed=k_max, device=dev)
-        got = unlane(turbo_cuda.map_windows(*ins, T=T, lw=lw, kq=kq), len(ks), k_max)
-        ref = unlane(map_windows_plain(*ins, T, lw, kq=kq), len(ks), k_max)
+        lx, lz, beta_k, k_vec, below_k = dyn_map_inputs(k_max, ks, seed=k_max, device=dev)
+        nw, lw, T = pass_layout(k_max)
+        got = turbo_cuda.map_pass(lx, lz, beta_k, nw, lw, T, k_vec=k_vec)
+        ref = map_pass_plain(lx, lz, beta_k, k_max, k_vec)
         torch.cuda.synchronize()
         err = float((got - ref)[below_k].abs().max())
         same_bits = bool(torch.equal((got > 0)[below_k], (ref > 0)[below_k]))
-        print(f"map dyn K_max={k_max} codeblocks={len(ks)} K={sorted(set(ks))} T={T} lw={lw} "
-              f"bn={ins[2].shape[1]}: max_abs_err below K {err:.3g}, "
-              f"hard bits identical {same_bits}")
+        print(f"map dyn K_max={k_max} codeblocks={len(ks)} K={sorted(set(ks))} nw={nw} lw={lw} "
+              f"T={T}: max_abs_err below K {err:.3g}, hard bits identical {same_bits}")
         check(bool(torch.isfinite(got[below_k]).all()), f"non-finite posteriors at K_max={k_max}")
         check(err <= MAP_ATOL and same_bits, f"dyn kernel disagrees with plain at K_max={k_max}")
         max_err_dyn = max(max_err_dyn, err)
 
     # phase 4: the slice at full width
-    fx = np.load(FIXTURE)
-    tbs = int(fx["tbs"])
-    nof_prb = int(fx["nof_prb"])
-    cell = Cell(nof_prb=nof_prb, nof_ports=1, id=int(fx["cell_id"]))
-    grant = DlGrant(prb=tuple(range(nof_prb)), mod=Mod.QAM64, tbs=tbs)
-    fn = ue_dl_subframe(cell, int(fx["sf_idx"]), int(fx["cfi"]), grant,
-                        int(fx["max_iterations"]), device=dev)
-    tx = fx["tx"]
-    rng = np.random.default_rng(int(fx["seed"]) + 2)
-    shape = (B - 2, 1, tx.size)
-    noisy = (tx[None, None, :] + float(fx["noise_amp"]) * (
-        rng.standard_normal(shape) + 1j * rng.standard_normal(shape))).astype(np.complex64)
-    samples = torch.from_numpy(np.concatenate([fx["rx"], noisy])).to(dev)
+    fx, cell, grant, fn, samples = load_slice(dev)
+    tbs, nof_prb = grant.tbs, cell.nof_prb
     tb_tx = torch.from_numpy(np.unpackbits(fx["tb_packed"], count=tbs)).to(dev)
     ref_tb = torch.from_numpy(np.unpackbits(fx["ref_tb_packed"], axis=-1, count=tbs)).to(dev)
 
@@ -250,14 +290,21 @@ def main() -> int:
     # phase 5: times (CUDA events, after warmup)
     slice_ms = cuda_ms(lambda: fn(samples), 5)
     mbps = n_ok * tbs / (slice_ms * 1e-3) / 1e6
-    ins, T, lw = headline
-    kern_ms = cuda_ms(lambda: turbo_cuda.map_windows(*ins, T=T, lw=lw), 20)
-    plain_ms = cuda_ms(lambda: map_windows_plain(*ins, T, lw), 3)
+    lx, lz, beta_k, layout = headline
+    kern_ms = queued_ms(lambda: turbo_cuda.map_pass(lx, lz, beta_k, *layout), 20)
+    eager_ms = cuda_ms(lambda: turbo_cuda.map_pass(lx, lz, beta_k, *layout), 20)
+    plain_ms = cuda_ms(lambda: map_pass_plain(lx, lz, beta_k, lx.shape[1]), 3)
+    bound_ms, bound_by = map_bound(lx, lz, beta_k, layout)
     print(f"slice: {slice_ms:.3f} ms per B={B} batch, {mbps:.1f} Mbps of CRC-passing TBs")
-    print(f"map pass at bn={ins[2].shape[1]}: kernel {kern_ms:.4f} ms, plain {plain_ms:.3f} ms")
-
-    bound_ms, bound_by = map_bound(ins, T, lw)
-    print(f"map pass at bn={ins[2].shape[1]}: bound {bound_ms:.4f} ms by {bound_by}")
+    print(f"map pass at {tuple(lx.shape)}: kernel {kern_ms:.4f} ms ({eager_ms:.4f} ms launched "
+          f"one by one from an idle queue), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+          f"by {bound_by}")
+    # other shapes: one block, one wave of three blocks an SM, other K
+    for k, ncb in ((6144, 1), (6144, 396), (6144, 1408), (2048, 1408), (512, 4096), (40, 4096)):
+        ins = map_inputs(k, ncb, seed=1, device=dev)
+        ms = queued_ms(lambda: turbo_cuda.map_pass(*ins, *pass_layout(k)), 50)
+        print(f"map pass at ({ncb}, {k}): kernel {ms:.4f} ms, bound "
+              f"{map_bound(*ins, pass_layout(k))[0]:.4f} ms")
 
     # phase 6: the dynamic-grant decode at full width
     ue = DynamicUeDl(cell, cfi=1, max_iterations=int(fx["max_iterations"]))
@@ -360,14 +407,21 @@ def main() -> int:
         host_ms = wall_ms(lambda: ue.decode(rx, 3, g), 10)
         print(f"dynamic: {tag}: {dev_ms:.3f} ms per TTI by CUDA events, {host_ms:.3f} ms host "
               f"wall, {per_tti:g} map launches per TTI")
-    ins_d, T_d, lw_d, kq_d, _ = dyn_map_inputs(6144, DYN_KS[6144] * 2, seed=1, device=dev)
-    kern_dyn_ms = cuda_ms(lambda: turbo_cuda.map_windows(*ins_d, T=T_d, lw=lw_d, kq=kq_d), 50)
-    plain_dyn_ms = cuda_ms(lambda: map_windows_plain(*ins_d, T_d, lw_d, kq=kq_d), 3)
-    static_small_ms = cuda_ms(lambda: turbo_cuda.map_windows(*ins_d, T=T_d, lw=lw_d), 50)
-    bound_dyn_ms, bound_dyn_by = map_bound(ins_d, T_d, lw_d, kq_d)
-    print(f"map dyn pass at bn={ins_d[2].shape[1]}: kernel {kern_dyn_ms:.4f} ms (static mode on "
-          f"the same lanes {static_small_ms:.4f} ms), plain {plain_dyn_ms:.3f} ms, "
-          f"bound {bound_dyn_ms:.5f} ms by {bound_dyn_by}")
+    lx_d, lz_d, beta_d, k_vec_d, _ = dyn_map_inputs(6144, DYN_KS[6144] * 2, seed=1, device=dev)
+    layout_d = pass_layout(6144)
+
+    def dyn_pass():
+        return turbo_cuda.map_pass(lx_d, lz_d, beta_d, *layout_d, k_vec=k_vec_d)
+
+    kern_dyn_ms = queued_ms(dyn_pass, 100)
+    static_small_ms = queued_ms(lambda: turbo_cuda.map_pass(lx_d, lz_d, beta_d, *layout_d), 100)
+    eager_dyn_ms, host_dyn_ms = cuda_ms(dyn_pass, 100), wall_ms(dyn_pass, 100)
+    plain_dyn_ms = cuda_ms(lambda: map_pass_plain(lx_d, lz_d, beta_d, 6144, k_vec_d), 3)
+    bound_dyn_ms, bound_dyn_by = map_bound(lx_d, lz_d, beta_d, layout_d, k_vec_d)
+    print(f"map dyn pass at {tuple(lx_d.shape)}: kernel {kern_dyn_ms:.4f} ms (static mode on "
+          f"the same codeblocks {static_small_ms:.4f} ms; launched one by one {eager_dyn_ms:.4f} "
+          f"ms by CUDA events, {host_dyn_ms:.4f} ms of host time a call), plain "
+          f"{plain_dyn_ms:.3f} ms, bound {bound_dyn_ms:.5f} ms by {bound_dyn_by}")
 
     common = {"route": "cuda", "source": "srsran_tpu_torch/csrc/map_window.cu", "library_ms": None}
     print(json.dumps({"kernels": [

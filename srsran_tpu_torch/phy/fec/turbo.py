@@ -8,9 +8,12 @@ Counterpart of the decoder in `srsran_tpu/phy/fec/turbo.py`:
   positions; (codeblock × window) pairs are lanes.  Window boundaries come
   from T-step training (zero start); window 0 takes the exact state-0
   start and the last window the exact tail beta.
-* `map_decoder` builds the lane layout; on a CUDA tensor it launches the
-  Hopper kernel (`turbo_cuda.map_windows`), on a CPU tensor it runs
-  `map_windows_plain`, the reference's scan recursion.
+* `map_decoder` is one constituent pass, (B, K) LLRs to (B, K) posteriors:
+  on a CUDA tensor it launches the Hopper kernel (`turbo_cuda.map_pass`),
+  which reads the LLRs as they are; on a CPU tensor it runs the kernel's
+  plain version, `map_pass_plain`: the lane layout (`map_window_lanes`),
+  the reference's scan recursion over it (`map_windows_plain`), and back
+  (`unlane`).
 * Iterations stop once every codeblock passes its CRC; converged
   codeblocks are frozen (one host read of ``done.all()`` per iteration).
 * `turbo_encode_np` is the reference's host encoder (numpy), for stimuli.
@@ -188,6 +191,12 @@ def _train_len(lw: int) -> int:
     return min(24 if lw >= 96 else TRAIN, lw)
 
 
+def pass_layout(k: int) -> tuple[int, int, int]:
+    """(nw, lw, T) of a pass over codeblocks of size k."""
+    nw, lw = _window_layout(k)
+    return nw, lw, _train_len(lw)
+
+
 def _tail_tables():
     t = _trellis()
     return ((1.0 - 2.0 * t["tail_bit"]).astype(np.float32),
@@ -285,13 +294,14 @@ def _lane_masks(b: int, nw: int):
             (lane_w == nw - 1).astype(np.float32)[None, :])
 
 
-def map_window_lanes(lx, lz, beta_k, k: int):
+def map_window_lanes(lx, lz, beta_k, k: int, layout: tuple[int, int, int] | None = None):
     """The lane layout of one constituent pass from (B, K) LLRs and the
     exact tail beta_K (B, 8): returns
     (ax_tr, az_tr, ax, az, bx_tr, bz_tr, a_mask, b_mask, b_known, T, lw)
-    for `map_windows` (see `map_windows_plain` for the shapes)."""
-    nw, lw = _window_layout(k)
-    T = _train_len(lw)
+    for `map_windows_plain` (see there for the shapes).  `layout` is
+    (nw, lw, T) where it is not the one of `_window_layout(k)`."""
+    nw, lw, T = layout or pass_layout(k)
+    assert nw * lw == k and 0 <= T <= lw
     b = lx.shape[0]
     bn = b * nw
 
@@ -316,15 +326,54 @@ def map_window_lanes(lx, lz, beta_k, k: int):
             a_mask, b_mask, b_known, T, lw)
 
 
-def map_window_inputs(lx, lz, lx_tail, lz_tail, k: int):
-    """`map_window_lanes` with beta_K taken from the (B, 3) tail LLRs."""
-    return map_window_lanes(lx, lz, _beta_tail(lx_tail, lz_tail), k)
-
-
 def unlane(llr: torch.Tensor, b: int, k: int) -> torch.Tensor:
     """Posteriors (lw, B*nw) in lane layout → (B, K)."""
     lw = llr.shape[0]
     return llr.reshape(lw, b, k // lw).permute(1, 2, 0).reshape(b, k)
+
+
+def _window_starts(b: int, nw: int, lw: int) -> np.ndarray:
+    """(1, B*nw) int32 first position of every lane's window."""
+    return np.tile(np.arange(nw, dtype=np.int32) * lw, b)[None, :]
+
+
+def lane_kq(k_vec: torch.Tensor, k_max: int,
+            layout: tuple[int, int, int] | None = None) -> torch.Tensor:
+    """`map_windows_plain`'s `kq` input, (1, B*nw) int32: K_i - w*lw where
+    that lies in [1, lw] (the lane whose window holds beta_K), else 0."""
+    nw, lw, _ = layout or pass_layout(k_max)
+    starts = table(_window_starts, k_vec.shape[0], nw, lw, device=k_vec.device)
+    k_local = torch.repeat_interleave(k_vec.to(torch.int32), nw)[None, :] - starts
+    return torch.where((k_local >= 1) & (k_local <= lw), k_local, 0).to(torch.int32)
+
+
+def map_pass_plain(lx, lz, beta_k, k: int, k_vec: torch.Tensor | None = None,
+                   layout: tuple[int, int, int] | None = None) -> torch.Tensor:
+    """The plain version of the Hopper kernel (`turbo_cuda.map_pass`): one
+    constituent pass, (B, K) LLRs and beta_K (B, 8) → (B, K) posteriors,
+    through the lane layout and the scan recursion.
+
+    k_vec, when given, holds the (B,) true sizes K_i <= k and the
+    dynamic-K mode runs: LLRs are zero beyond K_i, beta_k is beta at K_i
+    and enters where the backward recursion passes K_i; posteriors beyond
+    K_i are garbage."""
+    *ins, b_mask, b_known, T, lw = map_window_lanes(lx, lz, beta_k, k, layout)
+    kq = None
+    if k_vec is not None:
+        b_mask = torch.zeros_like(b_mask)  # kq == lw takes its place
+        kq = lane_kq(k_vec, k, layout)
+    return unlane(map_windows_plain(*ins, b_mask, b_known, T, lw, kq=kq), lx.shape[0], k)
+
+
+def map_pass(lx, lz, beta_k, k: int, k_vec: torch.Tensor | None = None) -> torch.Tensor:
+    """One constituent pass on the device the tensors lie on: the Hopper
+    kernel for CUDA tensors (it launches or raises), `map_pass_plain` for
+    CPU tensors."""
+    if lx.device.type == "cpu":
+        return map_pass_plain(lx, lz, beta_k, k, k_vec)
+    if k_vec is not None:
+        k_vec = k_vec.to(torch.int32)
+    return turbo_cuda.map_pass(lx, lz, beta_k, *pass_layout(k), k_vec=k_vec)
 
 
 def map_decoder(lx, lz, lx_tail, lz_tail, k: int) -> torch.Tensor:
@@ -333,14 +382,10 @@ def map_decoder(lx, lz, lx_tail, lz_tail, k: int) -> torch.Tensor:
     lx: (B, K) systematic-plus-apriori LLRs; lz: (B, K) parity LLRs;
     lx_tail, lz_tail: (B, 3) this decoder's tail LLRs.
     Returns posterior LLRs (B, K) float32 (positive ⇒ bit 1).
-    On a CUDA tensor this launches the Hopper kernel, on a CPU tensor it
-    runs `map_windows_plain`."""
-    *ins, T, lw = map_window_inputs(lx, lz, lx_tail, lz_tail, k)
-    if lx.device.type == "cpu":
-        llr = map_windows_plain(*ins, T, lw)
-    else:
-        llr = turbo_cuda.map_windows(*ins, T=T, lw=lw)
-    return unlane(llr, lx.shape[0], k)
+    The exact tail beta_K is plain torch (`_beta_tail`); the pass itself is
+    one launch of the Hopper kernel on CUDA tensors and `map_pass_plain` on
+    CPU tensors."""
+    return map_pass(lx, lz, _beta_tail(lx_tail, lz_tail), k)
 
 
 # --- full iterative decoder ---------------------------------------------------
@@ -379,8 +424,8 @@ def turbo_decode(d_llr: torch.Tensor, k: int, max_iterations: int = 5,
     b = d_llr.shape[0]
     per, inv = table(_perm_tables, k, device=d_llr.device, dtype=torch.int64)
     sys = d_llr[:, 0, :k]
-    p1 = d_llr[:, 1, :k]
-    p2 = d_llr[:, 2, :k]
+    p1 = d_llr[:, 1, :k].contiguous()  # the kernel reads whole rows
+    p2 = d_llr[:, 2, :k].contiguous()
     lx1_t, lz1_t, lx2_t, lz2_t = dstream_tails(d_llr[:, :, k:])
     sys_int = sys[:, per]
 

@@ -8,7 +8,7 @@ data:
   trellis step beyond K is an erasure and alpha/beta below K are untouched.
 * The exact tail state (beta at position K) is injected mid-pass: the lane
   whose window holds position K swaps its backward carry for the
-  tail-derived beta there (the MAP kernel's dynamic-K mode, its `kq` input).
+  tail-derived beta there (the MAP kernel's dynamic-K mode, its `k_vec` input).
 * The QPP interleaver and its inverse are inputs, (B, K_max) per-row gather
   indices, identity beyond K.
 * CRC early stop uses the leading-zeros invariance of CRCs with zero
@@ -26,26 +26,9 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ...device import table
 from ..common import LTE_CRC24A, LTE_CRC24B
 from ..crc import crc_matrix_np
-from . import turbo_cuda
-from .turbo import (_beta_tail, _window_layout, dstream_tails, map_window_lanes,
-                    map_windows_plain, unlane)
-
-
-def _window_starts(b: int, nw: int, lw: int) -> np.ndarray:
-    """(1, B*nw) int32 first position of every lane's window."""
-    return np.tile(np.arange(nw, dtype=np.int32) * lw, b)[None, :]
-
-
-def lane_kq(k_vec: torch.Tensor, k_max: int) -> torch.Tensor:
-    """The kernel's `kq` input, (1, B*nw) int32: K_i - w*lw where that lies
-    in [1, lw] (the lane whose window holds beta_K), else 0."""
-    nw, lw = _window_layout(k_max)
-    starts = table(_window_starts, k_vec.shape[0], nw, lw, device=k_vec.device)
-    k_local = torch.repeat_interleave(k_vec.to(torch.int32), nw)[None, :] - starts
-    return torch.where((k_local >= 1) & (k_local <= lw), k_local, 0).to(torch.int32)
+from .turbo import _beta_tail, dstream_tails, map_pass
 
 
 def map_decoder_dyn(lx, lz, beta_k, k_vec, k_max: int) -> torch.Tensor:
@@ -55,16 +38,10 @@ def map_decoder_dyn(lx, lz, beta_k, k_vec, k_max: int) -> torch.Tensor:
     codeblock's true size.  beta_k: (B, 8) exact beta at position K (from
     the tail bits).  k_vec: (B,) integer true sizes.
     Returns posteriors (B, K_max) float32, garbage beyond K (callers mask).
-    On a CUDA tensor this launches the Hopper kernel in its dynamic-K mode,
-    on a CPU tensor it runs `map_windows_plain`."""
-    *ins, b_mask, b_known, T, lw = map_window_lanes(lx, lz, beta_k, k_max)
-    b_mask = torch.zeros_like(b_mask)  # kq == lw takes its place
-    kq = lane_kq(k_vec, k_max)
-    if lx.device.type == "cpu":
-        llr = map_windows_plain(*ins, b_mask, b_known, T, lw, kq=kq)
-    else:
-        llr = turbo_cuda.map_windows(*ins, b_mask, b_known, T=T, lw=lw, kq=kq)
-    return unlane(llr, lx.shape[0], k_max)
+    On CUDA tensors this is one launch of the Hopper kernel in its
+    dynamic-K mode, which finds the window that holds position K_i from
+    k_vec itself; on CPU tensors it runs `turbo.map_pass_plain`."""
+    return map_pass(lx, lz, beta_k, k_max, k_vec)
 
 
 def roll_to_tail(bits: torch.Tensor, k_vec: torch.Tensor) -> torch.Tensor:
@@ -118,6 +95,7 @@ def turbo_decode_dyn(d_llr, k_vec, per, inv, valid, k_max: int, max_iterations: 
     beta_k1 = _beta_tail(lx1_t, lz1_t)  # (B, 8)
     beta_k2 = _beta_tail(lx2_t, lz2_t)
     sys_int = torch.where(in_mask, torch.gather(sys, 1, per), zero)
+    k_i32 = k_vec.to(torch.int32)  # the kernel's k_vec
 
     def crc_pass(post):
         if crc_table is None:
@@ -131,9 +109,9 @@ def turbo_decode_dyn(d_llr, k_vec, per, inv, valid, k_max: int, max_iterations: 
     n_loop = 0
     while n_loop < max_iterations and not bool(done.all()):
         x1 = sys + ext2
-        ext1 = torch.where(in_mask, map_decoder_dyn(x1, p1, beta_k1, k_vec, k_max) - x1, zero)
+        ext1 = torch.where(in_mask, map_decoder_dyn(x1, p1, beta_k1, k_i32, k_max) - x1, zero)
         in2 = sys_int + torch.gather(ext1, 1, per)
-        ext2_int = map_decoder_dyn(in2, p2, beta_k2, k_vec, k_max) - in2
+        ext2_int = map_decoder_dyn(in2, p2, beta_k2, k_i32, k_max) - in2
         new_ext2 = torch.where(in_mask, torch.gather(ext2_int, 1, inv), zero)
         # converged rows stay frozen
         ext2 = torch.where(done[:, None], ext2, new_ext2)

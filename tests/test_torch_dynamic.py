@@ -3,7 +3,7 @@ module and as a whole (`DynamicUeDl`), on the CPU at small sizes.
 
 The same numpy inputs, made from a seed, go through the reference function
 and its counterpart.  On CPU tensors the port runs the MAP kernel's plain
-version (`map_windows_plain(kq=)`); the CUDA kernel's dynamic-K mode is
+version (`map_pass_plain(k_vec=)`); the CUDA kernel's dynamic-K mode is
 held against that plain version on the card by `chip_smoke.py`.
 """
 

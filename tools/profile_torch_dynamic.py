@@ -1,8 +1,14 @@
 #!/usr/bin/env python
-"""Where one TTI of the port's dynamic-grant decode spends its time, on one
-NVIDIA GPU.
+"""Where the port's two decode paths spend their time, on one NVIDIA GPU.
 
-One `DynamicUeDl` on a 100 PRB cell decodes two grants again and again:
+First the static slice: `ue_dl_subframe` at 100 PRB, MCS 26, B=128
+subframes a call (the inputs of `chip_smoke.py` phase 4).  It prints ms per
+call by CUDA events and on the host clock (medians of 8 runs of 5 calls)
+and, from `torch.profiler` over 5 calls, kernels per call, device busy time
+per call, its share of the host wall, and the kernels that take most device
+time.
+
+Then one TTI of the dynamic-grant decode.  One `DynamicUeDl` on a 100 PRB cell decodes two grants again and again:
 MCS 28 on 100 PRB (13 codeblocks of K=6144) and MCS 5 on 6 PRB (one small
 codeblock), both rendered by the port's host transmitter from a seed.  For
 each grant it prints
@@ -43,6 +49,7 @@ from srsran_tpu_torch.phy.phch.pdsch import DlGrant  # noqa: E402
 from srsran_tpu_torch.phy.phch.ra import dl_mcs_to_mod, dl_tbs  # noqa: E402
 
 N = 10
+N_STATIC = 5
 SPANS: dict[str, float] = defaultdict(float)
 
 
@@ -58,6 +65,56 @@ def timed(name, fn):
     return wrapper
 
 
+def device_kernels(prof):
+    return [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def profile_static(report):
+    """The static slice: times of a B=128 call and one profiled window."""
+    _, _, grant, fn, samples = chip_smoke.load_slice(torch.device("cuda:0"))
+
+    def call():
+        _, ok, _ = fn(samples)
+        return ok
+
+    n_ok = int(call().sum())
+    for _ in range(2):
+        call()
+    before = turbo_cuda.LAUNCHES
+    dev_runs = sorted(chip_smoke.cuda_ms(call, N_STATIC) for _ in range(8))
+    map_per_call = (turbo_cuda.LAUNCHES - before) / (8 * N_STATIC)
+    host_runs = sorted(chip_smoke.wall_ms(call, N_STATIC) for _ in range(8))
+    dev_ms, host_ms = (0.5 * (r[3] + r[4]) for r in (dev_runs, host_runs))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        prof_wall_ms = chip_smoke.wall_ms(call, N_STATIC)
+    kernels = device_kernels(prof)
+    total = sum(e.device_time_total for e in kernels)
+    busy_ms = total / 1e3 / N_STATIC
+    top = sorted(kernels, key=lambda e: -e.device_time_total)[:12]
+    entry = {
+        "batch": chip_smoke.B, "tbs": grant.tbs, "crc_ok": n_ok,
+        "ms_per_call_cuda_events": dev_ms, "ms_per_call_cuda_events_min_max": [dev_runs[0], dev_runs[-1]],
+        "ms_per_call_host_wall": host_ms, "ms_per_call_under_profiler": prof_wall_ms,
+        "map_launches_per_call": map_per_call,
+        "device_busy_ms_per_call": busy_ms, "device_busy_share_of_host_wall": busy_ms / host_ms,
+        "kernels_per_call": sum(e.count for e in kernels) / N_STATIC,
+        "top_kernels": [{"name": e.key[:60], "count_per_call": e.count / N_STATIC,
+                         "device_ms_per_call": e.device_time_total / 1e3 / N_STATIC,
+                         "share_of_device_time": e.device_time_total / total} for e in top],
+    }
+    report["static_slice"] = entry
+    print(f"static slice, 100 PRB MCS 26 B={chip_smoke.B} ({n_ok} TBs pass CRC): {dev_ms:.3f} ms "
+          f"per call by CUDA events ({dev_runs[0]:.3f}-{dev_runs[-1]:.3f}), {host_ms:.3f} ms host "
+          f"wall, {map_per_call:g} map launches per call")
+    print(f"  profiler: {entry['kernels_per_call']:.0f} kernels per call, device busy "
+          f"{busy_ms:.3f} ms per call ({100 * busy_ms / host_ms:.1f}% of the host wall), "
+          f"{prof_wall_ms:.3f} ms per call under the profiler")
+    for e in entry["top_kernels"]:
+        print(f"    {e['device_ms_per_call']:.4f} ms  {100 * e['share_of_device_time']:5.2f}%  "
+              f"x{e['count_per_call']:g}  {e['name']}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_dynamic: torch.cuda.is_available() is false", file=sys.stderr)
@@ -71,6 +128,7 @@ def main() -> int:
     ue = pd.DynamicUeDl(cell, cfi=1, max_iterations=6)
     rng = np.random.default_rng(1)
     report = {"card": card, "torch": torch.__version__, "grants": {}}
+    profile_static(report)
     plain = {name: getattr(pd, name) for name in
              ("codeword_d_fill_grouped_dev", "qpp_dev", "turbo_decode_dyn", "crc_ok_ab")}
     for tag, mcs, prb in (("mcs28_100prb", 28, tuple(range(100))), ("mcs5_6prb", 5, tuple(range(47, 53)))):
@@ -107,8 +165,7 @@ def main() -> int:
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             prof_wall_ms = chip_smoke.wall_ms(tti, N)
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = device_kernels(prof)
         busy_ms = sum(e.device_time_total for e in kernels) / 1e3 / N
         n_kernels = sum(e.count for e in kernels) / N
         top = sorted(kernels, key=lambda e: -e.device_time_total)[:8]
