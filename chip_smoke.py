@@ -35,8 +35,30 @@ Phases (each prints its own lines; any failure exits non-zero):
   7. times of that path: ms per TTI (CUDA events, and host wall beside
      them) for MCS 28 on 100 PRB and for a 6 PRB QPSK grant, kernel
      launches per TTI, and the dynamic-K kernel mode against the plain
-     version per pass at 16 codeblocks of K_max 6144.
-Prints one JSON line of kernel results, then as its last line
+     version per pass at 16 codeblocks of K_max 6144;
+  8. the 2x2 MIMO decode at full width (`bench.py` `bench_ue_dl_mimo`) —
+     100 PRB, 2 ports, two codewords of MCS 26 QAM64, pmi 1, the bench's 2x2
+     channel, noise amplitude 0.045, B=64 — through `ue_dl_subframe_mimo`:
+     the stored reference subframes of `testdata/ue_dl_mimo_20mhz.npz` give
+     the reference's crc_ok, TB bits and snr_db, every CRC-passing TB equals
+     the sent one, ms per batch and Mbps; then one call of the QAM256 row
+     (MCS 27, tbs 97896, 16 codeblocks of K=6144 a codeword, amplitude 0.016);
+  9. the eNB DL encoder at full width (`bench_enb_dl`): B=64 TBs of 61664
+     bits through `enb_dl_subframe_encode`; the coded bits read back from
+     the samples equal `dlsch_encode_np` for two of them; ms per batch and
+     Mbps; then the loopback: those subframes plus noise 0.09 through
+     `ue_dl_subframe` give back the TBs;
+  10. the eNB UL decode at full width (`bench_enb_ul`): PRB 1..96 of 100,
+     MCS 20 16QAM (tbs 40576, 7 codeblocks of K=5824), B=128, amplitude 0.09,
+     through `enb_ul_subframe`, with the stored reference subframes of
+     `testdata/enb_ul_20mhz.npz`, the same checks and times;
+  11. `DynamicEnbUl` on the 100 PRB cell: a seeded PUSCH grant mix (MCS 0-23
+     x valid allocations x subframes), HARQ rv 0 → rv 2, the stored grants of
+     `testdata/enb_ul_dynamic_20mhz.npz`, stage keys, ms per TTI; and two
+     transmit-diversity and two spatial-multiplexing grants through
+     `DynamicUeDl` behind the 2x2 channel.
+Every path is driven with the launch counts set to 0 just before and read
+just after.  Prints one JSON line of kernel results, then as its last line
 {"ok": true, "device": {...}}.  TF32 stays off: the channel-estimate
 einsums and the CRC products keep full fp32.
 """
@@ -59,6 +81,12 @@ SNR_ATOL_DB = 1e-3
 TESTDATA = Path(__file__).resolve().parent / "srsran_tpu_torch" / "testdata"
 FIXTURE = TESTDATA / "ue_dl_siso_20mhz.npz"
 FIXTURE_DYN = TESTDATA / "ue_dl_dynamic_20mhz.npz"
+FIXTURE_MIMO = TESTDATA / "ue_dl_mimo_20mhz.npz"
+FIXTURE_UL = TESTDATA / "enb_ul_20mhz.npz"
+FIXTURE_UL_DYN = TESTDATA / "enb_ul_dynamic_20mhz.npz"
+B_MIMO = B_ENCODE = 64
+# the 2x2 channel of `bench.py` `bench_ue_dl_mimo`: rx antenna x tx port
+H_2X2 = np.array([[1.0 + 0.1j, 0.25 - 0.55j], [-0.45 + 0.3j, 0.95 + 0.05j]], np.complex64)
 # published peaks of one H100 SXM: HBM bytes/s, fp32 operations/s outside
 # the tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -101,6 +129,14 @@ def queued_ms(fn, n: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def batch_ms(fn) -> float:
+    """Milliseconds of one fn() by CUDA events: two warm calls, then the
+    median of 5 runs of 3 calls (a host that stalls once does not count)."""
+    for _ in range(2):
+        fn()
+    return sorted(cuda_ms(fn, 3) for _ in range(5))[2]
 
 
 def map_inputs(k: int, ncb: int, seed: int, device):
@@ -151,6 +187,11 @@ def dyn_map_inputs(k_max: int, ks, seed: int, device):
     return lx, lz, beta_k, k_vec, below_k
 
 
+def awgn(rng, x: np.ndarray, amp: float) -> np.ndarray:
+    return (x + amp * (rng.standard_normal(x.shape) + 1j * rng.standard_normal(x.shape))
+            ).astype(np.complex64)
+
+
 def render(cell, ofdm, sf_idx: int, grant, tb: np.ndarray, rng, amp: float) -> np.ndarray:
     """One noisy subframe (1, sf_len) complex64 carrying `tb` under `grant`,
     from the port's host transmitter (CFI 1)."""
@@ -159,9 +200,7 @@ def render(cell, ofdm, sf_idx: int, grant, tb: np.ndarray, rng, amp: float) -> n
     from srsran_tpu_torch.phy.phch.pdsch import pdsch_encode_np
 
     grid = put_crs_np(pdsch_encode_np(cell, sf_idx, 1, grant, tb), cell, sf_idx)
-    rx = ofdm_tx_sf(ofdm, torch.from_numpy(grid)).numpy()
-    rx = rx + amp * (rng.standard_normal(rx.shape) + 1j * rng.standard_normal(rx.shape))
-    return rx.astype(np.complex64)
+    return awgn(rng, ofdm_tx_sf(ofdm, torch.from_numpy(grid)).numpy(), amp)
 
 
 def load_slice(dev):
@@ -187,6 +226,327 @@ def load_slice(dev):
         rng.standard_normal(shape) + 1j * rng.standard_normal(shape))).astype(np.complex64)
     samples = torch.from_numpy(np.concatenate([fx["rx"], noisy])).to(dev)
     return fx, cell, grant, fn, samples
+
+
+def reset_launches():
+    from srsran_tpu_torch.phy.fec import turbo_cuda
+
+    turbo_cuda.LAUNCHES = turbo_cuda.LAUNCHES_DYN = 0
+
+
+def read_launches() -> tuple[int, int]:
+    """(static-mode launches, dynamic-K launches) since `reset_launches`."""
+    from srsran_tpu_torch.phy.fec import turbo_cuda
+
+    torch.cuda.synchronize()
+    return turbo_cuda.LAUNCHES - turbo_cuda.LAUNCHES_DYN, turbo_cuda.LAUNCHES_DYN
+
+
+def render_2x2(cell, sf_idx: int, grid: np.ndarray) -> np.ndarray:
+    """The noise-free (2, sf_len) received subframe of a 2-port grid (CRS put
+    in) behind H_2X2."""
+    from srsran_tpu_torch.phy.chest.refsignal_dl import put_crs_np
+    from srsran_tpu_torch.phy.ofdm import OfdmConfig, ofdm_tx_sf
+
+    tx = ofdm_tx_sf(OfdmConfig.from_cell(cell, normalize=True),
+                    torch.from_numpy(put_crs_np(grid, cell, sf_idx))).numpy()
+    return np.einsum("rp,pt->rt", H_2X2, tx).astype(np.complex64)
+
+
+def load_mimo(dev, qam256: bool = False):
+    """The 2x2 two-codeword decode at full width: the fixture's cell and
+    grant (100 PRB, 2 x MCS 26, pmi 1) or the QAM256 row (2 x MCS 27),
+    `ue_dl_subframe_mimo` for them, and B_MIMO subframes on `dev`: the sent
+    TBs rendered by the port's host transmitter behind H_2X2 with seeded
+    noise, the first two replaced by the stored ones (MCS 26 row).
+    Returns (fx, cell, grant, fn, samples, (tb1, tb2))."""
+    from srsran_tpu_torch.phy.common import Cell
+    from srsran_tpu_torch.phy.phch.pdsch import DlGrant2, pdsch_encode2_np
+    from srsran_tpu_torch.phy.phch.ra import dl_mcs_to_mod, dl_tbs
+    from srsran_tpu_torch.pipeline import ue_dl_subframe_mimo
+
+    fx = np.load(FIXTURE_MIMO)
+    nof_prb, sf_idx, cfi = int(fx["nof_prb"]), int(fx["sf_idx"]), int(fx["cfi"])
+    cell = Cell(nof_prb=nof_prb, nof_ports=2, id=int(fx["cell_id"]))
+    mcs, amp = (27, 0.016) if qam256 else (int(fx["mcs"]), float(fx["noise_amp"]))
+    mod, tbs = dl_mcs_to_mod(mcs, qam256), dl_tbs(mcs, nof_prb, qam256)
+    grant = DlGrant2(prb=tuple(range(nof_prb)), mod1=mod, tbs1=tbs, mod2=mod, tbs2=tbs,
+                     pmi=int(fx["pmi"]))
+    rng = np.random.default_rng(int(fx["seed"]) + 2 + qam256)
+    if qam256:
+        tbs_sent = tuple(rng.integers(0, 2, tbs).astype(np.uint8) for _ in range(2))
+    else:
+        tbs_sent = tuple(np.unpackbits(fx[k], count=tbs) for k in ("tb1_packed", "tb2_packed"))
+    clean = render_2x2(cell, sf_idx, pdsch_encode2_np(cell, sf_idx, cfi, grant, *tbs_sent))
+    rx = awgn(rng, np.tile(clean[None], (B_MIMO, 1, 1)), amp)
+    if not qam256:
+        rx[:2] = fx["rx"]
+    fn = ue_dl_subframe_mimo(cell, sf_idx, cfi, grant, int(fx["max_iterations"]), device=dev)
+    return fx, cell, grant, fn, torch.from_numpy(rx).to(dev), tbs_sent
+
+
+def load_ul(dev):
+    """The eNB UL decode at full width: the fixture's cell and grant (PRB
+    1..96 of 100, MCS 20), `enb_ul_subframe` for them, and B subframes on
+    `dev`: the two stored ones, then the sent TB rendered by the port's
+    `ue_ul_encode` with seeded noise.  Returns (fx, cell, grant, fn, samples, tb)."""
+    from srsran_tpu_torch.phy.common import Cell
+    from srsran_tpu_torch.phy.ue.ue_ul import ue_ul_encode
+    from srsran_tpu_torch.pipeline import enb_ul_subframe
+
+    fx = np.load(FIXTURE_UL)
+    cell = Cell(nof_prb=int(fx["nof_prb"]), nof_ports=1, id=int(fx["cell_id"]))
+    grant = ul_grant(int(fx["mcs"]), int(fx["prb_start"]), int(fx["nof_prb_alloc"]), int(fx["rnti"]))
+    tb = np.unpackbits(fx["tb_packed"], count=grant.tbs)
+    tx = ue_ul_encode(cell, int(fx["sf_idx"]), pusch=(grant, tb))
+    rng = np.random.default_rng(int(fx["seed"]) + 2)
+    rx = awgn(rng, np.tile(tx[None, None, :], (B, 1, 1)), float(fx["noise_amp"]))
+    rx[:2] = fx["rx"]
+    fn = enb_ul_subframe(cell, int(fx["sf_idx"]), grant, int(fx["max_iterations"]), device=dev)
+    return fx, cell, grant, fn, torch.from_numpy(rx).to(dev), tb
+
+
+def ul_grant(mcs: int, prb_start: int, nof_prb: int, rnti: int, rv: int = 0):
+    from srsran_tpu_torch.phy.phch.pusch import UlGrant
+    from srsran_tpu_torch.phy.phch.ra import tbs_lookup, ul_mcs_to_itbs, ul_mcs_to_mod
+
+    return UlGrant(prb_start=prb_start, nof_prb=nof_prb, mod=ul_mcs_to_mod(mcs),
+                   tbs=tbs_lookup(ul_mcs_to_itbs(mcs), nof_prb), rv=rv, rnti=rnti)
+
+
+def check_decoded(tag: str, tb, ok, sent: np.ndarray, min_ok: int):
+    """A decoded batch: shapes and dtypes, every CRC-passing TB is the sent
+    one, at least `min_ok` pass.  Returns the number that pass."""
+    nb, tbs = tb.shape
+    check(tbs == sent.size and tb.dtype == torch.uint8, f"{tag}: TB shape/dtype")
+    check(tuple(ok.shape) == (nb,) and ok.dtype == torch.bool, f"{tag}: crc_ok shape/dtype")
+    sent_d = torch.from_numpy(sent).to(tb.device)
+    check(bool((tb[ok] == sent_d).all()), f"{tag}: a CRC-passing TB differs from the sent one")
+    n_ok = int(ok.sum())
+    check(n_ok >= min_ok, f"{tag}: only {n_ok}/{nb} TBs pass CRC")
+    return n_ok
+
+
+def check_stored(tag: str, tb, ok, snr_db, ref_tb_packed, ref_ok, ref_snr_db):
+    """The first subframes of a batch against the stored reference results:
+    the same crc_ok, the same bits where the CRC passes, snr_db within
+    SNR_ATOL_DB."""
+    n = len(ref_ok)
+    got_ok = ok[:n].cpu().numpy()
+    check(got_ok.tolist() == ref_ok.tolist(), f"{tag}: crc_ok {got_ok.tolist()} differs from "
+          f"the reference's {ref_ok.tolist()}")
+    ref_tb = np.unpackbits(ref_tb_packed, axis=-1, count=tb.shape[1])
+    same = (tb[:n].cpu().numpy() == ref_tb).all(axis=1)
+    check(bool(same[got_ok].all()), f"{tag}: TB bits differ from the reference")
+    snr_err = float(np.abs(snr_db[:n].cpu().numpy() - ref_snr_db).max())
+    check(snr_err <= SNR_ATOL_DB, f"{tag}: snr_db differs from the reference by {snr_err} dB")
+
+
+def phase_mimo(dev) -> tuple[int, int]:
+    """Phase 8.  Returns the (static, dynamic-K) launches of the two calls."""
+    fx, cell, grant, fn, samples, (tb1, tb2) = load_mimo(dev)
+    reset_launches()
+    (g_tb1, ok1), (g_tb2, ok2), snr_db = fn(samples)
+    launches = read_launches()
+    check(bool(torch.isfinite(snr_db).all()), "mimo: non-finite snr_db")
+    n_ok = (check_decoded("mimo cw 0", g_tb1, ok1, tb1, B_MIMO // 2)
+            + check_decoded("mimo cw 1", g_tb2, ok2, tb2, B_MIMO // 2))
+    for q, (tb, ok) in enumerate(((g_tb1, ok1), (g_tb2, ok2))):
+        check_stored(f"mimo cw {q}", tb, ok, snr_db, fx[f"ref_tb{q + 1}_packed"],
+                     fx["ref_crc_ok"][:, q], fx["ref_snr_db"])
+    check(launches[0] > 0 and launches[1] == 0, f"mimo: map launches {launches}")
+    ms = batch_ms(lambda: fn(samples))
+    print(f"mimo: 100 PRB 2x2 2 x MCS 26 (2 x tbs {grant.tbs1}) B={B_MIMO}: codewords ok "
+          f"{n_ok}/{2 * B_MIMO}, stored subframes as the reference (crc_ok "
+          f"{fx['ref_crc_ok'].tolist()}), map launches {launches[0]}, {ms:.3f} ms per batch, "
+          f"{n_ok * grant.tbs1 / (ms * 1e-3) / 1e6:.1f} Mbps of CRC-passing TBs")
+    del fn, samples
+    _, _, grant, fn, samples, (tb1, tb2) = load_mimo(dev, qam256=True)
+    reset_launches()
+    (g_tb1, ok1), (g_tb2, ok2), snr_db = fn(samples)
+    launches_q = read_launches()
+    n_ok = (check_decoded("mimo q256 cw 0", g_tb1, ok1, tb1, B_MIMO // 2)
+            + check_decoded("mimo q256 cw 1", g_tb2, ok2, tb2, B_MIMO // 2))
+    check(launches_q[0] > 0 and launches_q[1] == 0, f"mimo q256: map launches {launches_q}")
+    print(f"mimo: QAM256 row, 2 x MCS 27 (2 x tbs {grant.tbs1}) B={B_MIMO}: codewords ok "
+          f"{n_ok}/{2 * B_MIMO}, map launches {launches_q[0]}")
+    return launches[0] + launches_q[0], 0
+
+
+def phase_encode(dev) -> tuple[int, int]:
+    """Phase 9.  Returns the (static, dynamic-K) launches of the loopback."""
+    from srsran_tpu_torch.phy.common import Cell
+    from srsran_tpu_torch.phy.modem import Mod, demod_soft
+    from srsran_tpu_torch.phy.ofdm import OfdmConfig, ofdm_rx_sf
+    from srsran_tpu_torch.phy.phch.pdsch import DlGrant, pdsch_cinit, pdsch_re_indices
+    from srsran_tpu_torch.phy.phch.ra import dl_tbs
+    from srsran_tpu_torch.phy.phch.sch import TbCoding, dlsch_encode_np
+    from srsran_tpu_torch.phy.sequence import gold_sequence
+    from srsran_tpu_torch.pipeline import enb_dl_subframe_encode, ue_dl_subframe
+
+    cell = Cell(nof_prb=100, nof_ports=1, id=301)
+    sf_idx, cfi, tbs = 2, 1, dl_tbs(26, 100)
+    grant = DlGrant(prb=tuple(range(100)), mod=Mod.QAM64, tbs=tbs)
+    rng = np.random.default_rng(9)
+    tbs_all = rng.integers(0, 2, (B_ENCODE, tbs)).astype(np.uint8)
+    tbs_dev = torch.from_numpy(tbs_all).to(dev)
+    enc = enb_dl_subframe_encode(cell, sf_idx, cfi, grant)
+    reset_launches()
+    tx = enc(tbs_dev)
+    check(read_launches() == (0, 0), "encode: the encoder launched the MAP kernel")
+    check(tuple(tx.shape) == (B_ENCODE, 1, cell.sf_len) and tx.dtype == torch.complex64,
+          "encode: samples shape/dtype")
+    check(tx.device == dev and bool(torch.isfinite(tx.real).all() and torch.isfinite(tx.imag).all()),
+          "encode: samples device/finite")
+    # the coded bits behind the samples: hard decisions of the noise-free
+    # subframe, descrambled, against the host encoder
+    idx = pdsch_re_indices(cell, sf_idx, cfi, grant.prb)
+    coding = TbCoding(tbs=tbs, g=len(idx) * grant.qm, qm=grant.qm)
+    seq = gold_sequence(pdsch_cinit(grant.rnti, sf_idx, cell.id), coding.g)
+    grid = ofdm_rx_sf(OfdmConfig.from_cell(cell, normalize=True), tx[:2, 0])
+    sym = grid.reshape(2, -1)[:, torch.from_numpy(idx.astype(np.int64)).to(dev)]
+    hard = (demod_soft(grant.mod, sym) > 0).cpu().numpy().astype(np.uint8) ^ seq
+    for i in range(2):
+        check(bool((hard[i] == dlsch_encode_np(tbs_all[i], coding)).all()),
+              f"encode: coded bits of TB {i} differ from dlsch_encode_np")
+    ms = batch_ms(lambda: enc(tbs_dev))
+    print(f"encode: 100 PRB MCS 26 B={B_ENCODE}: coded bits of 2 TBs equal dlsch_encode_np "
+          f"({coding.g} bits each), {ms:.3f} ms per batch, "
+          f"{B_ENCODE * tbs / (ms * 1e-3) / 1e6:.1f} Mbps")
+    # loopback through the UE decode
+    gen = torch.Generator(device=dev).manual_seed(10)
+    noise = torch.randn(tx.shape + (2,), generator=gen, device=dev)
+    dec = ue_dl_subframe(cell, sf_idx, cfi, grant, 6)
+    reset_launches()
+    tb, ok, _snr = dec(tx + 0.09 * torch.view_as_complex(noise))
+    launches = read_launches()
+    check(tuple(tb.shape) == (B_ENCODE, tbs), "loopback: TB shape")
+    check(bool((tb[ok] == tbs_dev[ok]).all()), "loopback: a CRC-passing TB differs from the sent one")
+    n_ok = int(ok.sum())
+    check(n_ok >= B_ENCODE - 2, f"loopback: only {n_ok}/{B_ENCODE} TBs come back")
+    check(launches[0] > 0 and launches[1] == 0, f"loopback: map launches {launches}")
+    print(f"encode: loopback through ue_dl_subframe at noise 0.09: {n_ok}/{B_ENCODE} TBs come "
+          f"back, map launches {launches[0]}")
+    return launches
+
+
+def phase_ul(dev) -> tuple[int, int]:
+    """Phase 10.  Returns the (static, dynamic-K) launches of the call."""
+    fx, _cell, grant, fn, samples, tb_sent = load_ul(dev)
+    reset_launches()
+    tb, ok, snr_db = fn(samples)
+    launches = read_launches()
+    check(bool(torch.isfinite(snr_db).all()), "ul: non-finite snr_db")
+    n_ok = check_decoded("ul", tb, ok, tb_sent, B // 2)
+    check_stored("ul", tb, ok, snr_db, fx["ref_tb_packed"], fx["ref_crc_ok"], fx["ref_snr_db"])
+    check(launches[0] > 0 and launches[1] == 0, f"ul: map launches {launches}")
+    ms = batch_ms(lambda: fn(samples))
+    print(f"ul: PUSCH PRB {grant.prb_start}+{grant.nof_prb} of 100, MCS 20 (tbs {grant.tbs}) "
+          f"B={B}: crc_ok {n_ok}/{B}, stored subframes as the reference (crc_ok "
+          f"{fx['ref_crc_ok'].tolist()}), map launches {launches[0]}, {ms:.3f} ms per batch, "
+          f"{n_ok * grant.tbs / (ms * 1e-3) / 1e6:.1f} Mbps of CRC-passing TBs")
+    return launches
+
+
+def phase_dynamic_ul(dev) -> tuple[int, int]:
+    """Phase 11.  Returns the (static, dynamic-K) launches of its paths."""
+    from srsran_tpu_torch.phy.common import Cell
+    from srsran_tpu_torch.phy.dft_precoding import valid_nof_prb
+    from srsran_tpu_torch.phy.phch.pdsch import DlGrant, pdsch_encode_np
+    from srsran_tpu_torch.phy.phch.ra import dl_mcs_to_mod, dl_tbs
+    from srsran_tpu_torch.phy.ue.ue_ul import ue_ul_encode
+    from srsran_tpu_torch.pipeline_dynamic import DynamicEnbUl, DynamicUeDl
+
+    fd = np.load(FIXTURE_UL_DYN)
+    nof_prb = int(fd["nof_prb"])
+    cell = Cell(nof_prb=nof_prb, nof_ports=1, id=int(fd["cell_id"]))
+    enb = DynamicEnbUl(cell, max_iterations=int(fd["max_iterations"]))
+    check(enb.device == dev, "DynamicEnbUl did not take the card by default")
+    reset_launches()
+
+    def decode_and_check(tag, dec, sf_idx, grant, tb_sent, rx, soft=None, want_ok=True):
+        tb_hat, ok_, soft_, n_it = dec.decode(rx, sf_idx, grant, soft)
+        check(tb_hat.shape == (grant.tbs,) and tb_hat.dtype == np.uint8, f"{tag}: TB shape/dtype")
+        check(soft_.device == dev and bool(torch.isfinite(soft_).all()), f"{tag}: softbuffer")
+        check(ok_ == want_ok, f"{tag}: crc_ok {ok_}, expected {want_ok}")
+        if want_ok:
+            check(bool((tb_hat == tb_sent).all()), f"{tag}: TB differs from the sent one")
+        return soft_, n_it
+
+    # (a) a scheduler-style PUSCH grant mix
+    rng = np.random.default_rng(4)
+    ls = [l for l in range(1, nof_prb - 1) if valid_nof_prb(l)]
+    built_at = []
+    for i in range(30):
+        sf_idx, mcs, l = int(rng.integers(0, 10)), int(rng.integers(0, 24)), int(rng.choice(ls))
+        g = ul_grant(mcs, int(rng.integers(1, nof_prb - l)), l, 0x46)
+        tb_sent = rng.integers(0, 2, g.tbs).astype(np.uint8)
+        rx = awgn(rng, ue_ul_encode(cell, sf_idx, pusch=(g, tb_sent))[None], 0.04)
+        decode_and_check(f"ul mix {i} (sf {sf_idx}, MCS {mcs}, PRB {g.prb_start}+{l}, tbs {g.tbs})",
+                         enb, sf_idx, g, tb_sent, rx)
+        built_at.append(enb.total_compiles)
+    print(f"dynamic ul: grant mix {len(built_at)}/{len(built_at)} TBs ok; stage keys built "
+          f"{enb.stats}")
+    check(enb.stats["compiles_a"] == 1 and enb.stats["compiles_b"] <= 12
+          and enb.stats["compiles_c"] <= 14, "ul stage keys exceed the bucket grid")
+    check(built_at[-1] - built_at[-len(built_at) // 4] <= 2,
+          f"the last quarter of the ul mix still builds stages: {built_at}")
+
+    # (b) HARQ: rv 0 alone fails at low SNR, rv 2 combines and decodes
+    g0, g2 = ul_grant(19, 1, 80, 0x46), ul_grant(19, 1, 80, 0x46, rv=2)
+    tb_harq = rng.integers(0, 2, g0.tbs).astype(np.uint8)
+    soft, _ = decode_and_check(
+        "ul HARQ rv 0", enb, 2, g0, tb_harq,
+        awgn(rng, ue_ul_encode(cell, 2, pusch=(g0, tb_harq))[None], 0.33), want_ok=False)
+    decode_and_check("ul HARQ rv 2", enb, 3, g2, tb_harq,
+                     awgn(rng, ue_ul_encode(cell, 3, pusch=(g2, tb_harq))[None], 0.33), soft=soft)
+    print("dynamic ul: HARQ rv 0 fails alone, rv 2 combines and decodes")
+
+    # (c) stored grants with the reference's results
+    enb_fx = DynamicEnbUl(cell, max_iterations=int(fd["max_iterations"]))
+    for i in range(len(fd["mcs"])):
+        g = ul_grant(int(fd["mcs"][i]), int(fd["prb_start"][i]), int(fd["prb_len"][i]),
+                     int(fd["rnti"]))
+        tb_hat, ok_, _, n_it = enb_fx.decode(fd["rx"][i], int(fd["sf_idx"][i]), g)
+        check(ok_ == bool(fd["ref_crc_ok"][i]) and n_it == int(fd["ref_n_it"][i]),
+              f"stored ul grant {i}: crc_ok {ok_}, {n_it} iterations; reference "
+              f"{bool(fd['ref_crc_ok'][i])}, {int(fd['ref_n_it'][i])}")
+        check(not ok_ or bool((tb_hat == np.unpackbits(fd["ref_tb_packed"][i], count=g.tbs)).all()),
+              f"stored ul grant {i}: TB bits differ from the reference")
+    print(f"dynamic ul: {len(fd['mcs'])} stored grants give the reference's crc_ok "
+          f"{fd['ref_crc_ok'].tolist()}, iterations {fd['ref_n_it'].tolist()} and TB bits")
+    launches_ul = read_launches()
+    check(launches_ul[1] > 0 and launches_ul[0] == 0, f"dynamic ul: map launches {launches_ul}")
+
+    # (d) ms per TTI of the headline grant (PRB 1..96, MCS 20)
+    gh = ul_grant(20, 1, 96, 0x46)
+    tb_h = rng.integers(0, 2, gh.tbs).astype(np.uint8)
+    rx_h = torch.from_numpy(awgn(rng, ue_ul_encode(cell, 2, pusch=(gh, tb_h))[None], 0.09)).to(dev)
+    _, n_it_h = decode_and_check("ul headline grant", enb, 2, gh, tb_h, rx_h)
+    dev_ms = cuda_ms(lambda: enb.decode(rx_h, 2, gh), 10)
+    host_ms = wall_ms(lambda: enb.decode(rx_h, 2, gh), 10)
+    print(f"dynamic ul: MCS 20 PRB 1+96 (tbs {gh.tbs}, {n_it_h} iterations): {dev_ms:.3f} ms per "
+          f"TTI by CUDA events, {host_ms:.3f} ms host wall; {enb.stats['ttis'] + enb_fx.stats['ttis']}"
+          f" TTIs, dynamic-K map launches {launches_ul[1]} before the timing")
+
+    # (e) transmit-diversity and spatial-multiplexing grants through DynamicUeDl
+    cell2 = Cell(nof_prb=nof_prb, nof_ports=2, id=int(fd["cell_id"]))
+    ue = DynamicUeDl(cell2, cfi=1, max_iterations=6)
+    reset_launches()
+    for tx_scheme, nof_layers, mcs, s0, l, sf_idx in (
+            ("diversity", 1, 9, 10, 30, 1), ("diversity", 1, 24, 0, 100, 5),
+            ("spatialmux", 1, 16, 50, 50, 2), ("spatialmux", 2, 20, 0, 50, 7)):
+        g = DlGrant(prb=tuple(range(s0, s0 + l)), mod=dl_mcs_to_mod(mcs),
+                    tbs=dl_tbs(mcs, l * nof_layers), rnti=0x46, tx_scheme=tx_scheme,
+                    nof_layers=nof_layers, pmi=1)
+        tb_sent = rng.integers(0, 2, g.tbs).astype(np.uint8)
+        rx = awgn(rng, render_2x2(cell2, sf_idx, pdsch_encode_np(cell2, sf_idx, 1, g, tb_sent)), 0.02)
+        _, n_it = decode_and_check(f"{tx_scheme} x{nof_layers} MCS {mcs}", ue, sf_idx, g, tb_sent, rx)
+        print(f"dynamic: {tx_scheme} grant, {nof_layers} layer(s), MCS {mcs}, PRB {s0}+{l}, tbs "
+              f"{g.tbs}: ok, {n_it} iterations")
+    launches_dl = read_launches()
+    check(launches_dl[1] > 0 and launches_dl[0] == 0, f"dynamic 2-port: map launches {launches_dl}")
+    return 0, launches_ul[1] + launches_dl[1]
 
 
 def main() -> int:
@@ -229,8 +589,10 @@ def main() -> int:
     # phase 3: kernel against plain on the card
     max_err = 0.0
     headline = None
+    ul_shape = None
     for k, ncb, layout in ((5632, 88, None), (5632, 1408, None), (512, 64, None), (40, 300, None),
-                           (6080, 16, None), (6144, 16, None), (135, 64, (3, 45, 32))):
+                           (6080, 16, None), (6144, 16, None), (135, 64, (3, 45, 32)),
+                           (5824, 896, None), (6144, 2048, None)):
         lx, lz, beta_k = map_inputs(k, ncb, seed=k + ncb, device=dev)
         nw, lw, T = layout or pass_layout(k)
         got = turbo_cuda.map_pass(lx, lz, beta_k, nw, lw, T)
@@ -247,9 +609,13 @@ def main() -> int:
         max_err = max(max_err, err)
         if ncb == 1408:
             headline = (lx, lz, beta_k, (nw, lw, T))
+        if ncb == 896:
+            ul_shape = (lx, lz, beta_k, (nw, lw, T))
     max_err_dyn = 0.0
-    for k_max, ks in DYN_KS.items():
-        ks = ks * (32 // len(ks))
+    # mixed K in every bucket, then the bucket a UL grant of 7 codeblocks of
+    # K=5824 reaches (B bucket 8; the unused slot takes the first one's K)
+    for k_max, ks in list(DYN_KS.items()) + [(6144, (5824,) * 8)]:
+        ks = ks * max(1, 32 // len(ks)) if len(set(ks)) > 1 else ks
         lx, lz, beta_k, k_vec, below_k = dyn_map_inputs(k_max, ks, seed=k_max, device=dev)
         nw, lw, T = pass_layout(k_max)
         got = turbo_cuda.map_pass(lx, lz, beta_k, nw, lw, T, k_vec=k_vec)
@@ -269,10 +635,9 @@ def main() -> int:
     tb_tx = torch.from_numpy(np.unpackbits(fx["tb_packed"], count=tbs)).to(dev)
     ref_tb = torch.from_numpy(np.unpackbits(fx["ref_tb_packed"], axis=-1, count=tbs)).to(dev)
 
-    turbo_cuda.LAUNCHES = turbo_cuda.LAUNCHES_DYN = 0
+    reset_launches()
     tb, ok, snr_db = fn(samples)
-    torch.cuda.synchronize()
-    launches = turbo_cuda.LAUNCHES - turbo_cuda.LAUNCHES_DYN
+    launches, _ = read_launches()
     n_ok = int(ok.sum())
     print(f"slice: 100 PRB MCS 26 B={B}: crc_ok {n_ok}/{B}, map launches {launches}, "
           f"snr_db[:2] {snr_db[:2].tolist()} (reference {fx['ref_snr_db'].tolist()})")
@@ -299,6 +664,13 @@ def main() -> int:
     print(f"map pass at {tuple(lx.shape)}: kernel {kern_ms:.4f} ms ({eager_ms:.4f} ms launched "
           f"one by one from an idle queue), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
           f"by {bound_by}")
+    # the UL path's shape: 128 subframes x 7 codeblocks of K=5824 (nw=56, lw=104)
+    lx_u, lz_u, beta_u, layout_u = ul_shape
+    ul_ms = queued_ms(lambda: turbo_cuda.map_pass(lx_u, lz_u, beta_u, *layout_u), 20)
+    ul_plain_ms = cuda_ms(lambda: map_pass_plain(lx_u, lz_u, beta_u, lx_u.shape[1]), 3)
+    ul_bound_ms, ul_bound_by = map_bound(lx_u, lz_u, beta_u, layout_u)
+    print(f"map pass at {tuple(lx_u.shape)}: kernel {ul_ms:.4f} ms, plain {ul_plain_ms:.3f} ms, "
+          f"bound {ul_bound_ms:.4f} ms by {ul_bound_by}")
     # other shapes: one block, one wave of three blocks an SM, other K
     for k, ncb in ((6144, 1), (6144, 396), (6144, 1408), (2048, 1408), (512, 4096), (40, 4096)):
         ins = map_inputs(k, ncb, seed=1, device=dev)
@@ -310,7 +682,7 @@ def main() -> int:
     ue = DynamicUeDl(cell, cfi=1, max_iterations=int(fx["max_iterations"]))
     check(ue.device == dev, "DynamicUeDl did not take the card by default")
     ofdm = OfdmConfig.from_cell(cell, normalize=True)
-    turbo_cuda.LAUNCHES = turbo_cuda.LAUNCHES_DYN = 0
+    reset_launches()
 
     def decode_and_check(tag, sf_idx, grant, tb_sent, rx, soft=None, want_ok=True):
         tb_hat, ok_, soft_, n_it = ue.decode(rx, sf_idx, grant, soft)
@@ -386,10 +758,9 @@ def main() -> int:
     print(f"dynamic: {len(fd['mcs'])} stored grants give the reference's crc_ok "
           f"{fd['ref_crc_ok'].tolist()}, iterations {fd['ref_n_it'].tolist()} and, where the CRC "
           f"passes, TB bits")
-    torch.cuda.synchronize()
-    launches_dyn = turbo_cuda.LAUNCHES_DYN
+    launches_static, launches_dyn = read_launches()
     check(launches_dyn > 0, "the dynamic path did not launch the dynamic-K kernel mode")
-    check(turbo_cuda.LAUNCHES == launches_dyn, "the dynamic path launched the static mode")
+    check(launches_static == 0, "the dynamic path launched the static mode")
     print(f"dynamic: {ue.stats['ttis'] + ue_fx.stats['ttis']} TTIs, "
           f"dynamic-K map launches {launches_dyn}")
 
@@ -423,14 +794,30 @@ def main() -> int:
           f"ms by CUDA events, {host_dyn_ms:.4f} ms of host time a call), plain "
           f"{plain_dyn_ms:.3f} ms, bound {bound_dyn_ms:.5f} ms by {bound_dyn_by}")
 
+    # phases 8-11: the other entry points, each with its own launch counts
+    del fn, samples, ue, ue_fx
+    by_path = {"ue_dl_subframe": (launches, 0), "DynamicUeDl": (0, launches_dyn)}
+    for name, phase in (("ue_dl_subframe_mimo", phase_mimo),
+                        ("enb_dl_subframe_encode+ue_dl_subframe", phase_encode),
+                        ("enb_ul_subframe", phase_ul),
+                        ("DynamicEnbUl+DynamicUeDl 2-port", phase_dynamic_ul)):
+        by_path[name] = phase(dev)
+        torch.cuda.empty_cache()
+
     common = {"route": "cuda", "source": "srsran_tpu_torch/csrc/map_window.cu", "library_ms": None}
     print(json.dumps({"kernels": [
         dict(common, name="map_window", replaces="srsran_tpu/phy/fec/turbo_pallas.py:99",
-             launches=launches, max_abs_err=max_err, ms=kern_ms, plain_ms=plain_ms,
-             bound_ms=bound_ms, bound_by=bound_by),
+             launches=sum(v[0] for v in by_path.values()),
+             launches_by_path={k: v[0] for k, v in by_path.items() if v[0]},
+             max_abs_err=max_err, ms=kern_ms, plain_ms=plain_ms,
+             bound_ms=bound_ms, bound_by=bound_by, shape=list(lx.shape),
+             other_shapes=[dict(shape=list(lx_u.shape), ms=ul_ms, plain_ms=ul_plain_ms,
+                                bound_ms=ul_bound_ms, bound_by=ul_bound_by)]),
         dict(common, name="map_window_dyn", replaces="srsran_tpu/phy/fec/turbo_pallas.py:232",
-             launches=launches_dyn, max_abs_err=max_err_dyn, ms=kern_dyn_ms,
-             plain_ms=plain_dyn_ms, bound_ms=bound_dyn_ms, bound_by=bound_dyn_by)]}))
+             launches=sum(v[1] for v in by_path.values()),
+             launches_by_path={k: v[1] for k, v in by_path.items() if v[1]},
+             max_abs_err=max_err_dyn, ms=kern_dyn_ms, plain_ms=plain_dyn_ms,
+             bound_ms=bound_dyn_ms, bound_by=bound_dyn_by, shape=list(lx_d.shape))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

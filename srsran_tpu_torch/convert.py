@@ -1,8 +1,9 @@
 """Turn reference configuration objects into the port's counterparts.
 
 `from_reference(obj)` reads the dataclass fields of a `srsran_tpu` `Cell`,
-`DlGrant`, `ChestDlConfig`, `OfdmConfig` or `TbCoding` and builds the port's
-class of the same name, so that both packages decode one configuration.
+`DlGrant`, `DlGrant2`, `UlGrant`, `ChestDlConfig`, `OfdmConfig` or
+`TbCoding` and builds the port's class of the same name, so that both
+packages decode one configuration.
 It goes by the class name and the fields (duck typing), so this package
 needs no import of the reference (which would import jax).
 
@@ -23,10 +24,12 @@ from .phy.chest.chest_dl import ChestDlConfig
 from .phy.common import CP, Cell
 from .phy.modem import Mod
 from .phy.ofdm import OfdmConfig
-from .phy.phch.pdsch import DlGrant
+from .phy.phch.pdsch import DlGrant, DlGrant2
+from .phy.phch.pusch import UlGrant
 from .phy.phch.sch import TbCoding
 
-_CLASSES = {c.__name__: c for c in (Cell, DlGrant, ChestDlConfig, OfdmConfig, TbCoding)}
+_CLASSES = {c.__name__: c for c in (
+    Cell, DlGrant, DlGrant2, UlGrant, ChestDlConfig, OfdmConfig, TbCoding)}
 _ENUMS = {e.__name__: e for e in (CP, Mod)}
 
 
@@ -46,6 +49,6 @@ def from_reference(obj):
 
 def softbuffer_from_reference(softbuffer, device) -> torch.Tensor:
     """A HARQ softbuffer (b_bucket, 3, k_bucket+4) returned by the
-    reference's `DynamicUeDl.decode`, as a float32 tensor on `device` that
-    the port's `DynamicUeDl.decode` takes."""
+    reference's `DynamicUeDl.decode` or `DynamicEnbUl.decode`, as a float32
+    tensor on `device` that the port's counterpart takes."""
     return torch.from_numpy(np.array(softbuffer, dtype=np.float32)).to(device)

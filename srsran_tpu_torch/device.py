@@ -16,6 +16,14 @@ def require_cuda() -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def resolve(device) -> torch.device:
+    """The device an entry point runs on: None is the card (`require_cuda`),
+    anything else what `torch.device` makes of it — with its index ("cuda" →
+    "cuda:0"), as tensors report it."""
+    dev = require_cuda() if device is None else torch.device(device)
+    return torch.empty(0, device=dev).device
+
+
 @lru_cache(maxsize=1024)
 def table(fn, *args, device: torch.device, dtype: torch.dtype | None = None):
     """`fn(*args)` — a host table (numpy array, or tuple of them) — as

@@ -16,7 +16,9 @@ Counterpart of the decoder in `srsran_tpu/phy/fec/turbo.py`:
   (`unlane`).
 * Iterations stop once every codeblock passes its CRC; converged
   codeblocks are frozen (one host read of ``done.all()`` per iteration).
-* `turbo_encode_np` is the reference's host encoder (numpy), for stimuli.
+* `turbo_encode_np` is the reference's host encoder (numpy), for stimuli;
+  `turbo_encode_device` is the batched encoder on the device, a closed-form
+  GF(2) polynomial division with no sequential step.
 
 LLRs are float32 with **positive LLR = bit 1**.  All codeblocks in a batch
 share one K.
@@ -150,6 +152,74 @@ def turbo_encode_np(bits: np.ndarray) -> np.ndarray:
     d[0, k:] = [x1[0], z1[1], x2[0], z2[1]]
     d[1, k:] = [z1[0], x1[2], z2[0], x2[2]]
     d[2, k:] = [x1[1], z1[2], x2[1], z2[2]]
+    return d
+
+
+# --- device encoder -----------------------------------------------------------
+
+
+def _rsc_parity_closed_form(u: torch.Tensor):
+    """RSC parity of u (..., K) {0,1} with no sequential step.
+
+    The recursion is linear over GF(2): a(D)·(1+D²+D³) = u(D), where a_i is
+    the bit shifted into the register, and the parity is p(D) =
+    a(D)·(1+D+D³).  The feedback polynomial is primitive, so
+    (1+D²+D³)·(1+D²+D³+D⁴) = 1+D⁷ and a = u·h / (1+D⁷) with
+    h = 1+D²+D³+D⁴: a FIR filter, then a_i = v_i ⊕ a_{i-7} — seven
+    independent prefix-XORs, one int32 cumulative sum (mod 2) over a
+    (K/7, 7) reshape.
+
+    Returns (parity (..., K) uint8, a (..., K) int32); the register after
+    step K is (a_{K-1}, a_{K-2}, a_{K-3})."""
+    k = u.shape[-1]
+    ui = u.to(torch.int32)
+
+    def lag(x, n):
+        return torch.nn.functional.pad(x, (n, 0))[..., :k]
+
+    v = ui ^ lag(ui, 2) ^ lag(ui, 3) ^ lag(ui, 4)
+    m = -(-k // 7)
+    vp = torch.nn.functional.pad(v, (0, 7 * m - k))
+    a = torch.cumsum(vp.reshape(tuple(v.shape[:-1]) + (m, 7)), dim=-2, dtype=torch.int32) & 1
+    a = a.reshape(tuple(v.shape[:-1]) + (7 * m,))[..., :k]
+    p = (a ^ lag(a, 1) ^ lag(a, 3)).to(torch.uint8)
+    return p, a
+
+
+def _tail_tables_int():
+    t = _trellis()
+    return tuple(t[name].astype(np.int64) for name in ("tail_bit", "tail_parity", "tail_next"))
+
+
+def turbo_encode_device(bits: torch.Tensor, k: int) -> torch.Tensor:
+    """Batched turbo encoder on the device: bits (B, K) uint8 → d-streams
+    (B, 3, K+4) uint8, the layout and the bits of `turbo_encode_np`."""
+    if bits.shape[-1] != k:
+        raise ValueError(f"bits have {bits.shape[-1]} columns, expected K={k}")
+    b = bits.shape[0]
+    bits = bits.to(torch.uint8)
+    per, _inv = table(_perm_tables, k, device=bits.device, dtype=torch.int64)
+    tb_bit, tb_par, tb_nxt = table(_tail_tables_int, device=bits.device)
+    p1, a1 = _rsc_parity_closed_form(bits)
+    p2, a2 = _rsc_parity_closed_form(bits[:, per])
+
+    def tails(a):
+        s = (a[:, k - 1] + 2 * a[:, k - 2] + 4 * a[:, k - 3]).to(torch.int64)
+        xs, zs = [], []
+        for _ in range(3):
+            xs.append(tb_bit[s].to(torch.uint8))
+            zs.append(tb_par[s].to(torch.uint8))
+            s = tb_nxt[s]
+        return xs, zs
+
+    x1, z1 = tails(a1)
+    x2, z2 = tails(a2)
+    d = torch.empty((b, 3, k + 4), dtype=torch.uint8, device=bits.device)
+    d[:, 0, :k], d[:, 1, :k], d[:, 2, :k] = bits, p1, p2
+    # TS 36.212 tail mapping (as `turbo_encode_np`)
+    d[:, 0, k:] = torch.stack([x1[0], z1[1], x2[0], z2[1]], dim=1)
+    d[:, 1, k:] = torch.stack([z1[0], x1[2], z2[0], x2[2]], dim=1)
+    d[:, 2, k:] = torch.stack([x1[1], z1[2], x2[1], z2[2]], dim=1)
     return d
 
 

@@ -1,10 +1,10 @@
 """PDSCH grant, RE indices, scrambling c_init and host encode — host side.
 
-Copies of `DlGrant`, `pdsch_re_indices` (FDD, full subframe),
-`pdsch_cinit` and `pdsch_encode_np` (port 0) from
-`srsran_tpu/phy/phch/pdsch.py`.  RE mapping is a
-host-built flat index table per (cell, sf, cfi, PRB set); on the device
-the receive side is one gather with that table.
+Copies of `DlGrant`, `DlGrant2`, `pdsch_re_indices` (FDD, full subframe),
+`pdsch_cinit`, `pdsch_encode_np` and `pdsch_encode2_np` (every transmit
+scheme) from `srsran_tpu/phy/phch/pdsch.py`.  RE mapping is a host-built
+flat index table per (cell, sf, cfi, PRB set); on the device the receive
+side is one gather with that table.
 """
 
 from __future__ import annotations
@@ -15,6 +15,14 @@ from functools import lru_cache
 import numpy as np
 
 from ..common import Cell
+from ..mimo import (
+    layermap,
+    precode_cdd2,
+    precode_diversity2,
+    precode_diversity4,
+    precode_spatialmux,
+    precode_spatialmux4,
+)
 from ..modem import Mod, modulate_np
 from ..scrambling import scramble_bits
 from ..sequence import gold_sequence
@@ -92,15 +100,85 @@ def pdsch_cinit(rnti: int, sf_idx: int, cell_id: int, q: int = 0) -> int:
 
 def pdsch_encode_np(cell: Cell, sf_idx: int, cfi: int, grant: DlGrant,
                     tb_bits: np.ndarray) -> np.ndarray:
-    """Host TX: encode one TB into a (1, nsymb, nre) complex64 grid (no CRS),
-    port 0 only."""
-    if grant.tx_scheme != "port0":
-        raise NotImplementedError(f"tx_scheme {grant.tx_scheme!r} is not ported")
+    """Host TX: encode one TB into a (nof_ports, nsymb, nre) complex64 grid
+    (no CRS)."""
     idx = pdsch_re_indices(cell, sf_idx, cfi, grant.prb)
-    coding = TbCoding(tbs=grant.tbs, g=len(idx) * grant.qm, qm=grant.qm, rv=grant.rv)
+    nof_layers = 1 if grant.tx_scheme in ("diversity", "diversity4") else grant.nof_layers
+    coding = TbCoding(tbs=grant.tbs, g=len(idx) * grant.qm * nof_layers, qm=grant.qm,
+                      rv=grant.rv, nof_layers=grant.nof_layers)
     bits = dlsch_encode_np(tb_bits, coding)
     seq = gold_sequence(pdsch_cinit(grant.rnti, sf_idx, cell.id), len(bits))
     sym = modulate_np(grant.mod, scramble_bits(bits, seq))
-    grid = np.zeros((1, cell.nsymb_per_sf, cell.nof_re_per_symbol), np.complex64)
-    grid.reshape(1, -1)[:, idx] = sym[None, :]
+    if grant.tx_scheme == "port0":
+        ports = sym[None, :]
+    elif grant.tx_scheme == "diversity":
+        ports = precode_diversity2(sym)
+    elif grant.tx_scheme == "diversity4":
+        ports = precode_diversity4(sym)
+    elif grant.tx_scheme == "cdd":
+        ports = precode_cdd2(layermap([sym], 2))
+    elif grant.tx_scheme == "spatialmux":
+        ports = precode_spatialmux(layermap([sym], grant.nof_layers), grant.pmi)
+    else:
+        raise NotImplementedError(grant.tx_scheme)
+    grid = np.zeros((ports.shape[0], cell.nsymb_per_sf, cell.nof_re_per_symbol), np.complex64)
+    grid.reshape(ports.shape[0], -1)[:, idx] = ports
+    return grid
+
+
+@dataclasses.dataclass(frozen=True)
+class DlGrant2:
+    """Two-codeword spatial-multiplexing grant (TM3/TM4, DCI 2/2A)."""
+
+    prb: tuple[int, ...]
+    mod1: Mod
+    tbs1: int
+    mod2: Mod
+    tbs2: int
+    rv1: int = 0
+    rv2: int = 0
+    pmi: int = 0  # codebook index (TM4)
+    rnti: int = 0x1234
+    # "spatialmux" (2-port TM4 codebook) | "cdd" (2-port TM3) |
+    # "spatialmux4" (4-port codebook, TS 36.211 Table 6.3.4.2.3-2)
+    tx_scheme: str = "spatialmux"
+    nof_layers: int = 2  # 2..4 (2 codewords; >2 only with spatialmux4)
+
+    @property
+    def qm1(self) -> int:
+        return MOD_QM[self.mod1]
+
+    @property
+    def qm2(self) -> int:
+        return MOD_QM[self.mod2]
+
+
+def pdsch_encode2_np(cell: Cell, sf_idx: int, cfi: int, grant: DlGrant2,
+                     tb1: np.ndarray, tb2: np.ndarray) -> np.ndarray:
+    """Host TX of two codewords: each TB through its own DL-SCH chain and
+    per-codeword scrambling, then layer mapping and precoding.  Returns a
+    (nof_ports, nsymb, nre) complex64 grid (no CRS)."""
+    idx = pdsch_re_indices(cell, sf_idx, cfi, grant.prb)
+    n_re = len(idx)
+    nl = grant.nof_layers if grant.tx_scheme == "spatialmux4" else 2
+    nl_cw = (nl // 2, nl - nl // 2)
+    cws = []
+    for q, (tb, mod, tbs, rv, qm) in enumerate(
+            ((tb1, grant.mod1, grant.tbs1, grant.rv1, grant.qm1),
+             (tb2, grant.mod2, grant.tbs2, grant.rv2, grant.qm2))):
+        coding = TbCoding(tbs=tbs, g=n_re * qm * nl_cw[q], qm=qm, rv=rv, nof_layers=nl_cw[q])
+        bits = dlsch_encode_np(tb, coding)
+        seq = gold_sequence(pdsch_cinit(grant.rnti, sf_idx, cell.id, q=q), len(bits))
+        cws.append(modulate_np(mod, scramble_bits(bits, seq)))
+    layers = layermap(cws, nl)
+    if grant.tx_scheme == "cdd":
+        ports = precode_cdd2(layers)
+    elif grant.tx_scheme == "spatialmux4":
+        ports = precode_spatialmux4(layers, grant.pmi)
+    elif grant.tx_scheme == "spatialmux":
+        ports = precode_spatialmux(layers, grant.pmi)
+    else:
+        raise NotImplementedError(grant.tx_scheme)
+    grid = np.zeros((ports.shape[0], cell.nsymb_per_sf, cell.nof_re_per_symbol), np.complex64)
+    grid.reshape(ports.shape[0], -1)[:, idx] = ports
     return grid

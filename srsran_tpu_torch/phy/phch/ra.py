@@ -1,11 +1,11 @@
-"""DL MCS → (modulation, I_TBS) and the TBS lookup, TS 36.213 §7.1.7 —
-host side.  Copy of the downlink part of `srsran_tpu/phy/phch/ra.py`; the
-spec tables are in `tbs_data.py`."""
+"""DL and UL MCS → (modulation, I_TBS) and the TBS lookup, TS 36.213 §7.1.7
+and §8.6.1 — host side.  Copy of that part of `srsran_tpu/phy/phch/ra.py`;
+the spec tables are in `tbs_data.py`."""
 
 from __future__ import annotations
 
 from ..modem import Mod
-from .tbs_data import DL_MCS_TBS_IDX, DL_MCS_TBS_IDX_256QAM, TBS_TABLE
+from .tbs_data import DL_MCS_TBS_IDX, DL_MCS_TBS_IDX_256QAM, TBS_TABLE, UL_MCS_TBS_IDX
 
 
 def dl_mcs_to_mod(mcs: int, use_256qam: bool = False) -> Mod:
@@ -20,6 +20,18 @@ def dl_mcs_to_mod(mcs: int, use_256qam: bool = False) -> Mod:
 
 def dl_mcs_to_itbs(mcs: int, use_256qam: bool = False) -> int:
     return (DL_MCS_TBS_IDX_256QAM if use_256qam else DL_MCS_TBS_IDX)[mcs]
+
+
+def ul_mcs_to_mod(mcs: int) -> Mod:
+    """TS 36.213 Table 8.6.1-1."""
+    for last, mod in ((10, Mod.QPSK), (20, Mod.QAM16), (28, Mod.QAM64)):
+        if mcs <= last:
+            return mod
+    raise ValueError(f"reserved MCS {mcs}")
+
+
+def ul_mcs_to_itbs(mcs: int) -> int:
+    return UL_MCS_TBS_IDX[mcs]
 
 
 def tbs_lookup(i_tbs: int, n_prb: int) -> int:

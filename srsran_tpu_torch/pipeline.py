@@ -1,63 +1,240 @@
-"""UE DL subframe decode on the device.
+"""Subframe pipelines on the device: the single-device entry points
+of `srsran_tpu/pipeline.py`.
 
-Counterpart of `ue_dl_subframe` in `srsran_tpu/pipeline.py` (SISO, port-0
-branch): OFDM demod → CRS channel estimate → MRC equalize → soft demod →
-CSI weighting → descramble → de-rate-match → batched turbo decode → CRC.
-The reference vmaps one subframe; here the leading batch axis of
-subframes is written out, and every codeblock of the batch decodes in one
-`turbo_decode`.
+* `ue_dl_subframe`: OFDM demod → CRS channel estimate → equalize (MRC on
+  port 0, SFBC combining for transmit diversity, 2x2 MMSE for one-codeword
+  spatial multiplexing) → soft demod → CSI weighting → descramble →
+  de-rate-match → batched turbo decode → CRC.
+* `ue_dl_subframe_mimo`: the 2x2 two-codeword (TM3/TM4) decode; both
+  codewords' codeblocks decode in one `turbo_decode` per distinct
+  (K, CRC polynomial).
+* `enb_dl_subframe_encode`: the DL data-subframe encoder — CRCs as GF(2)
+  products → segmentation → closed-form turbo encoder → rate-match gathers →
+  scramble → modulate → RE scatter into a CRS template → batched IFFT.
+* `enb_ul_subframe`: the PUSCH decode — SC-FDMA demod (-0.5 subcarrier
+  shift) → DMRS channel estimate → MRC → IDFT de-precoding → soft demod →
+  descramble → de-interleave → UL-SCH turbo decode.
+
+The reference vmaps one subframe; here the leading batch axis of subframes
+is written out, and every codeblock of the batch decodes in one
+`turbo_decode`.  Each of them moves its tables to `device` once;
+`device=None` means the first CUDA device (and raises when there is none);
+the tests pass "cpu".
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from .device import require_cuda, table
+from .device import resolve, table
 from .phy.chest.chest_dl import chest_dl
-from .phy.common import Cell
-from .phy.mimo import predecode_single_mrc
-from .phy.modem import demod_soft
-from .phy.ofdm import OfdmConfig, ofdm_rx_sf
-from .phy.phch.pdsch import DlGrant, pdsch_cinit, pdsch_re_indices
-from .phy.phch.sch import TbCoding, dlsch_decode_device
-from .phy.sequence import gold_sequence_signs
+from .phy.chest.chest_ul import chest_ul
+from .phy.chest.refsignal_dl import put_crs_np
+from .phy.common import LTE_CRC24A, LTE_CRC24B, Cell
+from .phy.crc import crc_compute
+from .phy.dft_precoding import dft_predecode
+from .phy.fec.cbsegm import cbsegm
+from .phy.fec.rate_match import turbo_rm_indices
+from .phy.fec.turbo import turbo_encode_device
+from .phy.mimo import (
+    layerdemap,
+    predecode_diversity2,
+    predecode_single_mrc,
+    predecode_zf_mmse,
+)
+from .phy.modem import demod_soft, modulate
+from .phy.ofdm import OfdmConfig, ofdm_rx_sf, ofdm_tx_sf
+from .phy.phch.pdsch import DlGrant, DlGrant2, pdsch_cinit, pdsch_re_indices
+from .phy.phch.pusch import UlGrant, _deinterleaver_indices, pusch_cinit, pusch_symbols_data
+from .phy.phch.sch import TbCoding, _e_split, dlsch_decode_device, dlsch_decode_multi_device
+from .phy.sequence import gold_sequence, gold_sequence_signs
+
+
+def _check_on(samples: torch.Tensor, device: torch.device):
+    if samples.device != device:
+        raise ValueError(f"input is on {samples.device}, expected {device}")
+
+
+def _snr_db(snr: torch.Tensor) -> torch.Tensor:
+    return 10.0 * torch.log10(torch.mean(snr, dim=(1, 2)))
 
 
 def ue_dl_subframe(cell: Cell, sf_idx: int, cfi: int, grant: DlGrant,
                    max_iterations: int = 5, *, device=None):
-    """Build the UE DL subframe decode for one (cell, subframe, grant).
+    """Build the UE DL subframe decode for one (cell, subframe, grant), for
+    the port0, diversity (2 ports) and spatialmux (2 ports, one codeword)
+    transmit schemes.
 
     Returns fn(samples (B, nrx, sf_len) complex64 on `device`) ->
       (tb_bits (B, tbs) uint8, crc_ok (B,) bool, snr_db (B,) float32).
-    The RE index table and the scrambling signs move to `device` once.
-    `device=None` means the first CUDA device (and raises when there is
-    none); the tests pass "cpu".
     """
-    if grant.tx_scheme != "port0":
-        raise NotImplementedError(f"tx_scheme {grant.tx_scheme!r} is not ported")
+    if grant.tx_scheme not in ("port0", "diversity", "spatialmux"):
+        raise NotImplementedError(grant.tx_scheme)
     ofdm = OfdmConfig.from_cell(cell, normalize=True)
-    device = require_cuda() if device is None else torch.device(device)
+    device = resolve(device)
     idx = table(pdsch_re_indices, cell, sf_idx, cfi, grant.prb, device=device,
                 dtype=torch.int64)
-    device = idx.device  # with its index ("cuda" → "cuda:0")
-    g = idx.numel() * grant.qm
-    coding = TbCoding(tbs=grant.tbs, g=g, qm=grant.qm, rv=grant.rv)
+    nof_layers = grant.nof_layers if grant.tx_scheme == "spatialmux" else 1
+    g = idx.numel() * grant.qm * nof_layers
+    coding = TbCoding(tbs=grant.tbs, g=g, qm=grant.qm, rv=grant.rv, nof_layers=nof_layers)
     signs = table(gold_sequence_signs, pdsch_cinit(grant.rnti, sf_idx, cell.id), g,
                   device=device)
+    nof_ports = 1 if grant.tx_scheme == "port0" else 2
 
     def fn(samples: torch.Tensor):
-        if samples.device != device:
-            raise ValueError(f"samples are on {samples.device}, expected {device}")
+        _check_on(samples, device)
         rx_grid = ofdm_rx_sf(ofdm, samples)  # (B, nrx, nsymb, nre)
-        res = chest_dl(rx_grid, cell, sf_idx, nof_ports=1)
-        noise = torch.mean(res["noise"], dim=(1, 2))  # (B,)
+        res = chest_dl(rx_grid, cell, sf_idx, nof_ports=nof_ports)
+        noise = torch.mean(res["noise"], dim=(1, 2))[:, None]  # (B, 1)
         b, nrx = rx_grid.shape[:2]
         y = rx_grid.reshape(b, nrx, -1)[..., idx]  # (B, nrx, M)
-        h = res["ce"][:, :, 0].reshape(b, nrx, -1)[..., idx]
-        x, csi = predecode_single_mrc(y, h, noise[:, None])
+        h = res["ce"].reshape(b, nrx, nof_ports, -1)[..., idx]
+        if grant.tx_scheme == "port0":
+            x, csi = predecode_single_mrc(y, h[:, :, 0], noise)
+        elif grant.tx_scheme == "diversity":
+            x, csi = predecode_diversity2(y, h)
+        else:
+            xl, csil = predecode_zf_mmse(y, h, grant.nof_layers, noise, pmi=grant.pmi)
+            x, csi = layerdemap(xl, 1)[0], layerdemap(csil, 1)[0]
         llr = demod_soft(grant.mod, x) * torch.repeat_interleave(csi, grant.qm, dim=-1)
         tb, ok = dlsch_decode_device(llr * signs, coding, max_iterations)
-        snr_db = 10.0 * torch.log10(torch.mean(res["snr"], dim=(1, 2)))
-        return tb, ok, snr_db
+        return tb, ok, _snr_db(res["snr"])
 
     return fn
+
+
+def ue_dl_subframe_mimo(cell: Cell, sf_idx: int, cfi: int, grant: DlGrant2,
+                        max_iterations: int = 5, *, device=None):
+    """Build the 2x2 spatial-multiplexing (TM4 codebook) two-codeword decode.
+
+    Returns fn(samples (B, 2, sf_len) complex64 on `device`) ->
+      ((tb1 (B, tbs1) uint8, ok1 (B,) bool), (tb2, ok2), snr_db (B,) float32).
+    """
+    ofdm = OfdmConfig.from_cell(cell, normalize=True)
+    device = resolve(device)
+    idx = table(pdsch_re_indices, cell, sf_idx, cfi, grant.prb, device=device,
+                dtype=torch.int64)
+    n_re = idx.numel()
+    cws = ((grant.mod1, grant.qm1, grant.tbs1, grant.rv1),
+           (grant.mod2, grant.qm2, grant.tbs2, grant.rv2))
+    signs = [table(gold_sequence_signs, pdsch_cinit(grant.rnti, sf_idx, cell.id, q=q),
+                   n_re * qm, device=device) for q, (_, qm, _, _) in enumerate(cws)]
+    codings = [TbCoding(tbs=tbs, g=n_re * qm, qm=qm, rv=rv, nof_layers=1)
+               for _, qm, tbs, rv in cws]
+
+    def fn(samples: torch.Tensor):
+        _check_on(samples, device)
+        if samples.shape[-2] != 2:
+            raise ValueError(f"the 2x2 decode takes 2 receive antennas, got {samples.shape[-2]}")
+        rx_grid = ofdm_rx_sf(ofdm, samples)  # (B, 2 rx, nsymb, nre)
+        res = chest_dl(rx_grid, cell, sf_idx, nof_ports=2)
+        noise = torch.mean(res["noise"], dim=(1, 2))[:, None]
+        b = rx_grid.shape[0]
+        y = rx_grid.reshape(b, 2, -1)[..., idx]
+        h = res["ce"].reshape(b, 2, 2, -1)[..., idx]
+        x, csi = predecode_zf_mmse(y, h, 2, noise, pmi=grant.pmi)
+        sym_cws, csi_cws = layerdemap(x, 2), layerdemap(csi, 2)
+        llrs = [demod_soft(mod, sym_cws[q]) * torch.repeat_interleave(csi_cws[q], qm, dim=-1)
+                * signs[q] for q, (mod, qm, _, _) in enumerate(cws)]
+        # both codewords' codeblocks decode in one batched turbo call per
+        # distinct (K, CRC polynomial), not in per-codeword chains
+        outs = dlsch_decode_multi_device(llrs, codings, max_iterations)
+        return outs[0], outs[1], _snr_db(res["snr"])
+
+    return fn
+
+
+def enb_ul_subframe(cell: Cell, sf_idx: int, grant: UlGrant, max_iterations: int = 5, *,
+                    device=None):
+    """Build the eNB UL PUSCH subframe decode for one (cell, subframe, grant).
+
+    Returns fn(samples (B, nrx, sf_len) complex64 on `device`) ->
+      (tb_bits (B, tbs) uint8, crc_ok (B,) bool, snr_db (B,) float32).
+    """
+    ofdm = OfdmConfig.from_cell(cell, normalize=True, freq_shift_f=-0.5)
+    device = resolve(device)
+    m_sc = 12 * grant.nof_prb
+    k0 = grant.prb_start * 12
+    data_syms = torch.as_tensor(pusch_symbols_data(cell), device=device)
+    nsym = data_syms.numel()
+    g = nsym * m_sc * grant.qm
+    coding = TbCoding(tbs=grant.tbs, g=g, qm=grant.qm, rv=grant.rv)
+    signs = table(gold_sequence_signs, pusch_cinit(grant.rnti, sf_idx, cell.id), g, device=device)
+    # the interleaver is a permutation: undoing it is a gather by its inverse
+    deint = table(_deinterleaver_indices, g, grant.qm, device=device, dtype=torch.int64)
+
+    def fn(samples: torch.Tensor):
+        _check_on(samples, device)
+        rx_grid = ofdm_rx_sf(ofdm, samples)  # (B, nrx, nsymb, nre)
+        ce, noise = chest_ul(rx_grid, cell, grant.prb_start, grant.nof_prb)
+        noise = torch.mean(noise, dim=1)  # (B,)
+        b, nrx = rx_grid.shape[:2]
+        y = rx_grid[:, :, data_syms, k0 : k0 + m_sc]
+        h = ce[:, :, data_syms, :]
+        xf, csi = predecode_single_mrc(y.reshape(b, nrx, -1), h.reshape(b, nrx, -1),
+                                       noise[:, None])
+        x = dft_predecode(xf.reshape(b, nsym, m_sc))
+        llr = demod_soft(grant.mod, x.reshape(b, -1))
+        # the CSI of an SC-FDMA symbol is its mean over the allocation
+        csi_t = torch.mean(csi.reshape(b, nsym, m_sc), dim=-1)
+        llr = llr * torch.repeat_interleave(csi_t, m_sc * grant.qm, dim=-1)
+        tb, ok = dlsch_decode_device((llr * signs)[:, deint], coding, max_iterations)
+        sig = torch.mean(ce.abs() ** 2, dim=(1, 2, 3))
+        return tb, ok, 10.0 * torch.log10(sig / (noise + 1e-12))
+
+    return fn
+
+
+def enb_dl_subframe_encode(cell: Cell, sf_idx: int, cfi: int, grant: DlGrant, *, device=None):
+    """Build the eNB DL data-subframe encoder for one (cell, subframe, grant):
+    port 0, codeblocks of one size (as the reference).
+
+    Returns fn(tb_bits (B, tbs) uint8 on `device`) ->
+      samples (B, nports, sf_len) complex64.
+    """
+    if grant.tx_scheme != "port0":
+        raise ValueError(f"the device encoder is the port-0 path, got {grant.tx_scheme!r}")
+    segm = cbsegm(grant.tbs)
+    ka = segm.cb_sizes[0]
+    if any(k != ka for k in segm.cb_sizes):
+        raise ValueError(f"tbs {grant.tbs} segments into codeblocks of two sizes")
+    device = resolve(device)
+    idx = table(pdsch_re_indices, cell, sf_idx, cfi, grant.prb, device=device,
+                dtype=torch.int64)
+    g = idx.numel() * grant.qm
+    es = _e_split(g, segm.C, grant.qm, 1)
+    rm_idx = [table(turbo_rm_indices, ka, es[i], grant.rv, segm.F if i == 0 else 0,
+                    device=device, dtype=torch.int64) for i in range(segm.C)]
+    seq = table(gold_sequence, pdsch_cinit(grant.rnti, sf_idx, cell.id), g, device=device,
+                dtype=torch.uint8)
+    tmpl = table(_crs_template, cell, sf_idx, device=device)
+    ofdm = OfdmConfig.from_cell(cell, normalize=True)
+    crc_len = 24 if segm.C > 1 else 0
+
+    def fn(tb_bits: torch.Tensor):
+        _check_on(tb_bits, device)
+        tb_bits = tb_bits.to(torch.uint8)
+        nb = tb_bits.shape[0]
+        b = torch.cat([tb_bits, crc_compute(tb_bits, LTE_CRC24A)], dim=-1)
+        # segment: filler zeros on codeblock 0, a CRC24B each when C > 1
+        cbs = torch.cat([b.new_zeros((nb, segm.F)), b], dim=-1).reshape(nb, segm.C, ka - crc_len)
+        if segm.C > 1:
+            cbs = torch.cat([cbs, crc_compute(cbs, LTE_CRC24B)], dim=-1)
+        d = turbo_encode_device(cbs.reshape(nb * segm.C, ka), ka)  # (B*C, 3, ka+4)
+        flat = d.reshape(nb, segm.C, -1)
+        e = torch.cat([flat[:, i, rm_idx[i]] for i in range(segm.C)], dim=-1)
+        sym = modulate(grant.mod, e ^ seq)
+        grid = tmpl.reshape(1, tmpl.shape[0], -1).repeat(nb, 1, 1)
+        grid[:, 0, idx] = sym
+        return ofdm_tx_sf(ofdm, grid.reshape((nb,) + tuple(tmpl.shape)))
+
+    return fn
+
+
+def _crs_template(cell: Cell, sf_idx: int) -> np.ndarray:
+    """(nports, nsymb, nre) complex64 grid holding the CRS and nothing else
+    (the control region stays empty)."""
+    tmpl = np.zeros((max(cell.nof_ports, 1), cell.nsymb_per_sf, cell.nof_re_per_symbol),
+                    np.complex64)
+    return put_crs_np(tmpl, cell, sf_idx)

@@ -31,7 +31,12 @@ import srsran_tpu_torch.pipeline_dynamic as t_pd
 from srsran_tpu_torch.convert import from_reference, softbuffer_from_reference
 from srsran_tpu_torch.phy.fec import turbo_cuda
 from srsran_tpu_torch.phy.fec.rate_match import turbo_rate_match_rx
-from srsran_tpu_torch.pipeline import ue_dl_subframe
+from srsran_tpu_torch.pipeline import (
+    enb_dl_subframe_encode,
+    enb_ul_subframe,
+    ue_dl_subframe,
+    ue_dl_subframe_mimo,
+)
 
 torch.set_num_threads(1)
 
@@ -176,6 +181,12 @@ def test_buckets_and_tb_params_equal_reference():
         assert (kb, bb, rb, tbs_max) == (r_kb, r_bb, r_rb, r_tbs_max)
         assert 1 <= folds <= rb
         np.testing.assert_array_equal(tmpl, r_tmpl)
+    # two layers: the codeblocks' shares are multiples of 2*Qm
+    for tbs, g, qm in ((6200, 2 * 3000 * 4, 4), (18336, 2 * 3600 * 6, 6)):
+        got, ref = t_pd._tb_params_v2(tbs, g, qm, 2), r_pd._tb_params_v2(tbs, g, qm, 2)
+        assert got[:3] + (got[4],) == ref[:4]
+        np.testing.assert_array_equal(got[-1], ref[-1])
+        assert not np.array_equal(got[-1], t_pd._tb_params_v2(tbs + 8, g, qm, 2)[-1])
     cell = Cell(nof_prb=25, nof_ports=1, id=5)
     for prb in (tuple(range(25)), (0, 1, 7, 20)):
         pad, n_re, bucket = t_pd._padded_re_indices(from_reference(cell), 0, 2, prb)
@@ -251,6 +262,46 @@ def test_dynamic_ue_dl_matches_reference(both, name):
     assert ue.total_compiles == r_ue.total_compiles
 
 
+H_2X2 = np.array([[1.0 + 0.1j, 0.25 - 0.55j], [-0.45 + 0.3j, 0.95 + 0.05j]], np.complex64)
+
+
+# (tx scheme, layers, mcs, PRB set, subframe, noise amplitude)
+MIMO_GRANTS = {
+    "diversity_qpsk": ("diversity", 1, 5, tuple(range(2, 12)), 1, 0.1),
+    "diversity_qam64": ("diversity", 1, 20, tuple(range(15)), 5, 0.03),
+    "spatialmux_1layer": ("spatialmux", 1, 12, tuple(range(15)), 2, 0.04),
+    "spatialmux_2layers": ("spatialmux", 2, 14, tuple(range(3, 15)), 2, 0.02),
+}
+
+
+@pytest.mark.parametrize("name", list(MIMO_GRANTS))
+def test_dynamic_ue_dl_two_port_grants_match_reference(name):
+    """Transmit-diversity and spatial-multiplexing grants through both
+    `DynamicUeDl`s behind a 2x2 channel: same TB, crc_ok, iterations, stage
+    keys, softbuffer within 1e-3."""
+    tx_scheme, nof_layers, mcs, prb, sf_idx, amp = MIMO_GRANTS[name]
+    cell = Cell(nof_prb=15, nof_ports=2, id=5)
+    r_ue = r_pd.DynamicUeDl(cell, cfi=1, max_iterations=6)
+    ue = t_pd.DynamicUeDl(from_reference(cell), cfi=1, max_iterations=6, device="cpu")
+    grant = DlGrant(prb=prb, mod=dl_mcs_to_mod(mcs), tbs=dl_tbs(mcs, len(prb) * nof_layers),
+                    rnti=0x46, tx_scheme=tx_scheme, nof_layers=nof_layers, pmi=1)
+    rng = np.random.default_rng(mcs)
+    tb = rng.integers(0, 2, grant.tbs).astype(np.uint8)
+    grid = pdsch_encode_np(cell, sf_idx, 1, grant, tb)
+    put_crs_np(grid, cell, sf_idx)
+    tx = np.asarray(ofdm_tx_sf(OfdmConfig.from_cell(cell, normalize=True), grid))
+    rx = np.einsum("rp,pt->rt", H_2X2, tx)
+    rx = (rx + amp * (rng.standard_normal(rx.shape) + 1j * rng.standard_normal(rx.shape))
+          ).astype(np.complex64)
+    r_tb, r_ok, r_soft, r_it = r_ue.decode(rx, sf_idx, grant)
+    p_tb, p_ok, p_soft, p_it = ue.decode(rx, sf_idx, from_reference(grant))
+    assert (p_ok, p_it) == (r_ok, r_it) and p_ok
+    np.testing.assert_array_equal(p_tb, r_tb)
+    np.testing.assert_array_equal(p_tb, tb)
+    np.testing.assert_allclose(p_soft.numpy(), np.asarray(r_soft), atol=1e-3)
+    assert ue.stats == r_ue.stats
+
+
 @pytest.mark.parametrize("first", ["reference", "port"])
 def test_dynamic_harq_combining_across_packages(first):
     """rv 0 alone fails at low SNR; rv 2 combines in the softbuffer and
@@ -309,10 +360,17 @@ def test_entry_points_need_a_card_unless_told_otherwise():
         t_pd.DynamicUeDl(cell)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ue_dl_subframe(cell, 1, 1, grant)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_pd.DynamicEnbUl(cell)
+    for build in (ue_dl_subframe_mimo, enb_dl_subframe_encode):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build(cell, 1, 1, grant)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        enb_ul_subframe(cell, 1, grant)
     ue = t_pd.DynamicUeDl(cell, device="cpu")
     with pytest.raises(NotImplementedError):
         ue.decode(np.zeros((1, cell.sf_len), np.complex64), 1,
-                  dataclasses.replace(grant, tx_scheme="diversity"))
+                  dataclasses.replace(grant, tx_scheme="cdd"))
     with pytest.raises(ValueError, match="softbuffer"):
         ue.decode(np.zeros((1, cell.sf_len), np.complex64), 1, grant,
                   softbuffer=torch.zeros((1, 3, 772), device="meta"))

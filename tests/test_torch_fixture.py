@@ -1,7 +1,8 @@
 """The committed stimulus fixtures of the port are what
 `tools/make_torch_fixture.py` builds from the JAX reference, and the port
 decodes what they store as the reference did: the two noisy subframes of
-the static path (100 PRB MCS 26) and the grants of the dynamic path."""
+the static path (100 PRB MCS 26), the grants of the dynamic path, and the
+2x2 MIMO, eNB UL and dynamic eNB UL ones."""
 
 import importlib.util
 from pathlib import Path
@@ -14,8 +15,11 @@ from srsran_tpu_torch.phy.common import Cell
 from srsran_tpu_torch.phy.modem import Mod
 from srsran_tpu_torch.phy.phch.pdsch import DlGrant
 from srsran_tpu_torch.phy.phch.ra import dl_mcs_to_mod, dl_tbs
-from srsran_tpu_torch.pipeline import ue_dl_subframe
-from srsran_tpu_torch.pipeline_dynamic import DynamicUeDl
+from srsran_tpu_torch.phy.phch.pdsch import DlGrant2
+from srsran_tpu_torch.phy.phch.pusch import UlGrant
+from srsran_tpu_torch.phy.phch.ra import tbs_lookup, ul_mcs_to_itbs, ul_mcs_to_mod
+from srsran_tpu_torch.pipeline import enb_ul_subframe, ue_dl_subframe, ue_dl_subframe_mimo
+from srsran_tpu_torch.pipeline_dynamic import DynamicEnbUl, DynamicUeDl
 
 torch.set_num_threads(1)
 
@@ -95,3 +99,104 @@ def test_port_decodes_dynamic_fixture_like_reference(i):
     assert (ok, n_it) == (bool(fd["ref_crc_ok"][i]), int(fd["ref_n_it"][i]))
     if ok:  # a decode that does not converge has no bits to hold
         np.testing.assert_array_equal(tb, np.unpackbits(fd["ref_tb_packed"][i], count=grant.tbs))
+
+
+TESTDATA = ROOT / "srsran_tpu_torch" / "testdata"
+
+
+def test_new_fixtures_stay_small():
+    names = ("ue_dl_mimo_20mhz.npz", "enb_ul_20mhz.npz", "enb_ul_dynamic_20mhz.npz")
+    assert sum((TESTDATA / n).stat().st_size for n in names) < 3 * 2**20
+
+
+def test_mimo_fixture_is_current():
+    tool = load_tool()
+    fx = np.load(tool.OUT_MIMO)
+    for key, val in tool.MIMO_CONFIG.items():
+        assert fx[key] == val, key
+    _cell, grant, tb1, tb2, clean = tool.mimo_clean_rx()
+    assert int(fx["tbs"]) == grant.tbs1 == grant.tbs2 == 61664
+    np.testing.assert_array_equal(np.unpackbits(fx["tb1_packed"], count=tb1.size), tb1)
+    np.testing.assert_array_equal(np.unpackbits(fx["tb2_packed"], count=tb2.size), tb2)
+    assert fx["rx"].shape == (2, 2, 30720) and fx["rx"].dtype == np.complex64
+    want = tool.awgn(tool.MIMO_CONFIG["seed"] + 1, np.tile(clean[None], (2, 1, 1)),
+                     tool.MIMO_CONFIG["noise_amp"])
+    np.testing.assert_allclose(fx["rx"], want, rtol=0, atol=2e-6)
+    assert fx["ref_crc_ok"].tolist() == [[True, True], [True, True]]
+    # a CRC-passing reference TB is the sent one
+    np.testing.assert_array_equal(np.unpackbits(fx["ref_tb1_packed"], axis=-1, count=tb1.size),
+                                  np.stack([tb1, tb1]))
+
+
+def test_port_decodes_mimo_fixture_like_reference():
+    fx = np.load(TESTDATA / "ue_dl_mimo_20mhz.npz")
+    tbs, nof_prb = int(fx["tbs"]), int(fx["nof_prb"])
+    cell = Cell(nof_prb=nof_prb, nof_ports=2, id=int(fx["cell_id"]))
+    grant = DlGrant2(prb=tuple(range(nof_prb)), mod1=Mod.QAM64, tbs1=tbs, mod2=Mod.QAM64, tbs2=tbs,
+                     pmi=int(fx["pmi"]))
+    fn = ue_dl_subframe_mimo(cell, int(fx["sf_idx"]), int(fx["cfi"]), grant,
+                             int(fx["max_iterations"]), device="cpu")
+    (tb1, ok1), (tb2, ok2), snr_db = fn(torch.from_numpy(fx["rx"]))
+    for q, (tb, ok) in enumerate(((tb1, ok1), (tb2, ok2))):
+        np.testing.assert_array_equal(ok.numpy(), fx["ref_crc_ok"][:, q])
+        np.testing.assert_array_equal(
+            tb.numpy(), np.unpackbits(fx[f"ref_tb{q + 1}_packed"], axis=-1, count=tbs))
+    np.testing.assert_allclose(snr_db.numpy(), fx["ref_snr_db"], atol=1e-3)
+
+
+def ul_grant(mcs, prb_start, nof_prb, rnti):
+    return UlGrant(prb_start=prb_start, nof_prb=nof_prb, mod=ul_mcs_to_mod(mcs),
+                   tbs=tbs_lookup(ul_mcs_to_itbs(mcs), nof_prb), rnti=rnti)
+
+
+def test_ul_fixtures_are_current():
+    tool = load_tool()
+    fx = np.load(tool.OUT_UL)
+    c = tool.UL_CONFIG
+    for key, val in c.items():
+        assert fx[key] == val, key
+    grant = tool.ul_grant(c["mcs"], c["prb_start"], c["nof_prb_alloc"], c["rnti"])
+    _cell, tb, tx = tool.ul_clean_tx(c["seed"], c["cell_id"], c["nof_prb"], c["sf_idx"], grant)
+    assert int(fx["tbs"]) == grant.tbs == 40576
+    np.testing.assert_array_equal(np.unpackbits(fx["tb_packed"], count=tb.size), tb)
+    want = tool.awgn(c["seed"] + 1, np.tile(tx[None, None, :], (2, 1, 1)), c["noise_amp"])
+    assert fx["rx"].shape == (2, 1, 30720) and fx["rx"].dtype == np.complex64
+    np.testing.assert_allclose(fx["rx"], want, rtol=0, atol=2e-6)
+    assert fx["ref_crc_ok"].tolist() == [True, True]
+
+    fd = np.load(tool.OUT_UL_DYN)
+    for key, val in tool.UL_DYN_CONFIG.items():
+        assert fd[key] == val, key
+    cols = np.stack([fd[k] for k in ("mcs", "prb_start", "prb_len", "sf_idx", "noise_amp")], axis=1)
+    np.testing.assert_array_equal(cols, np.asarray(tool.UL_DYN_GRANTS))
+    assert fd["ref_crc_ok"].tolist() == [True, True] and fd["ref_n_it"].tolist() == [1, 3]
+    for i in range(len(tool.UL_DYN_GRANTS)):
+        _cell, grant, tb, rx = tool.ul_dynamic_grant(i)
+        assert int(fd["tbs"][i]) == grant.tbs
+        np.testing.assert_array_equal(np.unpackbits(fd["ref_tb_packed"][i], count=tb.size), tb)
+        np.testing.assert_allclose(fd["rx"][i], rx, rtol=0, atol=2e-6)
+
+
+def test_port_decodes_ul_fixture_like_reference():
+    fx = np.load(TESTDATA / "enb_ul_20mhz.npz")
+    cell = Cell(nof_prb=int(fx["nof_prb"]), nof_ports=1, id=int(fx["cell_id"]))
+    grant = ul_grant(int(fx["mcs"]), int(fx["prb_start"]), int(fx["nof_prb_alloc"]), int(fx["rnti"]))
+    fn = enb_ul_subframe(cell, int(fx["sf_idx"]), grant, int(fx["max_iterations"]), device="cpu")
+    tb, ok, snr_db = fn(torch.from_numpy(fx["rx"]))
+    np.testing.assert_array_equal(ok.numpy(), fx["ref_crc_ok"])
+    np.testing.assert_array_equal(
+        tb.numpy(), np.unpackbits(fx["ref_tb_packed"], axis=-1, count=grant.tbs))
+    np.testing.assert_allclose(snr_db.numpy(), fx["ref_snr_db"], atol=1e-3)
+
+
+@pytest.mark.parametrize("i", [0, 1])
+def test_port_decodes_ul_dynamic_fixture_like_reference(i):
+    fd = np.load(TESTDATA / "enb_ul_dynamic_20mhz.npz")
+    cell = Cell(nof_prb=int(fd["nof_prb"]), nof_ports=1, id=int(fd["cell_id"]))
+    enb = DynamicEnbUl(cell, max_iterations=int(fd["max_iterations"]), device="cpu")
+    grant = ul_grant(int(fd["mcs"][i]), int(fd["prb_start"][i]), int(fd["prb_len"][i]),
+                     int(fd["rnti"]))
+    assert grant.tbs == int(fd["tbs"][i])
+    tb, ok, _, n_it = enb.decode(fd["rx"][i], int(fd["sf_idx"][i]), grant)
+    assert (ok, n_it) == (bool(fd["ref_crc_ok"][i]), int(fd["ref_n_it"][i]))
+    np.testing.assert_array_equal(tb, np.unpackbits(fd["ref_tb_packed"][i], count=grant.tbs))

@@ -254,3 +254,49 @@ def test_ofdm_tx_rx_round_trip_with_shift():
         assert np.abs(tx.numpy() - ref_tx).max() <= 1e-5 * np.abs(ref_tx).max()
         rx_cfg = dataclasses.replace(cfg, freq_shift_f=-cfg.freq_shift_f)
         np.testing.assert_allclose(t_ofdm.ofdm_rx_sf(rx_cfg, tx).numpy(), grid, atol=1e-5)
+
+
+@pytest.mark.parametrize("m_sc", [12, 60, 300, 1152])
+def test_ul_smoothing_matrix_and_time_weights(m_sc):
+    """The tables of the UL channel estimate: the 5-tap smoothing matrix over
+    an allocation, and the clamped linear time interpolation between the two
+    DMRS symbols as the reference builds it inline."""
+    import srsran_tpu_torch.phy.chest.chest_ul as t_chest_ul
+
+    np.testing.assert_array_equal(t_chest._smooth_matrix(m_sc, 5), r_chest._smooth_matrix(m_sc, 5))
+    for kw in (dict(nof_prb=6), dict(nof_prb=15, cp=1)):
+        _ref_cell, cell = cells(**kw)
+        l0, l1 = t_chest_ul.dmrs_symbols(cell)
+        assert (l0, l1) == ((3, 10) if cell.nsymb_per_slot == 7 else (2, 8))
+        t = t_chest_ul.time_interp_weights(cell)
+        assert t.shape == (cell.nsymb_per_sf, 2) and t.dtype == np.float32
+        np.testing.assert_allclose(t.sum(axis=1), 1.0, atol=1e-7)
+        np.testing.assert_array_equal(t[l0], [1, 0])
+        np.testing.assert_array_equal(t[l1], [0, 1])
+        np.testing.assert_allclose(t[l0 + 1], [1 - 1 / (l1 - l0), 1 / (l1 - l0)], atol=1e-7)
+
+
+def test_from_reference_takes_every_grant_class():
+    """`from_reference` rebuilds the one- and two-codeword DL grants and the
+    UL grant field by field; anything else raises."""
+    import srsran_tpu.phy.phch.pusch as r_pusch
+    import srsran_tpu_torch.phy.phch.pusch as t_pusch
+
+    pairs = [
+        (r_pdsch.DlGrant(prb=(1, 2), mod=r_modem.Mod.QAM16, tbs=600, rv=2, rnti=7,
+                         tx_scheme="spatialmux", nof_layers=2, pmi=1), t_pdsch.DlGrant),
+        (r_pdsch.DlGrant2(prb=(0, 5), mod1=r_modem.Mod.QAM64, tbs1=1000, mod2=r_modem.Mod.QPSK,
+                          tbs2=328, rv1=1, rv2=3, pmi=2, rnti=9, tx_scheme="cdd"), t_pdsch.DlGrant2),
+        (r_pusch.UlGrant(prb_start=3, nof_prb=12, mod=r_modem.Mod.QAM16, tbs=2000, rv=1, rnti=70),
+         t_pusch.UlGrant),
+    ]
+    for ref, cls in pairs:
+        got = from_reference(ref)
+        assert type(got) is cls
+        for f in dataclasses.fields(ref):
+            want = getattr(ref, f.name)
+            assert getattr(got, f.name) == (int(want) if isinstance(want, r_modem.Mod) else want)
+        hash(got)  # a key for cached tables
+    assert from_reference(pairs[1][0]).qm1 == 6 and from_reference(pairs[1][0]).qm2 == 2
+    with pytest.raises(TypeError):
+        from_reference(object())

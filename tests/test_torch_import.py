@@ -12,6 +12,12 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, srsran_tpu_torch.pipeline, srsran_tpu_torch.convert\n"
         "import srsran_tpu_torch.pipeline_dynamic, srsran_tpu_torch.phy.phch.ra, chip_smoke\n"
+        "import srsran_tpu_torch.phy.mimo, srsran_tpu_torch.phy.dft_precoding\n"
+        "import srsran_tpu_torch.phy.chest.chest_ul, srsran_tpu_torch.phy.chest.refsignal_ul\n"
+        "import srsran_tpu_torch.phy.phch.pusch, srsran_tpu_torch.phy.ue.ue_ul\n"
+        "import importlib.util as u\n"
+        "spec = u.spec_from_file_location('prof', 'tools/profile_torch_dynamic.py')\n"
+        "spec.loader.exec_module(u.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'srsran_tpu.'))"
         " or m == 'srsran_tpu']\n"
         "assert not bad, bad\n"
@@ -19,9 +25,25 @@ def test_import_leaves_jax_out():
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
 
+def test_every_module_of_the_port_imports_without_jax():
+    """Each module file of the package, imported by name in one process."""
+    mods = sorted(
+        str(p.relative_to(ROOT).with_suffix("")).replace("/", ".").removesuffix(".__init__")
+        for p in (ROOT / "srsran_tpu_torch").rglob("*.py"))
+    assert "srsran_tpu_torch.phy.ue.ue_ul" in mods and "srsran_tpu_torch.phy.mimo" in mods
+    code = (
+        "import sys, importlib\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'srsran_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
 def test_sources_never_import_jax():
     pattern = re.compile(r"^\s*(import|from) (jax|srsran_tpu)\b", re.M)
-    files = sorted((ROOT / "srsran_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 20
+    files = sorted((ROOT / "srsran_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_dynamic.py"]
+    assert len(files) > 30
     for path in files:
         assert not pattern.search(path.read_text()), path

@@ -62,5 +62,5 @@ def test_ue_dl_subframe_checks_its_inputs():
     with pytest.raises(ValueError):
         fn(torch.zeros((1, 1, cell.sf_len), dtype=torch.complex64, device="meta"))
     with pytest.raises(NotImplementedError):
-        ue_dl_subframe(cell, 2, 1, from_reference(DlGrant(prb=(0,), tbs=16, tx_scheme="diversity")),
+        ue_dl_subframe(cell, 2, 1, from_reference(DlGrant(prb=(0,), tbs=16, tx_scheme="cdd")),
                        device="cpu")

@@ -1,6 +1,7 @@
 #!/usr/bin/env python
 """Build the stimulus fixtures of the PyTorch port from the JAX reference,
-on the CPU: the UE DL SISO one and the dynamic-grant one.
+on the CPU: the UE DL SISO one, the dynamic-grant one, and the 2x2 MIMO,
+eNB UL and dynamic eNB UL ones.
 
 The configuration is the repo's headline row (`bench.py` `bench_ue_dl_siso`):
 20 MHz (100 PRB), cell 301, subframe 2, CFI 1, MCS 26 QAM64, port 0.  The
@@ -21,7 +22,20 @@ iterations): the noisy subframes and the reference's TB bits, crc_ok and
 iteration count.  `chip_smoke.py` decodes them with the port's
 `DynamicUeDl` and holds the result to the stored reference.
 
+The MIMO fixture (`ue_dl_mimo_20mhz.npz`) is the `bench.py`
+`bench_ue_dl_mimo` row: 100 PRB, 2 ports, two codewords of MCS 26 QAM64,
+pmi 1, the bench's 2x2 channel, noise amplitude 0.045, two noisy subframes
+through the reference `ue_dl_subframe_mimo`.  The UL fixture
+(`enb_ul_20mhz.npz`) is the `bench_enb_ul` row: PRB 1..96 of 100, MCS 20
+16QAM, rnti 0x46, noise amplitude 0.09, two noisy subframes through the
+reference `enb_ul_subframe`.  The dynamic UL fixture
+(`enb_ul_dynamic_20mhz.npz`) holds the grants of `UL_DYN_GRANTS`, decoded by
+the reference's `DynamicEnbUl`.  Each stores the noisy subframes, the sent
+TB bits and the reference's TB bits, crc_ok and snr_db or iteration count.
+
 Run from the repo root:  JAX_PLATFORMS=cpu python tools/make_torch_fixture.py
+(`main`, `main_dynamic`, `main_mimo`, `main_ul`, `main_ul_dynamic` each
+write one file.)
 """
 
 from __future__ import annotations
@@ -41,6 +55,20 @@ CONFIG = dict(nof_prb=100, cell_id=301, sf_idx=2, cfi=1, mcs=26, noise_amp=0.09,
 # that it cannot decode in
 DYN_GRANTS = ((28, 0, 100, 1, 0.07), (14, 20, 37, 5, 0.25), (3, 47, 6, 0, 0.6),
               (22, 30, 60, 7, 0.2))
+OUT_MIMO = TESTDATA / "ue_dl_mimo_20mhz.npz"
+OUT_UL = TESTDATA / "enb_ul_20mhz.npz"
+OUT_UL_DYN = TESTDATA / "enb_ul_dynamic_20mhz.npz"
+MIMO_CONFIG = dict(nof_prb=100, cell_id=301, sf_idx=2, cfi=1, mcs=26, pmi=1, noise_amp=0.045,
+                   max_iterations=6, seed=20261018)
+# the 2x2 channel of `bench.py` `bench_ue_dl_mimo`: rx antenna x tx port
+MIMO_CHANNEL = np.array([[1.0 + 0.1j, 0.25 - 0.55j], [-0.45 + 0.3j, 0.95 + 0.05j]], np.complex64)
+UL_CONFIG = dict(nof_prb=100, cell_id=301, sf_idx=2, mcs=20, prb_start=1, nof_prb_alloc=96,
+                 rnti=0x46, noise_amp=0.09, max_iterations=6, seed=20261019)
+# (mcs, first PRB, number of PRB, subframe, noise amplitude): the headline
+# grant (7 codeblocks of K=5824, PRB bucket 100), and a 25 PRB QPSK grant in
+# the 40 PRB bucket in noise that takes several iterations
+UL_DYN_GRANTS = ((20, 1, 96, 2, 0.09), (10, 40, 25, 7, 0.45))
+UL_DYN_CONFIG = dict(nof_prb=100, cell_id=301, rnti=0x46, max_iterations=6, seed=20261020)
 DYN_CONFIG = dict(nof_prb=100, cell_id=301, cfi=1, rnti=0x46, max_iterations=6, seed=20261017)
 
 
@@ -132,6 +160,151 @@ def main_dynamic():
     print(f"wrote {OUT_DYN}")
 
 
+def awgn(seed: int, x: np.ndarray, amp: float) -> np.ndarray:
+    """x plus seeded complex noise of the given amplitude, complex64."""
+    rng = np.random.default_rng(seed)
+    return (x + amp * (rng.standard_normal(x.shape) + 1j * rng.standard_normal(x.shape))
+            ).astype(np.complex64)
+
+
+def pack_rows(rows) -> np.ndarray:
+    """Bit rows of unequal length, each packed, in one zero-padded array."""
+    packed = [np.packbits(r) for r in rows]
+    out = np.zeros((len(packed), max(len(p) for p in packed)), np.uint8)
+    for i, p in enumerate(packed):
+        out[i, : len(p)] = p
+    return out
+
+
+def mimo_clean_rx():
+    """(reference cell, reference DlGrant2, tb1, tb2, noise-free received
+    subframe (2, sf_len) complex64 behind MIMO_CHANNEL)."""
+    import jax
+
+    from srsran_tpu.phy.chest.refsignal_dl import put_crs_np
+    from srsran_tpu.phy.common import Cell
+    from srsran_tpu.phy.modem import Mod
+    from srsran_tpu.phy.ofdm import OfdmConfig, ofdm_tx_sf
+    from srsran_tpu.phy.phch.pdsch import DlGrant2, pdsch_encode2_np
+    from srsran_tpu.phy.phch.ra import dl_tbs
+
+    c = MIMO_CONFIG
+    cell = Cell(nof_prb=c["nof_prb"], nof_ports=2, id=c["cell_id"])
+    tbs = dl_tbs(c["mcs"], c["nof_prb"])
+    grant = DlGrant2(prb=tuple(range(c["nof_prb"])), mod1=Mod.QAM64, tbs1=tbs, mod2=Mod.QAM64,
+                     tbs2=tbs, pmi=c["pmi"])
+    rng = np.random.default_rng(c["seed"])
+    tb1, tb2 = (rng.integers(0, 2, tbs).astype(np.uint8) for _ in range(2))
+    with jax.default_device(jax.devices("cpu")[0]):
+        grid = pdsch_encode2_np(cell, c["sf_idx"], c["cfi"], grant, tb1, tb2)
+        put_crs_np(grid, cell, c["sf_idx"])
+        tx = np.asarray(ofdm_tx_sf(OfdmConfig.from_cell(cell, normalize=True), grid))
+    return cell, grant, tb1, tb2, np.einsum("rp,pt->rt", MIMO_CHANNEL, tx).astype(np.complex64)
+
+
+def main_mimo():
+    import jax
+
+    from srsran_tpu.pipeline import ue_dl_subframe_mimo
+
+    c = MIMO_CONFIG
+    cell, grant, tb1, tb2, clean = mimo_clean_rx()
+    rx = awgn(c["seed"] + 1, np.tile(clean[None], (2, 1, 1)), c["noise_amp"])
+    fn = jax.jit(jax.vmap(ue_dl_subframe_mimo(cell, c["sf_idx"], c["cfi"], grant,
+                                              max_iterations=c["max_iterations"])))
+    (r_tb1, r_ok1), (r_tb2, r_ok2), r_snr = fn(rx)
+    ok = np.stack([np.asarray(r_ok1), np.asarray(r_ok2)], axis=1)  # (subframe, codeword)
+    np.savez(
+        OUT_MIMO, rx=rx, tb1_packed=np.packbits(tb1), tb2_packed=np.packbits(tb2),
+        ref_tb1_packed=np.packbits(np.asarray(r_tb1), axis=-1),
+        ref_tb2_packed=np.packbits(np.asarray(r_tb2), axis=-1), ref_crc_ok=ok,
+        ref_snr_db=np.asarray(r_snr, np.float32), tbs=np.int64(grant.tbs1),
+        **{k: np.asarray(v) for k, v in c.items()},
+    )
+    print(f"wrote {OUT_MIMO}: tbs 2 x {grant.tbs1}, crc_ok {ok.tolist()}, "
+          f"snr_db {np.asarray(r_snr).tolist()}")
+
+
+def ul_grant(mcs: int, prb_start: int, nof_prb: int, rnti: int):
+    from srsran_tpu.phy.phch.pusch import UlGrant
+    from srsran_tpu.phy.phch.ra import tbs_lookup, ul_mcs_to_itbs, ul_mcs_to_mod
+
+    return UlGrant(prb_start=prb_start, nof_prb=nof_prb, mod=ul_mcs_to_mod(mcs),
+                   tbs=tbs_lookup(ul_mcs_to_itbs(mcs), nof_prb), rv=0, rnti=rnti)
+
+
+def ul_clean_tx(seed: int, cell_id: int, nof_prb: int, sf_idx: int, grant):
+    """(reference cell, tb bits, clean UL subframe (sf_len,) complex64)."""
+    import jax
+
+    from srsran_tpu.phy.common import Cell
+    from srsran_tpu.phy.ue.ue_ul import ue_ul_encode
+
+    cell = Cell(nof_prb=nof_prb, nof_ports=1, id=cell_id)
+    tb = np.random.default_rng(seed).integers(0, 2, grant.tbs).astype(np.uint8)
+    with jax.default_device(jax.devices("cpu")[0]):
+        tx = np.asarray(ue_ul_encode(cell, sf_idx, pusch=(grant, tb)))
+    return cell, tb, tx.astype(np.complex64)
+
+
+def main_ul():
+    import jax
+
+    from srsran_tpu.pipeline import enb_ul_subframe
+
+    c = UL_CONFIG
+    grant = ul_grant(c["mcs"], c["prb_start"], c["nof_prb_alloc"], c["rnti"])
+    cell, tb, tx = ul_clean_tx(c["seed"], c["cell_id"], c["nof_prb"], c["sf_idx"], grant)
+    rx = awgn(c["seed"] + 1, np.tile(tx[None, None, :], (2, 1, 1)), c["noise_amp"])
+    fn = jax.jit(jax.vmap(enb_ul_subframe(cell, c["sf_idx"], grant,
+                                          max_iterations=c["max_iterations"])))
+    ref_tb, ref_ok, ref_snr = (np.asarray(v) for v in fn(rx))
+    np.savez(
+        OUT_UL, rx=rx, tb_packed=np.packbits(tb), ref_tb_packed=np.packbits(ref_tb, axis=-1),
+        ref_crc_ok=ref_ok, ref_snr_db=ref_snr.astype(np.float32), tbs=np.int64(grant.tbs),
+        **{k: np.asarray(v) for k, v in c.items()},
+    )
+    print(f"wrote {OUT_UL}: tbs {grant.tbs}, crc_ok {ref_ok.tolist()}, snr_db {ref_snr.tolist()}, "
+          f"TB equal {(ref_tb == tb).all(axis=1).tolist()}")
+
+
+def ul_dynamic_grant(i: int):
+    """(reference cell, grant, tb bits, noisy subframe (1, sf_len)) of UL_DYN_GRANTS[i]."""
+    c = UL_DYN_CONFIG
+    mcs, s0, l, sf_idx, amp = UL_DYN_GRANTS[i]
+    grant = ul_grant(mcs, s0, l, c["rnti"])
+    cell, tb, tx = ul_clean_tx(c["seed"] + i, c["cell_id"], c["nof_prb"], sf_idx, grant)
+    return cell, grant, tb, awgn(c["seed"] + 100 + i, tx[None, :], amp)
+
+
+def main_ul_dynamic():
+    from srsran_tpu.pipeline_dynamic import DynamicEnbUl
+
+    c = UL_DYN_CONFIG
+    rxs, sizes, ref_tb, ref_ok, ref_it = [], [], [], [], []
+    enb = None
+    for i, (_mcs, _s0, _l, sf_idx, _amp) in enumerate(UL_DYN_GRANTS):
+        cell, grant, tb, rx = ul_dynamic_grant(i)
+        enb = enb or DynamicEnbUl(cell, max_iterations=c["max_iterations"])
+        tb_hat, ok, _soft, n_it = enb.decode(rx, sf_idx, grant)
+        print(f"UL grant {i}: tbs {grant.tbs}, crc_ok {ok}, iterations {n_it}, "
+              f"TB equal {bool((tb_hat == tb).all())}")
+        rxs.append(rx)
+        sizes.append(grant.tbs)
+        ref_tb.append(tb_hat)
+        ref_ok.append(ok)
+        ref_it.append(n_it)
+    cols = np.asarray(UL_DYN_GRANTS)
+    np.savez(
+        OUT_UL_DYN, rx=np.stack(rxs), tbs=np.asarray(sizes), ref_tb_packed=pack_rows(ref_tb),
+        ref_crc_ok=np.asarray(ref_ok), ref_n_it=np.asarray(ref_it),
+        mcs=cols[:, 0].astype(np.int64), prb_start=cols[:, 1].astype(np.int64),
+        prb_len=cols[:, 2].astype(np.int64), sf_idx=cols[:, 3].astype(np.int64),
+        noise_amp=cols[:, 4], **{k: np.asarray(v) for k, v in c.items()},
+    )
+    print(f"wrote {OUT_UL_DYN}")
+
+
 def main():
     import jax
 
@@ -160,3 +333,6 @@ def main():
 if __name__ == "__main__":
     main()
     main_dynamic()
+    main_mimo()
+    main_ul()
+    main_ul_dynamic()

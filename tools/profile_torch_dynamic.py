@@ -1,17 +1,24 @@
 #!/usr/bin/env python
-"""Where the port's two decode paths spend their time, on one NVIDIA GPU.
+"""Where the port's decode paths spend their time, on one NVIDIA GPU.
 
-First the static slice: `ue_dl_subframe` at 100 PRB, MCS 26, B=128
-subframes a call (the inputs of `chip_smoke.py` phase 4).  It prints ms per
-call by CUDA events and on the host clock (medians of 8 runs of 5 calls)
-and, from `torch.profiler` over 5 calls, kernels per call, device busy time
-per call, its share of the host wall, and the kernels that take most device
-time.
+`--path siso` (the default), `mimo` or `ul` picks the pair of paths.
 
-Then one TTI of the dynamic-grant decode.  One `DynamicUeDl` on a 100 PRB cell decodes two grants again and again:
-MCS 28 on 100 PRB (13 codeblocks of K=6144) and MCS 5 on 6 PRB (one small
-codeblock), both rendered by the port's host transmitter from a seed.  For
-each grant it prints
+First the static entry point at full width, with the inputs of `chip_smoke.py`:
+`ue_dl_subframe` at 100 PRB, MCS 26, B=128 subframes a call (siso);
+`ue_dl_subframe_mimo` at 100 PRB, 2 x MCS 26 behind the 2x2 channel, B=64
+(mimo); `enb_ul_subframe` at PRB 1..96 of 100, MCS 20, B=128 (ul).  It
+prints ms per call by CUDA events and on the host clock (medians of 8 runs
+of 5 calls) and, from `torch.profiler` over 5 calls, kernels per call,
+device busy time per call, its share of the host wall, and the kernels that
+take most device time.
+
+Then one TTI of the dynamic-grant decode.  One `DynamicUeDl` (siso: MCS 28
+on 100 PRB, 13 codeblocks of K=6144, and MCS 5 on 6 PRB, one small
+codeblock; mimo: a 2-layer spatial-multiplexing MCS 20 grant on 50 PRB and a
+transmit-diversity MCS 9 grant on 30 PRB, behind the 2x2 channel) or one
+`DynamicEnbUl` (ul: MCS 20 on PRB 1..96 and MCS 10 on 25 PRB) on a 100 PRB
+cell decodes two grants again and again, both rendered by the port's host
+transmitter from a seed.  For each grant it prints
   * ms per TTI by CUDA events and on the host clock;
   * the share of each stage and of stage C's parts, timed on the host clock
     with a synchronize before and after each (so the parts do not overlap
@@ -22,11 +29,12 @@ each grant it prints
 The last line is all of it as one JSON object.
 
 Run from the repo root on a machine with a card:
-    python3 tools/profile_torch_dynamic.py
+    python3 tools/profile_torch_dynamic.py [--path siso|mimo|ul]
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -45,8 +53,9 @@ import srsran_tpu_torch.pipeline_dynamic as pd  # noqa: E402
 from srsran_tpu_torch.phy.common import Cell  # noqa: E402
 from srsran_tpu_torch.phy.fec import turbo_cuda  # noqa: E402
 from srsran_tpu_torch.phy.ofdm import OfdmConfig  # noqa: E402
-from srsran_tpu_torch.phy.phch.pdsch import DlGrant  # noqa: E402
+from srsran_tpu_torch.phy.phch.pdsch import DlGrant, pdsch_encode_np  # noqa: E402
 from srsran_tpu_torch.phy.phch.ra import dl_mcs_to_mod, dl_tbs  # noqa: E402
+from srsran_tpu_torch.phy.ue.ue_ul import ue_ul_encode  # noqa: E402
 
 N = 10
 N_STATIC = 5
@@ -69,14 +78,28 @@ def device_kernels(prof):
     return [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def profile_static(report):
-    """The static slice: times of a B=128 call and one profiled window."""
-    _, _, grant, fn, samples = chip_smoke.load_slice(torch.device("cuda:0"))
+def static_call(path: str):
+    """(label, batch, bits per CRC-passing TB, call) of the static entry point
+    of `path`; call() decodes the batch and returns the crc_ok tensor."""
+    dev = torch.device("cuda:0")
+    if path == "siso":
+        _, _, grant, fn, samples = chip_smoke.load_slice(dev)
+        return "ue_dl_subframe, 100 PRB MCS 26", chip_smoke.B, grant.tbs, lambda: fn(samples)[1]
+    if path == "mimo":
+        _, _, grant, fn, samples, _ = chip_smoke.load_mimo(dev)
 
-    def call():
-        _, ok, _ = fn(samples)
-        return ok
+        def call():
+            (_, ok1), (_, ok2), _ = fn(samples)
+            return torch.cat([ok1, ok2])
 
+        return "ue_dl_subframe_mimo, 100 PRB 2x2 2 x MCS 26", chip_smoke.B_MIMO, grant.tbs1, call
+    _, _, grant, fn, samples, _ = chip_smoke.load_ul(dev)
+    return "enb_ul_subframe, PRB 1+96 of 100 MCS 20", chip_smoke.B, grant.tbs, lambda: fn(samples)[1]
+
+
+def profile_static(report, path: str):
+    """The static entry point: times of one call and one profiled window."""
+    label, batch, tbs, call = static_call(path)
     n_ok = int(call().sum())
     for _ in range(2):
         call()
@@ -93,7 +116,7 @@ def profile_static(report):
     busy_ms = total / 1e3 / N_STATIC
     top = sorted(kernels, key=lambda e: -e.device_time_total)[:12]
     entry = {
-        "batch": chip_smoke.B, "tbs": grant.tbs, "crc_ok": n_ok,
+        "path": label, "batch": batch, "tbs": tbs, "crc_ok": n_ok,
         "ms_per_call_cuda_events": dev_ms, "ms_per_call_cuda_events_min_max": [dev_runs[0], dev_runs[-1]],
         "ms_per_call_host_wall": host_ms, "ms_per_call_under_profiler": prof_wall_ms,
         "map_launches_per_call": map_per_call,
@@ -104,7 +127,7 @@ def profile_static(report):
                          "share_of_device_time": e.device_time_total / total} for e in top],
     }
     report["static_slice"] = entry
-    print(f"static slice, 100 PRB MCS 26 B={chip_smoke.B} ({n_ok} TBs pass CRC): {dev_ms:.3f} ms "
+    print(f"static path {label} B={batch} ({n_ok} TBs pass CRC): {dev_ms:.3f} ms "
           f"per call by CUDA events ({dev_runs[0]:.3f}-{dev_runs[-1]:.3f}), {host_ms:.3f} ms host "
           f"wall, {map_per_call:g} map launches per call")
     print(f"  profiler: {entry['kernels_per_call']:.0f} kernels per call, device busy "
@@ -115,7 +138,47 @@ def profile_static(report):
               f"x{e['count_per_call']:g}  {e['name']}")
 
 
+def dynamic_grants(path: str, rng):
+    """(decoder, [(tag, subframe, grant, tb, samples on the card)]) of the
+    dynamic part of `path`."""
+    if path == "ul":
+        cell = Cell(nof_prb=100, nof_ports=1, id=301)
+        dec = pd.DynamicEnbUl(cell, max_iterations=6)
+        specs = (("ul_mcs20_96prb", 20, 1, 96, 0.09), ("ul_mcs10_25prb", 10, 40, 25, 0.05))
+        out = []
+        for tag, mcs, s0, l, amp in specs:
+            grant = chip_smoke.ul_grant(mcs, s0, l, 0x46)
+            tb = rng.integers(0, 2, grant.tbs).astype(np.uint8)
+            rx = chip_smoke.awgn(rng, ue_ul_encode(cell, 3, pusch=(grant, tb))[None], amp)
+            out.append((tag, 3, grant, tb, torch.from_numpy(rx).cuda()))
+        return dec, out
+    nof_ports = 2 if path == "mimo" else 1
+    cell = Cell(nof_prb=100, nof_ports=nof_ports, id=301)
+    ofdm = OfdmConfig.from_cell(cell, normalize=True)
+    dec = pd.DynamicUeDl(cell, cfi=1, max_iterations=6)
+    specs = ((("spatialmux2_mcs20_50prb", "spatialmux", 2, 20, tuple(range(50))),
+              ("diversity_mcs9_30prb", "diversity", 1, 9, tuple(range(10, 40))))
+             if path == "mimo" else
+             (("mcs28_100prb", "port0", 1, 28, tuple(range(100))),
+              ("mcs5_6prb", "port0", 1, 5, tuple(range(47, 53)))))
+    out = []
+    for tag, tx_scheme, nof_layers, mcs, prb in specs:
+        grant = DlGrant(prb=prb, mod=dl_mcs_to_mod(mcs), tbs=dl_tbs(mcs, len(prb) * nof_layers),
+                        rnti=0x46, tx_scheme=tx_scheme, nof_layers=nof_layers, pmi=1)
+        tb = rng.integers(0, 2, grant.tbs).astype(np.uint8)
+        if path == "mimo":
+            rx = chip_smoke.awgn(rng, chip_smoke.render_2x2(
+                cell, 3, pdsch_encode_np(cell, 3, 1, grant, tb)), 0.02)
+        else:
+            rx = chip_smoke.render(cell, ofdm, 3, grant, tb, rng, 0.05)
+        out.append((tag, 3, grant, tb, torch.from_numpy(rx).cuda()))
+    return dec, out
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--path", choices=("siso", "mimo", "ul"), default="siso")
+    path = parser.parse_args().path
     if not torch.cuda.is_available():
         print("profile_torch_dynamic: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
@@ -123,22 +186,19 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card)
-    cell = Cell(nof_prb=100, nof_ports=1, id=301)
-    ofdm = OfdmConfig.from_cell(cell, normalize=True)
-    ue = pd.DynamicUeDl(cell, cfi=1, max_iterations=6)
     rng = np.random.default_rng(1)
-    report = {"card": card, "torch": torch.__version__, "grants": {}}
-    profile_static(report)
+    report = {"card": card, "torch": torch.__version__, "path": path, "grants": {}}
+    profile_static(report, path)
+    torch.cuda.empty_cache()
     plain = {name: getattr(pd, name) for name in
              ("codeword_d_fill_grouped_dev", "qpp_dev", "turbo_decode_dyn", "crc_ok_ab")}
-    for tag, mcs, prb in (("mcs28_100prb", 28, tuple(range(100))), ("mcs5_6prb", 5, tuple(range(47, 53)))):
-        grant = DlGrant(prb=prb, mod=dl_mcs_to_mod(mcs), tbs=dl_tbs(mcs, len(prb)), rnti=0x46)
-        tb = rng.integers(0, 2, grant.tbs).astype(np.uint8)
-        rx = torch.from_numpy(chip_smoke.render(cell, ofdm, 3, grant, tb, rng, 0.05)).cuda()
+    ue, grants = dynamic_grants(path, rng)
+    for tag, sf_idx, grant, tb, rx in grants:
 
         def tti():
-            tb_hat, ok, _, n_it = ue.decode(rx, 3, grant)
-            assert ok and (tb_hat == tb).all()
+            tb_hat, ok, _, n_it = ue.decode(rx, sf_idx, grant)
+            if not (ok and (tb_hat == tb).all()):
+                raise RuntimeError(f"{tag}: the TB did not come back")
 
         for _ in range(3):
             tti()
