@@ -56,7 +56,36 @@ Phases (each prints its own lines; any failure exits non-zero):
      x valid allocations x subframes), HARQ rv 0 → rv 2, the stored grants of
      `testdata/enb_ul_dynamic_20mhz.npz`, stage keys, ms per TTI; and two
      transmit-diversity and two spatial-multiplexing grants through
-     `DynamicUeDl` behind the 2x2 channel.
+     `DynamicUeDl` behind the 2x2 channel;
+  12. (run after phases 13-16, whose windows give it its shapes) the
+     kernel's dynamic-K mode at every launch shape those phases gave it:
+     each dense-slot bucket N that a window of this run reached (N x K_max
+     6144, K_i the window's own per-slot sizes, 40 in the unused slots),
+     and N = 384 and 768 with K_i drawn over the 188 codeblock sizes,
+     against the plain version (compared below each K_i), ms per pass with
+     the launches queued, bound and share of bound;
+  13. `WindowedUeDl` at full width (`bench.py` `bench_window_rtf`): 100 PRB,
+     1 port, W = 128, a 16-grant mix (MCS 0-26 x 4-100 PRB x subframes 0-9)
+     repeated to W with fresh noise of amplitude 0.09 per TTI (the bench
+     repeats its 16 noisy subframes) and one window in flight (the bench
+     keeps 4), 6 iterations, int8 ingest: every CRC-passing TB is the sent one and at least 124 of
+     128 pass; a second window with a fresh mix through the same stage
+     functions; HARQ across windows (rv 0 fails in one window, its
+     softbuffer block moves to another row of the next, rv 2 combines and
+     passes); a transmit-diversity window at 2 ports (W = 32);
+  14. `WindowedUeDlMimo` (`bench_window_mimo_rtf`): 2 ports, the bench's 2x2
+     channel, W = 64, 2 x MCS 4-24 on 20-100 PRB, PMI 0-2 and one CDD grant,
+     amplitude 0.045, checked per codeword;
+  15. `WindowedEnbUl` (`bench_window_ul_rtf`): W = 64, widths 9/25/50/96 PRB,
+     MCS 0-23, amplitude 0.05;
+     for each engine: ms per window and per TTI by CUDA events and on the
+     host clock (warm medians), the real-time factor (1 ms over ms per TTI),
+     the host's ingest quantisation alone, `stage_times` A/B/C, kernels per window and the device's busy share
+     (`torch.profiler`), dense slots real and bucketed, MAP launches per
+     window;
+  16. the stored reference windows of `testdata/window_*_20mhz.npz` (W = 4,
+     one per engine) give the reference's stage C key, CRC flags, iteration
+     counts and, where the CRC passes, TB bits.
 Every path is driven with the launch counts set to 0 just before and read
 just after.  Prints one JSON line of kernel results, then as its last line
 {"ok": true, "device": {...}}.  TF32 stays off: the channel-estimate
@@ -85,6 +114,7 @@ FIXTURE_MIMO = TESTDATA / "ue_dl_mimo_20mhz.npz"
 FIXTURE_UL = TESTDATA / "enb_ul_20mhz.npz"
 FIXTURE_UL_DYN = TESTDATA / "enb_ul_dynamic_20mhz.npz"
 B_MIMO = B_ENCODE = 64
+W_DL, W_DIV, W_MIMO, W_UL = 128, 32, 64, 64
 # the 2x2 channel of `bench.py` `bench_ue_dl_mimo`: rx antenna x tx port
 H_2X2 = np.array([[1.0 + 0.1j, 0.25 - 0.55j], [-0.45 + 0.3j, 0.95 + 0.05j]], np.complex64)
 # published peaks of one H100 SXM: HBM bytes/s, fp32 operations/s outside
@@ -549,6 +579,421 @@ def phase_dynamic_ul(dev) -> tuple[int, int]:
     return 0, launches_ul[1] + launches_dl[1]
 
 
+# --- the windowed engines ---------------------------------------------------------
+
+
+def stored_window(kind: str):
+    """The stored reference window `kind` ("ue_dl", "ue_dl_mimo", "enb_ul")
+    with the port's classes: (fx, cell, subframe indices, grants, samples
+    (W, nrx, sf_len) complex64 — what the int8 pairs dequantise to)."""
+    from srsran_tpu_torch.phy.common import Cell
+    from srsran_tpu_torch.phy.phch.pdsch import DlGrant, DlGrant2
+    from srsran_tpu_torch.phy.phch.ra import dl_mcs_to_mod, dl_tbs
+
+    fx = np.load(TESTDATA / f"window_{kind}_20mhz.npz")
+    rnti = int(fx["rnti"])
+    cell = Cell(nof_prb=int(fx["nof_prb"]), nof_ports=2 if kind == "ue_dl_mimo" else 1,
+                id=int(fx["cell_id"]))
+    sfs, grants = [], []
+    for row in fx["grant_rows"]:
+        if kind == "ue_dl_mimo":
+            mcs1, mcs2, s0, l, sf_idx, pmi = (int(v) for v in row[:6])
+            grants.append(DlGrant2(
+                prb=tuple(range(s0, s0 + l)), mod1=dl_mcs_to_mod(mcs1), tbs1=dl_tbs(mcs1, l),
+                mod2=dl_mcs_to_mod(mcs2), tbs2=dl_tbs(mcs2, l), pmi=pmi % 3, rnti=rnti,
+                tx_scheme="cdd" if pmi == 3 else "spatialmux"))
+        else:
+            mcs, s0, l, sf_idx = (int(v) for v in row[:4])
+            grants.append(ul_grant(mcs, s0, l, rnti) if kind == "enb_ul" else DlGrant(
+                prb=tuple(range(s0, s0 + l)), mod=dl_mcs_to_mod(mcs), tbs=dl_tbs(mcs, l), rnti=rnti))
+        sfs.append(sf_idx)
+    ri = fx["q"].astype(np.float32) * fx["scale"][:, None, None, None]
+    return fx, cell, sfs, grants, (ri[..., 0] + 1j * ri[..., 1]).astype(np.complex64)
+
+
+# dense-slot bucket N -> (per-slot K_i of the first window that reached it,
+# the tags of the windows that did): the dynamic-K kernel's launch shapes
+WINDOW_SHAPES: dict = {}
+
+
+def note_shape(tag: str, pack):
+    """Record the launch shape stage C gave the kernel for this window."""
+    n = pack.key[1]
+    ks, tags = WINDOW_SHAPES.setdefault(n, (pack.params[2 * n:3 * n].tolist(), []))
+    if tag not in tags:
+        tags.append(tag)
+
+
+def window_engine(kind: str, cell, w: int, max_iterations: int, **kw):
+    import srsran_tpu_torch.pipeline_window as pw
+
+    if kind == "enb_ul":
+        return pw.WindowedEnbUl(cell, w=w, max_iterations=max_iterations, **kw)
+    cls = pw.WindowedUeDlMimo if kind == "ue_dl_mimo" else pw.WindowedUeDl
+    return cls(cell, cfi=1, w=w, max_iterations=max_iterations, **kw)
+
+
+def window_rows(kind: str, res):
+    """The results of a window as [(tb bits, ok)] per stage C row (two rows
+    per TTI for the two-codeword engine) and the iteration count per TTI."""
+    if kind == "ue_dl_mimo":
+        return [r for cw1, cw2, _n in res for r in (cw1, cw2)], [n for _a, _b, n in res]
+    return [(tb, ok) for tb, ok, _n in res], [n for _tb, _ok, n in res]
+
+
+def check_window(tag: str, kind: str, res, sent, min_ok: int) -> int:
+    """Every CRC-passing TB of a window is the sent one, and at least
+    `min_ok` pass.  sent: per row.  Returns the number that pass."""
+    rows, _n_it = window_rows(kind, res)
+    check(len(rows) == len(sent), f"{tag}: {len(rows)} rows for {len(sent)} TBs")
+    n_ok = 0
+    for i, ((tb, ok), tb_sent) in enumerate(zip(rows, sent)):
+        check(tb.shape == tb_sent.shape and tb.dtype == np.uint8, f"{tag}: row {i} TB shape/dtype")
+        if ok:
+            check(bool((tb == tb_sent).all()), f"{tag}: row {i} passes CRC but is not the sent TB")
+            n_ok += 1
+    check(n_ok >= min_ok, f"{tag}: only {n_ok}/{len(rows)} TBs pass CRC")
+    return n_ok
+
+
+def dl_window_mix(cell, rng, n: int, tx_scheme: str = "port0"):
+    """n one-codeword grants (MCS 0-26 x 4-100 PRB x subframes 0-9), each
+    with its TB and noise-free received subframe (nrx, sf_len): port 0 over
+    an ideal channel, transmit diversity behind H_2X2."""
+    from srsran_tpu_torch.phy.chest.refsignal_dl import put_crs_np
+    from srsran_tpu_torch.phy.ofdm import OfdmConfig, ofdm_tx_sf
+    from srsran_tpu_torch.phy.phch.pdsch import DlGrant, pdsch_encode_np
+    from srsran_tpu_torch.phy.phch.ra import dl_mcs_to_mod, dl_tbs
+
+    ofdm = OfdmConfig.from_cell(cell, normalize=True)
+    mix = []
+    while len(mix) < n:
+        sf_idx, mcs = int(rng.integers(0, 10)), int(rng.integers(0, 27))
+        l = int(rng.integers(4, 101))
+        st = int(rng.integers(0, 101 - l))
+        if dl_tbs(mcs, l) == 0:
+            continue
+        g = DlGrant(prb=tuple(range(st, st + l)), mod=dl_mcs_to_mod(mcs), tbs=dl_tbs(mcs, l),
+                    rnti=0x46, tx_scheme=tx_scheme)
+        tb = rng.integers(0, 2, g.tbs).astype(np.uint8)
+        grid = pdsch_encode_np(cell, sf_idx, 1, g, tb)
+        clean = (render_2x2(cell, sf_idx, grid) if cell.nof_ports == 2 else
+                 ofdm_tx_sf(ofdm, torch.from_numpy(put_crs_np(grid, cell, sf_idx))).numpy())
+        mix.append((clean, sf_idx, g, tb))
+    return mix
+
+
+def mimo_window_mix(cell, rng, n: int):
+    """n two-codeword grants (2 x MCS 4-24 on 20-100 PRB, PMI 0-2, the last
+    one large-delay CDD) behind H_2X2; the TB of a grant is the pair."""
+    from srsran_tpu_torch.phy.phch.pdsch import DlGrant2, pdsch_encode2_np
+    from srsran_tpu_torch.phy.phch.ra import dl_mcs_to_mod, dl_tbs
+
+    mix = []
+    while len(mix) < n:
+        sf_idx = int(rng.integers(0, 10))
+        mcs1, mcs2 = int(rng.integers(4, 25)), int(rng.integers(4, 25))
+        l = int(rng.integers(20, 101))
+        st = int(rng.integers(0, 101 - l))
+        g = DlGrant2(prb=tuple(range(st, st + l)), mod1=dl_mcs_to_mod(mcs1), tbs1=dl_tbs(mcs1, l),
+                     mod2=dl_mcs_to_mod(mcs2), tbs2=dl_tbs(mcs2, l), pmi=int(rng.integers(0, 3)),
+                     rnti=0x46, tx_scheme="cdd" if len(mix) == n - 1 else "spatialmux")
+        tbs = tuple(rng.integers(0, 2, t).astype(np.uint8) for t in (g.tbs1, g.tbs2))
+        grid = np.zeros((2, cell.nsymb_per_sf, cell.nof_re_per_symbol), np.complex64)
+        grid += pdsch_encode2_np(cell, sf_idx, 1, g, *tbs)
+        mix.append((render_2x2(cell, sf_idx, grid), sf_idx, g, tbs))
+    return mix
+
+
+def ul_window_mix(cell, rng, n: int):
+    """n PUSCH grants (widths 9/25/50/96 PRB x MCS 0-23 x subframes 0-9)."""
+    from srsran_tpu_torch.phy.ue.ue_ul import ue_ul_encode
+
+    mix = []
+    while len(mix) < n:
+        sf_idx, mcs = int(rng.integers(0, 10)), int(rng.integers(0, 24))
+        nprb = int((9, 25, 50, 96)[rng.integers(0, 4)])
+        g = ul_grant(mcs, int(rng.integers(0, 101 - nprb)), nprb, 0x46)
+        if g.tbs == 0:
+            continue
+        tb = rng.integers(0, 2, g.tbs).astype(np.uint8)
+        mix.append((ue_ul_encode(cell, sf_idx, pusch=(g, tb))[None, :], sf_idx, g, tb))
+    return mix
+
+
+def window_of(mix, w: int, rng, amp: float):
+    """The mix repeated to W TTIs, each TTI with noise of its own: (samples
+    (W, nrx, sf_len), subframe indices, grants, sent TBs per TTI)."""
+    mm = (mix * (-(-w // len(mix))))[:w]
+    samples = awgn(rng, np.stack([m[0] for m in mm]), amp)
+    return samples, [m[1] for m in mm], [m[2] for m in mm], [m[3] for m in mm]
+
+
+def window_times(tag: str, kind: str, eng, samples, sfs, grants) -> dict:
+    """Times and counts of one warm window through `eng`, printed and
+    returned: medians of 5 runs of 2 windows by CUDA events and on the host
+    clock, the host's ingest quantisation alone, the stages' times, and one
+    profiled pair of windows (with the kernels that take most device time)."""
+    import srsran_tpu_torch.pipeline_window as pw
+    from srsran_tpu_torch.phy.fec import turbo_cuda
+
+    def one():
+        return eng.results(eng.dispatch_window(samples, sfs, grants))
+
+    one()
+    rows, _n_it = window_rows(kind, one())
+    ok_bits = sum(tb.size for tb, ok in rows if ok)
+    before = turbo_cuda.LAUNCHES_DYN
+    dev, host = [], []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        one()
+        one()
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3 / 2)
+        dev.append(start.elapsed_time(end) / 2)
+    map_per_window = (turbo_cuda.LAUNCHES_DYN - before) / 10
+    dev_ms, host_ms = sorted(dev)[2], sorted(host)[2]
+    quant = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        pw._quantize_ingest(samples, eng.ingest)
+        quant.append((time.perf_counter() - t0) * 1e3)
+    quant_ms = sorted(quant)[2]
+    stages = {k: v * 1e3 for k, v in eng.stage_times(samples, sfs, grants, n=3).items()}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        prof_ms = wall_ms(one, 2)
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    n_kernels = sum(e.count for e in kernels) / 2
+    busy_ms = sum(e.device_time_total for e in kernels) / 1e3 / 2
+    check(n_kernels > 0 and busy_ms > 0, f"{tag}: the profiler saw no kernel on the card")
+    top = sorted(kernels, key=lambda e: -e.device_time_total)[:14]
+    pack = eng.dispatch_window(samples, sfs, grants).pack
+    note_shape(f"{tag}, timed", pack)
+    w = eng.w
+    out = {"w": w, "ms_per_window_cuda_events": dev_ms, "ms_per_window_host_wall": host_ms,
+           "ms_per_tti": host_ms / w, "real_time_factor": w / host_ms,
+           "crc_ok_mbps": ok_bits / host_ms / 1e3, "quantize_ingest_ms": quant_ms, "stage_ms": stages,
+           "real_time_factor_of_stage_times": w / sum(stages.values()),
+           "kernels_per_window": n_kernels, "device_busy_ms_per_window": busy_ms,
+           "device_busy_share_of_host_wall": busy_ms / host_ms, "ms_per_window_under_profiler": prof_ms,
+           "slots_real": sum(pack.row_ncb), "slots_bucketed": pack.key[1], "stage_c_key": list(pack.key),
+           "map_launches_per_window": map_per_window,
+           "top_kernels": [{"name": e.key[:60], "count_per_window": e.count / 2,
+                            "device_ms_per_window": e.device_time_total / 1e3 / 2,
+                            "share_of_device_time": e.device_time_total / 1e3 / 2 / busy_ms}
+                           for e in top]}
+    print(f"{tag}: W={w}: {dev_ms:.3f} ms per window by CUDA events, {host_ms:.3f} ms host wall "
+          f"({dev_ms / w:.4f} / {host_ms / w:.4f} ms per TTI), real-time factor {w / host_ms:.2f}x, "
+          f"{ok_bits / host_ms / 1e3:.1f} Mbps of CRC-passing TBs; of the host wall "
+          f"{quant_ms:.3f} ms is the {eng.ingest} ingest quantisation on the host")
+    print(f"{tag}: stage_times A {stages['A']:.3f} B {stages['B']:.3f} C {stages['C']:.3f} ms "
+          f"({w / sum(stages.values()):.1f}x real time without the host's plan); "
+          f"{n_kernels:.0f} kernels per window, device busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / host_ms:.1f}% of the host wall; {prof_ms:.3f} ms per window under the "
+          f"profiler); slots {out['slots_real']} real / {out['slots_bucketed']} bucketed, stage C key "
+          f"{pack.key}; {map_per_window:g} dynamic-K map launches per window")
+    return out
+
+
+def phase_window_kernel(dev):
+    """Phase 12, after the windows.  Returns (max_abs_err, [dict per shape])."""
+    from srsran_tpu_torch.phy.fec import turbo_cuda
+    from srsran_tpu_torch.phy.fec.cbsegm import CB_SIZES
+    from srsran_tpu_torch.phy.fec.turbo import map_pass_plain, pass_layout
+
+    nw, lw, T = layout = pass_layout(6144)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    check(len(WINDOW_SHAPES) > 0, "no window recorded a launch shape")
+    cases = [(n, ks, tags) for n, (ks, tags) in sorted(WINDOW_SHAPES.items())]
+    for n in (384, 768):
+        ks = np.random.default_rng(n).choice(CB_SIZES, n).tolist()
+        check(len(set(ks)) > 100, "the windowed kernel check draws too few sizes")
+        cases.append((n, ks, []))
+    max_err, shapes = 0.0, []
+    for n, ks, tags in cases:
+        lx, lz, beta_k, k_vec, below_k = dyn_map_inputs(6144, ks, seed=n, device=dev)
+        got = turbo_cuda.map_pass(lx, lz, beta_k, *layout, k_vec=k_vec)
+        ref = map_pass_plain(lx, lz, beta_k, 6144, k_vec)
+        torch.cuda.synchronize()
+        err = float((got - ref)[below_k].abs().max())
+        same_bits = bool(torch.equal((got > 0)[below_k], (ref > 0)[below_k]))
+        check(bool(torch.isfinite(got[below_k]).all()), f"non-finite posteriors at N={n}")
+        check(err <= MAP_ATOL and same_bits, f"dyn kernel disagrees with plain at N={n}")
+        cpb, smem = turbo_cuda.launch_plan(n, nw, lw, n_sm)
+        ms = queued_ms(lambda: turbo_cuda.map_pass(lx, lz, beta_k, *layout, k_vec=k_vec), 50)
+        plain_ms = cuda_ms(lambda: map_pass_plain(lx, lz, beta_k, 6144, k_vec), 2)
+        bound_ms, bound_by = map_bound(lx, lz, beta_k, layout, k_vec)
+        k_of = (f"K_i of the windows {tags}" if tags else
+                "K_i drawn over the sizes" + ("" if n in WINDOW_SHAPES else "; no window of this run"))
+        print(f"map dyn N={n} x K_max 6144, {len(set(ks))} sizes of K ({k_of}; {cpb} codeblock and "
+              f"{smem} B of shared memory a block, {n / (3 * n_sm):.2f} waves of {3 * n_sm}): "
+              f"max_abs_err below K {err:.3g}, hard bits identical {same_bits}; kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+              f"({100 * bound_ms / ms:.1f}% of it)")
+        max_err = max(max_err, err)
+        shapes.append(dict(shape=[n, 6144], windows=tags, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by))
+    return max_err, shapes
+
+
+def phase_window_dl(dev):
+    """Phase 13.  Returns ((static, dynamic-K) launches, times dict)."""
+    import srsran_tpu_torch.pipeline_window as pw
+    from srsran_tpu_torch.phy.common import Cell
+    from srsran_tpu_torch.phy.ofdm import OfdmConfig
+    from srsran_tpu_torch.phy.phch.pdsch import DlGrant
+    from srsran_tpu_torch.phy.phch.ra import dl_mcs_to_mod, dl_tbs
+
+    cell = Cell(nof_prb=100, nof_ports=1, id=301)
+    rng = np.random.default_rng(13)
+    ue = window_engine("ue_dl", cell, W_DL, 6)
+    check(ue.device == dev, "WindowedUeDl did not take the card by default")
+    samples, sfs, grants, sent = window_of(dl_window_mix(cell, rng, 16), W_DL, rng, 0.09)
+    reset_launches()
+    p = ue.dispatch_window(samples, sfs, grants)
+    res = ue.results(p)
+    launches_first = read_launches()
+    note_shape("window dl", p.pack)
+    check(p.packed.device == dev and p.softbuffer.device == dev, "window results are not on the card")
+    check(bool(torch.isfinite(p.softbuffer).all()), "window softbuffer is not finite")
+    n_ok = check_window("window dl", "ue_dl", res, sent, 124)
+    check(launches_first[1] > 0 and launches_first[0] == 0, f"window dl: map launches {launches_first}")
+    print(f"window dl: 100 PRB W={W_DL}, 16-grant mix at noise 0.09: crc_ok {n_ok}/{W_DL}, "
+          f"{sum(p.pack.row_ncb)} codeblocks in {p.pack.key[1]} slots, {launches_first[1]} dynamic-K "
+          f"map launches, iterations up to {max(r[2] for r in res)}")
+
+    # a second window, a fresh mix: the same stage A and B functions
+    a_fn, b_fns = ue._a, dict(ue._b_cache)
+    c_before = pw._build_win_c.cache_info().currsize
+    samples2, sfs2, grants2, sent2 = window_of(dl_window_mix(cell, rng, 16), W_DL, rng, 0.09)
+    p2 = ue.dispatch_window(samples2, sfs2, grants2)
+    n_ok2 = check_window("window dl, second mix", "ue_dl", ue.results(p2), sent2, 124)
+    note_shape("window dl, second mix", p2.pack)
+    check(ue._a is a_fn and all(ue._b_cache[k] is v for k, v in b_fns.items())
+          and len(ue._b_cache) <= len(b_fns) + 1, "the second window rebuilt stage A or B")
+    c_grown = pw._build_win_c.cache_info().currsize - c_before
+    check(c_grown <= 1, f"the second window built {c_grown} stage C functions")
+    print(f"window dl: second mix crc_ok {n_ok2}/{W_DL} through the same stage A and B functions, "
+          f"{c_grown} new stage C key ({p2.pack.key})")
+
+    # HARQ across windows: rv 0 fails at row 5 of one window; its softbuffer
+    # block goes to row 77 of the next, where rv 2 combines and passes
+    tbs_h = dl_tbs(16, 15)
+    tb_h = rng.integers(0, 2, tbs_h).astype(np.uint8)
+    g0, g2 = (DlGrant(prb=tuple(range(15)), mod=dl_mcs_to_mod(16), tbs=tbs_h, rnti=0x46, rv=rv)
+              for rv in (0, 2))
+    ofdm = OfdmConfig.from_cell(cell, normalize=True)
+    samples[5], sfs[5], grants[5], sent[5] = render(cell, ofdm, 2, g0, tb_h, rng, 0.42), 2, g0, tb_h
+    p_a = ue.dispatch_window(samples, sfs, grants)
+    res_a = ue.results(p_a)
+    note_shape("window dl, HARQ rv 0", p_a.pack)
+    check(not res_a[5][1], "window HARQ: rv 0 decoded alone")
+    carry = pw.extract_softbuffer(p_a, 5)
+    check(carry.device == dev, "window HARQ: the carry left the card")
+    check(res_a[5][2] == 6, f"window HARQ: the failing TB stopped after {res_a[5][2]} iterations")
+    before = read_launches()[1]
+    ms_failing = wall_ms(lambda: ue.results(ue.dispatch_window(samples, sfs, grants)), 3)
+    launches_failing = (read_launches()[1] - before) / 3
+    samples2[77], sfs2[77], grants2[77], sent2[77] = (
+        render(cell, ofdm, 5, g2, tb_h, rng, 0.42), 5, g2, tb_h)
+    soft = pw.make_softbuffer([carry if i == 77 else None for i in range(W_DL)])
+    p_b = ue.dispatch_window(samples2, sfs2, grants2, softbuffer=soft)
+    res_b = ue.results(p_b)
+    note_shape("window dl, HARQ rv 2", p_b.pack)
+    check(res_b[77][1] and bool((res_b[77][0] == tb_h).all()), "window HARQ: rv 0 + rv 2 did not decode")
+    check_window("window dl, HARQ window", "ue_dl", res_b, sent2, 124)
+    print("window dl: HARQ rv 0 fails at row 5, its block moves to row 77 of the next window, "
+          f"rv 2 combines and decodes; the window with the failing TB runs all 6 iterations: "
+          f"{ms_failing:.3f} ms per window on the host clock, {launches_failing:g} dynamic-K map launches")
+    launches = read_launches()
+    check(launches[0] == 0, f"window dl: static map launches {launches[0]}")
+
+    samples, sfs, grants, sent = window_of(dl_window_mix(cell, rng, 16), W_DL, rng, 0.09)
+    times = window_times("window dl", "ue_dl", ue, samples, sfs, grants)
+    times.update(crc_ok=n_ok, ms_per_window_with_a_failing_tb=ms_failing,
+                 map_launches_per_window_with_a_failing_tb=launches_failing)
+    del ue
+
+    # transmit diversity at 2 ports
+    cell2 = Cell(nof_prb=100, nof_ports=2, id=301)
+    ue2 = window_engine("ue_dl", cell2, W_DIV, 6, scheme="diversity")
+    samples, sfs, grants, sent = window_of(dl_window_mix(cell2, rng, 16, "diversity"), W_DIV, rng, 0.045)
+    reset_launches()
+    p_div = ue2.dispatch_window(samples, sfs, grants)
+    res = ue2.results(p_div)
+    launches_div = read_launches()
+    note_shape("window diversity", p_div.pack)
+    n_ok_div = check_window("window diversity", "ue_dl", res, sent, W_DIV - 2)
+    check(launches_div[1] > 0 and launches_div[0] == 0, f"window diversity: map launches {launches_div}")
+    print(f"window dl: transmit diversity, 2 ports, W={W_DIV} behind the 2x2 channel at noise 0.045: "
+          f"crc_ok {n_ok_div}/{W_DIV}, {launches_div[1]} dynamic-K map launches")
+    return (0, launches[1] + launches_div[1]), times
+
+
+def phase_window_other(dev, kind: str):
+    """Phases 14 (`kind` "ue_dl_mimo") and 15 ("enb_ul").  Returns ((static,
+    dynamic-K) launches, times dict)."""
+    from srsran_tpu_torch.phy.common import Cell
+
+    mimo = kind == "ue_dl_mimo"
+    cell = Cell(nof_prb=100, nof_ports=2 if mimo else 1, id=301)
+    w, amp = (W_MIMO, 0.045) if mimo else (W_UL, 0.05)
+    tag = "window mimo" if mimo else "window ul"
+    rng = np.random.default_rng(14 + (not mimo))
+    eng = window_engine(kind, cell, w, 6)
+    check(eng.device == dev, f"{tag}: the engine did not take the card by default")
+    mix = mimo_window_mix(cell, rng, 16) if mimo else ul_window_mix(cell, rng, 16)
+    samples, sfs, grants, sent = window_of(mix, w, rng, amp)
+    if mimo:
+        sent = [tb for pair in sent for tb in pair]
+    reset_launches()
+    p = eng.dispatch_window(samples, sfs, grants)
+    res = eng.results(p)
+    launches = read_launches()
+    note_shape(tag, p.pack)
+    n_ok = check_window(tag, kind, res, sent, len(sent) - len(sent) // 16)
+    check(launches[1] > 0 and launches[0] == 0, f"{tag}: map launches {launches}")
+    what = ("2 ports behind the 2x2 channel, 2 x MCS 4-24 on 20-100 PRB, PMI 0-2 and one CDD grant"
+            if mimo else "PUSCH widths 9/25/50/96 PRB, MCS 0-23")
+    print(f"{tag}: 100 PRB W={w}, {what}, noise {amp}: crc_ok {n_ok}/{len(sent)}, "
+          f"{sum(p.pack.row_ncb)} codeblocks in {p.pack.key[1]} slots, {launches[1]} dynamic-K map "
+          f"launches, iterations up to {max(r[2] for r in res)}")
+    times = window_times(tag, kind, eng, samples, sfs, grants)
+    times["crc_ok"] = n_ok
+    return launches, times
+
+
+def phase_stored_windows(dev) -> tuple[int, int]:
+    """Phase 16.  Returns the (static, dynamic-K) launches."""
+    reset_launches()
+    for kind in ("ue_dl", "ue_dl_mimo", "enb_ul"):
+        fx, cell, sfs, grants, samples = stored_window(kind)
+        eng = window_engine(kind, cell, int(fx["w"]), int(fx["max_iterations"]))
+        p = eng.dispatch_window(samples, sfs, grants)
+        rows, n_it = window_rows(kind, eng.results(p))
+        note_shape(f"stored window {kind}", p.pack)
+        ok = [r[1] for r in rows]
+        check(list(p.pack.key) == fx["ref_key"].tolist(),
+              f"stored window {kind}: stage C key {p.pack.key}, reference {fx['ref_key'].tolist()}")
+        check(ok == fx["ref_crc_ok"].tolist() and n_it == fx["ref_n_it"].tolist(),
+              f"stored window {kind}: crc_ok {ok}, iterations {n_it}; reference "
+              f"{fx['ref_crc_ok'].tolist()}, {fx['ref_n_it'].tolist()}")
+        for i, ((tb, ok_i), tbs) in enumerate(zip(rows, fx["tbs"])):
+            check(not ok_i or bool((tb == np.unpackbits(fx["ref_tb_packed"][i], count=int(tbs))).all()),
+                  f"stored window {kind}: TB bits of row {i} differ from the reference")
+        print(f"stored window {kind}: W={int(fx['w'])}, stage C key, crc_ok {ok}, iterations {n_it} "
+              f"and, where the CRC passes, TB bits as the reference")
+    launches = read_launches()
+    check(launches[1] > 0 and launches[0] == 0, f"stored windows: map launches {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -804,6 +1249,18 @@ def main() -> int:
         by_path[name] = phase(dev)
         torch.cuda.empty_cache()
 
+    # phases 12-16: the windowed engines
+    windows = {}
+    by_path["WindowedUeDl"], windows["WindowedUeDl"] = phase_window_dl(dev)
+    torch.cuda.empty_cache()
+    for name, kind in (("WindowedUeDlMimo", "ue_dl_mimo"), ("WindowedEnbUl", "enb_ul")):
+        by_path[name], windows[name] = phase_window_other(dev, kind)
+        torch.cuda.empty_cache()
+    by_path["stored windows"] = phase_stored_windows(dev)
+    max_err_win, win_shapes = phase_window_kernel(dev)
+    max_err_dyn = max(max_err_dyn, max_err_win)
+    print(json.dumps({"windows": windows}))
+
     common = {"route": "cuda", "source": "srsran_tpu_torch/csrc/map_window.cu", "library_ms": None}
     print(json.dumps({"kernels": [
         dict(common, name="map_window", replaces="srsran_tpu/phy/fec/turbo_pallas.py:99",
@@ -817,7 +1274,8 @@ def main() -> int:
              launches=sum(v[1] for v in by_path.values()),
              launches_by_path={k: v[1] for k, v in by_path.items() if v[1]},
              max_abs_err=max_err_dyn, ms=kern_dyn_ms, plain_ms=plain_dyn_ms,
-             bound_ms=bound_dyn_ms, bound_by=bound_dyn_by, shape=list(lx_d.shape))]}))
+             bound_ms=bound_dyn_ms, bound_by=bound_dyn_by, shape=list(lx_d.shape),
+             other_shapes=win_shapes)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,8 +8,8 @@ It goes by the class name and the fields (duck typing), so this package
 needs no import of the reference (which would import jax).
 
 State that crosses between the packages is the HARQ softbuffer of the
-dynamic-grant decode: `softbuffer_from_reference` takes the reference's
-array (as numpy) onto a device of the port.
+dynamic-grant and the windowed decodes: `softbuffer_from_reference` takes
+the reference's array (as numpy) onto a device of the port.
 """
 
 from __future__ import annotations
@@ -48,7 +48,9 @@ def from_reference(obj):
 
 
 def softbuffer_from_reference(softbuffer, device) -> torch.Tensor:
-    """A HARQ softbuffer (b_bucket, 3, k_bucket+4) returned by the
-    reference's `DynamicUeDl.decode` or `DynamicEnbUl.decode`, as a float32
-    tensor on `device` that the port's counterpart takes."""
+    """A HARQ softbuffer returned by the reference — (b_bucket, 3, k_bucket+4)
+    from `DynamicUeDl.decode` or `DynamicEnbUl.decode`, the dense (n_slots, 3,
+    K_MAX+4) of a window, or a (MAX_CB, 3, K_MAX+4) block of
+    `extract_softbuffer` — as a float32 tensor on `device` that the port's
+    counterpart takes."""
     return torch.from_numpy(np.array(softbuffer, dtype=np.float32)).to(device)

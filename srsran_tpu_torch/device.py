@@ -24,8 +24,7 @@ def resolve(device) -> torch.device:
     return torch.empty(0, device=dev).device
 
 
-@lru_cache(maxsize=1024)
-def table(fn, *args, device: torch.device, dtype: torch.dtype | None = None):
+def _table(fn, *args, device: torch.device, dtype: torch.dtype | None = None):
     """`fn(*args)` — a host table (numpy array, or tuple of them) — as
     tensors on `device`, built and copied once per (fn, args, device, dtype).
 
@@ -39,3 +38,12 @@ def table(fn, *args, device: torch.device, dtype: torch.dtype | None = None):
         return torch.as_tensor(np.ascontiguousarray(a), device=device, dtype=dtype)
 
     return tuple(conv(a) for a in out) if isinstance(out, tuple) else conv(out)
+
+
+def sized_table(maxsize: int):
+    """A `table` with a cache of its own that keeps the `maxsize` entries
+    used last: for families of large tables whose working set is bounded."""
+    return lru_cache(maxsize=maxsize)(_table)
+
+
+table = sized_table(1024)

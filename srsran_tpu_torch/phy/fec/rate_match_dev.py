@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ...device import table
+from .cbsegm import qpp_interleaver_np
 from .rate_match import NCOLS, RM_PERM_TC
 
 
@@ -149,4 +150,66 @@ def qpp_dev(cb_k, f1, f2, k_max: int):
     per = torch.where(i < k, (i * t) % k, i)
     # rows are permutations, so the scatter writes every slot exactly once
     inv = torch.empty_like(per).scatter_(1, per, i.expand(bsz, k_max))
+    return per, inv
+
+
+def j0_variant_np(k: int, f: int, rv: int, k_max: int):
+    """`_j0_variant_dev` of one layout on the host: the first-fold index
+    table (3*(k_max+4),) int32 and n_valid, in plain numpy.
+
+    The table depends only on (k, f, rv), so the windowed pipelines build it
+    once per layout class ever seen and keep it on the device."""
+    dflat = 3 * (k_max + 4)
+    NCB = ncb_max(k_max)
+    perm = np.asarray(RM_PERM_TC, np.int64)
+    inv_perm = np.empty(NCOLS, np.int64)
+    inv_perm[perm] = np.arange(NCOLS)
+
+    d = k + 4
+    r = (d + NCOLS - 1) // NCOLS
+    kp = NCOLS * r
+    nd = kp - d
+    ncb = 3 * kp
+    m = np.arange(NCB, dtype=np.int64)
+    ca = np.clip(m // r, 0, NCOLS - 1)
+    ya = (m % r) * NCOLS + perm[ca]
+    j = m - kp
+    i1 = np.maximum(j // 2, 0)
+    cb = np.clip(i1 // r, 0, NCOLS - 1)
+    yb1 = (i1 % r) * NCOLS + perm[cb]
+    yb2 = (perm[cb] + NCOLS * (i1 % r) + 1) % kp
+    is_even = (j % 2) == 0
+    stream = np.where(m < kp, 0, np.where(is_even, 1, 2))
+    y = np.where(m < kp, ya, np.where(is_even, yb1, yb2))
+    dpos = y - nd
+    valid = (y >= nd) & (m < ncb) & ~((stream < 2) & (dpos < f))
+    rank_incl = np.cumsum(valid.astype(np.int64))
+
+    n_valid = max(3 * d - 2 * f, 1)
+    k0 = r * (24 * rv + 2)
+    r0 = rank_incl[k0 - 1]
+
+    p = np.arange(dflat, dtype=np.int64)
+    stream_p = p // (k_max + 4)
+    dpos_p = p % (k_max + 4)
+    yp = dpos_p + nd
+    m01 = inv_perm[yp % NCOLS] * r + yp // NCOLS
+    u = (yp + kp - 1) % kp
+    m2 = inv_perm[u % NCOLS] * r + u // NCOLS
+    m_flat = np.where(stream_p == 0, m01,
+                      np.where(stream_p == 1, kp + 2 * m01, kp + 2 * m2 + 1))
+    ok = (dpos_p < d) & ~((stream_p < 2) & (dpos_p < f))
+    j0 = (rank_incl[np.clip(m_flat, 0, NCB - 1)] - 1 - r0) % n_valid
+    return np.where(ok, j0, NCB).astype(np.int32), int(n_valid)
+
+
+def qpp_np(k: int, k_max: int):
+    """The QPP permutation of size k and its inverse on the host, identity
+    beyond k: two (k_max,) int32 arrays (the windowed pipelines keep one
+    pair per codeblock size)."""
+    per = np.arange(k_max, dtype=np.int32)
+    inv = np.arange(k_max, dtype=np.int32)
+    p = qpp_interleaver_np(k).astype(np.int32)
+    per[:k] = p
+    inv[p] = np.arange(k, dtype=np.int32)
     return per, inv

@@ -10,7 +10,8 @@ data:
   whose window holds position K swaps its backward carry for the
   tail-derived beta there (the MAP kernel's dynamic-K mode, its `k_vec` input).
 * The QPP interleaver and its inverse are inputs, (B, K_max) per-row gather
-  indices, identity beyond K.
+  indices, identity beyond K — given row by row, or as a table of the batch's
+  distinct sizes with a class index per row (`class_perms`).
 * CRC early stop uses the leading-zeros invariance of CRCs with zero
   initial value: each row's bits are rolled to the tail of the K_max buffer
   and multiplied with one fixed (K_max, 48) CRC24A|CRC24B matrix.
@@ -62,7 +63,7 @@ def crc_ok_ab(bits: torch.Tensor, k_vec, crc_table, crc_is_b) -> torch.Tensor:
 
 
 def turbo_decode_dyn(d_llr, k_vec, per, inv, valid, k_max: int, max_iterations: int = 5,
-                     crc_table=None, crc_is_b=None):
+                     crc_table=None, crc_is_b=None, class_perms=None):
     """Decode a batch of dynamic-size codeblocks.
 
     d_llr: (B, 3, K_max+4) d-stream LLRs — each codeblock's data in columns
@@ -73,6 +74,10 @@ def turbo_decode_dyn(d_llr, k_vec, per, inv, valid, k_max: int, max_iterations: 
     crc_table: optional (K_max, 48) float32, columns [:24] the CRC24A
     matrix and [24:] CRC24B (`crc_table_ab`); crc_is_b: (B,) bool selects
     the polynomial that gates a row's early stop.
+    class_perms: optional (perC (NCLS, K_max), invC (NCLS, K_max), cls (B,)),
+    all int64, in place of per/inv: every row takes one of NCLS permutation
+    tables shared by the whole batch, so `perC[cls]` is the per-row index and
+    each interleave stays one gather.
     Returns (bits (B, K_max) uint8, zero beyond K; posteriors (B, K_max);
     n_iters (B,) int32 — the iteration at which each row's CRC first
     passed, or the loop's iteration count if it never did).
@@ -83,6 +88,9 @@ def turbo_decode_dyn(d_llr, k_vec, per, inv, valid, k_max: int, max_iterations: 
     b = d_llr.shape[0]
     dev = d_llr.device
     k_vec = k_vec.to(torch.int64)
+    if class_perms is not None:
+        per_c, inv_c, cls = class_perms
+        per, inv = per_c[cls], inv_c[cls]
     in_mask = torch.arange(k_max, device=dev)[None, :] < k_vec[:, None]  # (B, K_max)
     zero = d_llr.new_zeros(())
 

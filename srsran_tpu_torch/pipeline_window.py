@@ -1,0 +1,1014 @@
+"""Windowed dynamic-grant decodes: W TTIs per dispatch through one
+three-stage program.
+
+Counterpart of the decode half of `srsran_tpu/pipeline_window.py`:
+`WindowedUeDl` (port-0 SISO/MRC or transmit-diversity PDSCH),
+`WindowedUeDlMimo` (two-codeword spatial multiplexing, the codebook PMIs and
+large-delay CDD as data) and `WindowedEnbUl` (multi-UE PUSCH with the
+Bluestein IDFT de-precoding).  The per-TTI dynamic decode
+(`pipeline_dynamic.py`) launches a few hundred small kernels per grant and
+leaves the card idle most of the time; here a **window** of W consecutive
+TTIs is decoded by one dispatch, whatever the per-TTI grants are:
+
+* every grant-dependent quantity is data — modulation (the constellations
+  present in the window are demodulated, selected per TTI), PRB sets (padded
+  RE index vectors), the precoder, the PUSCH allocation's start and width,
+  TB layout and redundancy version;
+* stage C packs the window's codeblocks densely into N slots (a bucket
+  ladder of powers of two and their 1.5x midpoints) instead of a
+  (W, codeblocks-per-TB) grid, so one dynamic-K MAP launch per half-iteration
+  decodes every codeblock of the window;
+* the per-codeblock index work (de-rate-match fill, QPP interleaves, TB
+  reassembly) reads window-global layout classes: the distinct (K, F, rv)
+  layouts, codeblock sizes and TB sizes of the window each have one host-built
+  table that stays on the device, and every slot or row gathers through
+  `table[class]`;
+* per-TTI constants that repeat across a connection (CRS references per
+  subframe index, scrambling signs per (rnti, subframe), RE index vectors
+  per PRB set) are cached on the device; besides the samples, a window
+  uploads one packed integer parameter vector;
+* the whole window returns as one packed uint8 buffer (TB bits packed 8 per
+  byte, the CRC flag and the iteration count per row): one device→host read
+  per W TTIs.
+
+Latency is traded for sustained throughput, with W as the depth.  Stage keys
+are counted as the reference counts its compiled programs: stages A and B
+are fixed per engine, stage C is one closure per occupancy bucket
+(`WindowPack.key`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from .device import resolve, sized_table, table
+from .phy.chest.chest_dl import ChestDlConfig, _chest_tables, _device_tables
+from .phy.chest.chest_ul import dmrs_symbols, time_interp_weights
+from .phy.common import LTE_CRC24A, Cell
+from .phy.crc import crc_matrix_np
+from .phy.dft_precoding import idft_bluestein
+from .phy.fec.cbsegm import cbsegm
+from .phy.fec.rate_match_dev import j0_variant_np, ncb_max, qpp_np
+from .phy.fec.turbo_dyn import crc_ok_ab, crc_table_ab, turbo_decode_dyn
+from .phy.mimo import (
+    _codebook_2x2,
+    predecode_diversity2,
+    predecode_single_mrc,
+    predecode_zf_mmse,
+)
+from .phy.modem import Mod, demod_soft
+from .phy.ofdm import OfdmConfig, ofdm_rx_sf
+from .phy.phch.pdsch import pdsch_cinit
+from .phy.phch.pusch import pusch_cinit, pusch_symbols_data
+from .phy.phch.sch import FILLER_LLR, _e_split
+from .phy.sequence import gold_sequence_signs
+from .pipeline_dynamic import G_MAX, RE_BUCKETS, _box5, _padded_re_indices, _ul_dmrs_conj
+
+K_MAX = 6144
+MAX_CB = 16        # most codeblocks per TB (LTE max TBS 97896 at 256QAM → 16)
+RE_MAX = RE_BUCKETS[-1]
+TBS_MAX = 98304    # >= the largest LTE single-codeword TBS (97896 at 256QAM)
+TB_BYTES = TBS_MAX // 8
+QMS = (2, 4, 6, 8)
+MODS = (Mod.QPSK, Mod.QAM16, Mod.QAM64, Mod.QAM256)
+M_MAX = 1200       # most PUSCH allocation subcarriers (100 PRB)
+
+# stage C shape buckets.  The ladders use ~1.33-1.5x steps: the fold, the
+# de-rate-match and the reassembly work on the padded sizes.
+CLS_BUCKETS = (4, 8, 12, 16, 24, 32, 48, 64, 96, 128)
+ECAP_BUCKETS = (16384, 24576, 32768, 49152, 65536, G_MAX)
+JFOLD_BUCKETS = (0, 3, 11)  # log2 fold steps: no repetition / <= 8 / <= 2048
+TBCAP_BUCKETS = (1200, 4800, 9600, TB_BYTES)  # packed result bytes per row
+
+
+def _bucket_of(n, buckets):
+    for b in buckets:
+        if n <= b:
+            return b
+    raise ValueError(f"{n} exceeds largest bucket {buckets[-1]}")
+
+
+def _pow2_bucket(n):
+    """Slot-count bucket: powers of two plus the 1.5x midpoints (12, 24, 48,
+    96, 192, 384, …) — the dense-slot work scales with the bucket, so the
+    finer ladder saves up to 25% of padded work per window."""
+    b = 8
+    while True:
+        if n <= b:
+            return b
+        if n <= b + b // 2:
+            return b + b // 2
+        b *= 2
+
+
+# --------------------------------------------------------------------------
+# ingest quantization: int8 SQNR can pinch QAM256 near the waterfall, so
+# int16 and float32 ingest are selectable
+# --------------------------------------------------------------------------
+
+_INGEST = {"int8": (np.int8, 127.0), "int16": (np.int16, 32767.0),
+           "float32": (np.float32, None)}
+
+
+def _quantize_ingest(samples, ingest: str):
+    """samples (W, nrx, sf_len) complex → (quantized (W, nrx, sf_len, 2),
+    scale (W,) float32), on the host: the native ADC layout, one scale per
+    TTI.
+
+    A complex tensor is the device-resident ingest (baseband that was made
+    on the card and never crosses to the host): it passes through with unit
+    scales."""
+    if isinstance(samples, torch.Tensor):
+        if samples.dim() != 3 or not samples.is_complex():
+            raise ValueError("device ingest expects a (W, nrx, sf_len) complex tensor")
+        return samples, np.ones(samples.shape[0], np.float32)
+    w = samples.shape[0]
+    if samples.dtype == np.complex64 and samples.flags.c_contiguous:
+        sri = samples.view(np.float32).reshape(*samples.shape, 2)  # the same pairs, no copy
+    else:
+        sri = np.stack([samples.real, samples.imag], axis=-1)
+    dt, full = _INGEST[ingest]
+    if full is None:
+        return sri.astype(np.float32), np.ones(w, np.float32)
+    rows = sri.reshape(w, -1)
+    peak = np.maximum(np.maximum(rows.max(axis=1), -rows.min(axis=1)), 1e-12)
+    scale = (peak / full).astype(np.float32)
+    q = sri / scale[:, None, None, None]
+    np.clip(np.rint(q, out=q), -full, full, out=q)
+    return q.astype(dt), scale
+
+
+def _dequantize(samples_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """(W, nrx, sf_len, 2) quantized samples and (W,) scales on the device →
+    (W, nrx, sf_len) complex64; a complex tensor passes through."""
+    if samples_q.is_complex():
+        return samples_q.to(torch.complex64)
+    ri = samples_q.to(torch.float32) * scale[:, None, None, None]
+    return torch.view_as_complex(ri.contiguous())
+
+
+# --------------------------------------------------------------------------
+# stages A and B (front end; grant quantities as data)
+# --------------------------------------------------------------------------
+
+
+def _build_win_a(cell: Cell, nof_ports: int, device):
+    """Front end for W subframes: OFDM demod and the CRS channel estimate (1
+    or 2 ports), batched over the window.
+
+    The only subframe-dependent input is the conjugated CRS sequence, (W,
+    nof_ports, 4, npil) complex64, so one function serves all ten subframe
+    indices.  Returns (grid (W, nrx, nsymb, nre), ce (W, nrx, nof_ports,
+    nsymb, nre), noise (W,))."""
+    ofdm = OfdmConfig.from_cell(cell, normalize=True)
+    tabs = [table(_device_tables, cell, 0, ChestDlConfig(), p, device=device)
+            for p in range(nof_ports)]
+
+    def fn(samples_q, scale, ref_conj):
+        grid = ofdm_rx_sf(ofdm, _dequantize(samples_q, scale))
+        ces, noise = [], 0.0
+        for p, (syms, freqs, _ref, wf, wt) in enumerate(tabs):
+            ls = grid[..., syms, freqs] * ref_conj[:, None, p]  # (W, nrx, 4, npil)
+            per_sym = torch.einsum("snp,...sp->...sn", wf, ls)
+            ces.append(torch.einsum("ls,...sn->...ln", wt, per_sym))
+            resid = ls[..., 1:-1] - 0.5 * (ls[..., 2:] + ls[..., :-2])
+            noise = noise + torch.mean(resid.abs() ** 2, dim=(1, 2, 3)) / 1.5
+        return grid, torch.stack(ces, dim=2).to(torch.complex64), noise / nof_ports
+
+    return fn
+
+
+def _gather_re_classes(grid, ce, idx_cls, cls_re):
+    """The window's RE gather: every TTI takes one of the distinct (subframe,
+    PRB set) index vectors of the window, `idx_cls[cls_re]`, and one gather
+    each reads the symbols and the channel.  Returns (y (W, nrx, RE_MAX),
+    h (W, nrx, P, RE_MAX))."""
+    w, nrx, p = ce.shape[:3]
+    idx = idx_cls[cls_re]  # (W, RE_MAX)
+    r = idx.shape[1]
+    y = torch.gather(grid.reshape(w, nrx, -1), 2, idx[:, None, :].expand(w, nrx, r))
+    h = torch.gather(ce.reshape(w, nrx, p, -1), 3, idx[:, None, None, :].expand(w, nrx, p, r))
+    return y, h
+
+
+def _demod_select(x, csi, qm, n_bits, signs, qms):
+    """Soft demod of (R, M) symbols with each row's own constellation: the
+    constellations present in the window (`qms`) are demodulated for every
+    row and each row keeps the one its Qm (`qm`, (R,)) names.  csi: (R, M)
+    weights; signs: (R, G_MAX) descrambling signs or None; n_bits: (R,) true
+    lengths.  Returns (R, G_MAX) LLRs, zero from n_bits on."""
+    width = x.shape[1]
+    llr = x.new_zeros((x.shape[0], G_MAX), dtype=torch.float32)
+    for mod_c, qm_c in zip(MODS, QMS):
+        if qm_c not in qms:
+            continue
+        lc = demod_soft(mod_c, x) * torch.repeat_interleave(csi, qm_c, dim=-1)
+        head = llr[:, : width * qm_c]
+        llr[:, : width * qm_c] = torch.where((qm == qm_c)[:, None], lc, head)
+    if signs is not None:
+        llr = llr * signs.to(torch.float32)
+    mask = torch.arange(G_MAX, device=x.device)[None, :] < n_bits[:, None]
+    return torch.where(mask, llr, 0.0)
+
+
+def _build_win_b(scheme: str, qms: tuple = tuple(QMS)):
+    """Grant front end for W TTIs: RE gather → equalize (port-0 MRC or SFBC
+    combining) → demod → CSI weight → descramble.  Emits (W, G_MAX) masked
+    LLRs."""
+
+    def fn(grid, ce, noise, idx_cls, cls_re, n_re, qm, signs):
+        y, h = _gather_re_classes(grid, ce, idx_cls, cls_re)
+        if scheme == "diversity":
+            x, csi = predecode_diversity2(y, h)
+        else:
+            x, csi = predecode_single_mrc(y, h[:, :, 0], noise[:, None])
+        return _demod_select(x, csi, qm, n_re * qm, signs, qms)
+
+    return fn
+
+
+def _precoder_table() -> np.ndarray:
+    """(4, 2, 2, 2) complex64 precoders [pmi, RE parity, port, layer]: the
+    three two-layer codebook entries (the same at both parities) and, as
+    pmi 3, large-delay CDD W·D(i)·U, whose second port flips sign on odd REs."""
+    u_cdd = np.array([[1, 1], [1, -1]], np.complex64) / np.sqrt(2.0)
+    s2 = np.float32(1.0 / np.sqrt(2.0))
+    out = np.zeros((4, 2, 2, 2), np.complex64)
+    for pmi in range(3):
+        out[pmi] = _codebook_2x2(pmi, 2)[None]
+    for par, sign in enumerate((1.0, -1.0)):
+        out[3, par, 0] = u_cdd[0] * s2
+        out[3, par, 1] = u_cdd[1] * s2 * np.float32(sign)
+    return out
+
+
+def _build_win_b_mimo(qms: tuple = tuple(QMS)):
+    """Spatial-multiplexing grant front end for W TTIs: RE gather → fold each
+    TTI's precoder into H (the precoder of a TTI is `codebook[pmi]`, a 2x2
+    matrix per RE parity) → one joint 2x2 MMSE solve → layer demap →
+    per-codeword demod and descramble.  Emits (W, 2, G_MAX) masked LLRs."""
+
+    def fn(grid, ce, noise, idx_cls, cls_re, n_re, qm1, qm2, pmi, signs1, signs2):
+        y, h = _gather_re_classes(grid, ce, idx_cls, cls_re)
+        w, nrx, m = h.shape[0], h.shape[1], h.shape[-1]
+        c = table(_precoder_table, device=h.device)[pmi]  # (W, parity, port, layer)
+        hp = h.reshape(w, nrx, 2, 1, m // 2, 2)  # (W, nrx, port, 1, M/2, parity)
+        cw = c.permute(0, 2, 3, 1)[:, None, :, :, None, :]  # (W, 1, port, layer, 1, parity)
+        heff = (hp[:, :, 0] * cw[:, :, 0] + hp[:, :, 1] * cw[:, :, 1]).reshape(w, nrx, 2, m)
+        x, csi = predecode_zf_mmse(y, heff, 2, noise[:, None], pmi=None)
+        return torch.stack([
+            _demod_select(x[:, 0], csi[:, 0], qm1, n_re * qm1, signs1, qms),
+            _demod_select(x[:, 1], csi[:, 1], qm2, n_re * qm2, signs2, qms),
+        ], dim=1)
+
+    return fn
+
+
+def _build_win_a_ul(cell: Cell):
+    """SC-FDMA demod for W subframes (grant independent): the grid (W, nrx,
+    nsymb, nre)."""
+    ofdm = OfdmConfig.from_cell(cell, normalize=True, freq_shift_f=-0.5)
+    return lambda samples_q, scale: ofdm_rx_sf(ofdm, _dequantize(samples_q, scale))
+
+
+def _build_win_b_ul(cell: Cell, qms: tuple, device):
+    """PUSCH grant front end for W TTIs, every grant quantity data: the
+    allocation's columns (a clipped gather from k0), the DMRS channel
+    estimate with a masked 5-tap smoothing, MRC, the Bluestein IDFT
+    de-precoding (the transform length is data), demod over the padded
+    (symbol, M_MAX) layout, then one composed gather per (m_sc, Qm) class
+    that compacts the padded layout to transmit order, applies the
+    descrambling signs and undoes the channel interleaver (TS 36.212
+    §5.2.2.8).  Emits (W, G_MAX) LLRs."""
+    dmrs_syms = list(dmrs_symbols(cell))
+    data_syms = list(pusch_symbols_data(cell))
+    nsym = len(data_syms)
+    t_data = torch.from_numpy(time_interp_weights(cell)[data_syms].astype(np.complex64)).to(device)
+    pos = torch.arange(M_MAX, device=device)
+
+    def fn(grid, k0, m_sc, qm, dmrs_conj, signs, tab_llr, tab_sig, cls_il):
+        w, nrx, nsymb, nre = grid.shape
+        col = k0[:, None] + pos  # (W, M_MAX); columns past the band read zero
+        alloc = torch.gather(grid, 3, col.clamp(max=nre - 1)[:, None, None, :]
+                             .expand(w, nrx, nsymb, M_MAX))
+        alloc = torch.where((col < nre)[:, None, None, :], alloc, 0.0)
+        m_mask = pos[None, :] < m_sc[:, None]  # (W, M_MAX)
+        mm = m_mask[:, None, None, :]
+        m_f = m_sc.to(torch.float32)
+        # --- channel estimate: LS at DMRS, masked 5-tap smoothing, time interp ---
+        ls = torch.where(mm, alloc[:, :, dmrs_syms, :] * dmrs_conj[:, None], 0.0)
+        wsum = _box5(m_mask.to(torch.float32))
+        sm = torch.where(mm, _box5(ls) / wsum.clamp(min=1.0)[:, None, None, :], 0.0)
+        resid = torch.where(mm, ls - sm, 0.0)
+        noise = torch.sum(resid.abs() ** 2, dim=(1, 2, 3)) / (2.0 * nrx * m_f).clamp(min=1.0)
+        ce = torch.einsum("ls,wrsn->wrln", t_data, sm)  # (W, nrx, nsym, M_MAX)
+        # --- MRC equalize over rx antennas ---
+        yd = alloc[:, :, data_syms, :]
+        num = torch.sum(yd * torch.conj(ce), dim=1)
+        den = torch.sum(ce.abs() ** 2, dim=1) + noise[:, None, None]
+        xf = torch.where(m_mask[:, None], num / den, 0.0)  # (W, nsym, M_MAX)
+        csi = torch.where(m_mask[:, None], den, 0.0)
+        x = idft_bluestein(xf, m_sc[:, None])
+        csi_t = torch.sum(csi, dim=-1, keepdim=True) / m_f.clamp(min=1.0)[:, None, None]
+        wcsi = csi_t.expand(w, nsym, M_MAX).reshape(w, -1)
+        # every constellation of the window over the padded layout, selected by Qm
+        llr_pad = _demod_select(x.reshape(w, -1), wcsi, qm, qm.new_full((w,), G_MAX), None, qms)
+        lp = torch.cat([llr_pad, llr_pad.new_zeros((w, 1))], dim=1)
+        sg = torch.cat([signs.to(torch.float32), llr_pad.new_zeros((w, 1))], dim=1)
+        return torch.gather(lp, 1, tab_llr[cls_il]) * torch.gather(sg, 1, tab_sig[cls_il])
+
+    return fn
+
+
+def _ul_compose_tabs(m_sc: int, qm: int, nsym: int):
+    """Composed class tables of one (m_sc, Qm) class: natural position j
+    reads the padded-layout LLR tab_llr[j] (the zero slot G_MAX beyond the
+    codeword) and the transmit-order scrambling sign tab_sig[j] — the
+    §5.2.2.8 de-interleave and the padded→transmit compaction as one gather
+    each.  Two (G_MAX,) int32 arrays."""
+    g_len = nsym * m_sc * qm
+    j = np.arange(G_MAX, dtype=np.int64)
+    q = j % qm
+    t2 = j // qm
+    c2 = t2 % nsym
+    r2 = t2 // nsym
+    tab_llr = np.where(j < g_len, c2 * (M_MAX * qm) + r2 * qm + q, G_MAX)
+    tab_sig = np.where(j < g_len, c2 * (m_sc * qm) + r2 * qm + q, G_MAX)
+    return tab_llr.astype(np.int32), tab_sig.astype(np.int32)
+
+
+def _win_ul_dmrs(cell: Cell, nof_prb: int) -> np.ndarray:
+    """Conjugated PUSCH DMRS of both slots, zero beyond the allocation:
+    (2, M_MAX) complex64."""
+    return _ul_dmrs_conj(cell, nof_prb, M_MAX)
+
+
+# --------------------------------------------------------------------------
+# stage C: dense-slot TB decode, window-global layout classes
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class WindowPack:
+    """Host-side dense-slot layout of one window's codeblocks."""
+
+    key: tuple                  # shape key of the stage C function
+    params: np.ndarray          # one packed int32 vector (a single upload)
+    row_start: list             # per row: first slot index
+    row_ncb: list               # per row: codeblock count
+    tbs: list                   # per row: TB size
+    fill_classes: list          # distinct (k, f, rv) layouts, table order
+    qpp_classes: list           # distinct k values, table order
+    tb_classes: list            # distinct TB sizes, table order
+
+
+def pack_window(row_specs) -> WindowPack:
+    """Lay out a window's codeblocks densely.
+
+    row_specs: per codeword row (tbs, g, qm, rv) — g the codeword length in
+    bits.  Returns the packed parameter vector and the bucket key (n_rows,
+    n_slots, ncls_q, ncls_f, e_cap, j_fold, tb_cap, ncls_t, d_total).  The
+    per-class de-rate-match, QPP and reassembly index tables are not in the
+    parameters: they depend only on (k, f, rv), k or the TB size and stay on
+    the device (`class_tables`)."""
+    slots = []           # (row, off, e, k, f, crcb, cls_f, cls_q, nv)
+    fill_cls: dict = {}  # (k, f, rv) -> id
+    qpp_cls: dict = {}   # k -> id
+    row_start, row_ncb, row_tbs = [], [], []
+    max_e, max_rep = 1, 1
+    for r, (tbs, g, qm, rv) in enumerate(row_specs):
+        segm = cbsegm(tbs)
+        if segm.C > MAX_CB:
+            raise ValueError(f"tbs {tbs} has {segm.C} codeblocks, more than {MAX_CB}")
+        es = _e_split(g, segm.C, qm, 1)
+        crcb = 1 if segm.C > 1 else 0
+        row_start.append(len(slots))
+        row_ncb.append(segm.C)
+        row_tbs.append(tbs)
+        off = 0
+        for c, k in enumerate(segm.cb_sizes):
+            f = segm.F if c == 0 else 0
+            fc = fill_cls.setdefault((k, f, rv), len(fill_cls))
+            qc = qpp_cls.setdefault(k, len(qpp_cls))
+            nv = 3 * (k + 4) - 2 * f
+            slots.append((r, off, es[c], k, f, crcb, fc, qc, nv))
+            max_e = max(max_e, es[c])
+            max_rep = max(max_rep, -(-es[c] // nv))
+            off += es[c]
+
+    n_rows = len(row_specs)
+    tb_cls: dict = {}
+    cls_tb = np.zeros(n_rows, np.int32)
+    for r, tbs_r in enumerate(row_tbs):
+        cls_tb[r] = tb_cls.setdefault(tbs_r, len(tb_cls))
+    n_slots = _pow2_bucket(max(len(slots), 1))
+    ncls_q = _bucket_of(len(qpp_cls), CLS_BUCKETS)
+    ncls_f = _bucket_of(len(fill_cls), CLS_BUCKETS)
+    ncls_t = _bucket_of(len(tb_cls), CLS_BUCKETS)
+    e_cap = _bucket_of(max_e, ECAP_BUCKETS)
+    j_fold = _bucket_of((max_rep - 1).bit_length(), JFOLD_BUCKETS)
+    tb_cap = _bucket_of(-(-max(row_tbs) // 8), TBCAP_BUCKETS)
+    # size of the dense packed result: each row contributes its own TB bytes
+    # and 2 status bytes.  A pure power-of-two ladder with a 2 KB floor: the
+    # bucket is part of the stage C key, so it stays coarse under live
+    # traffic, where a window's sum of TB sizes wanders.
+    d_total = max(2048, 1 << (sum(t // 8 + 2 for t in row_tbs) - 1).bit_length())
+
+    p = np.zeros(8 * n_slots + 4 * n_rows, np.int32)
+    sl = np.array(slots, np.int32).reshape(-1, 9)
+    n = len(slots)
+    p[0:n_slots][:n] = sl[:, 0] * G_MAX + sl[:, 1]     # flat llr offset
+    p[1 * n_slots:2 * n_slots][:n] = sl[:, 2]          # e (0 = unused pad)
+    p[2 * n_slots:3 * n_slots] = 40
+    p[2 * n_slots:3 * n_slots][:n] = sl[:, 3]          # k
+    p[3 * n_slots:4 * n_slots][:n] = sl[:, 4]          # f
+    p[4 * n_slots:5 * n_slots][:n] = sl[:, 5]          # crcb
+    p[5 * n_slots:6 * n_slots][:n] = sl[:, 6]          # cls_f
+    p[6 * n_slots:7 * n_slots][:n] = sl[:, 7]          # cls_q
+    p[7 * n_slots:8 * n_slots] = 1
+    p[7 * n_slots:8 * n_slots][:n] = sl[:, 8]          # n_valid
+    o = 8 * n_slots
+    p[o:o + n_rows] = row_tbs
+    p[o + n_rows:o + 2 * n_rows] = row_ncb
+    p[o + 2 * n_rows:o + 3 * n_rows] = row_start
+    p[o + 3 * n_rows:o + 4 * n_rows] = cls_tb
+
+    return WindowPack(
+        key=(n_rows, n_slots, ncls_q, ncls_f, e_cap, j_fold, tb_cap, ncls_t, d_total),
+        params=p, row_start=row_start, row_ncb=row_ncb, tbs=row_tbs,
+        fill_classes=list(fill_cls), qpp_classes=list(qpp_cls), tb_classes=list(tb_cls))
+
+
+# Device-table cache budgets: the tables are cheap to rebuild on the host, so
+# the caches hold one busy cell's working set, not every (k, f, rv) or TBS
+# ever seen.  As int64 gather indices: 512 x 148 KB (j0), 512 x 2 x 49 KB
+# (QPP), 128 x 787 KB (TB reassembly).
+
+
+def _j0_table(k: int, f: int, rv: int) -> np.ndarray:
+    """De-rate-match index table (3*(K_MAX+4),) of one layout class."""
+    return j0_variant_np(k, f, rv, K_MAX)[0]
+
+
+def _qpp_table(k: int):
+    return qpp_np(k, K_MAX)
+
+
+def _tb_gather_dev(tbs: int) -> np.ndarray:
+    """Reassembly gather table of one TB size: for each bit of the
+    right-aligned TB||CRC stream (TBS_MAX+24,) the local source index into
+    the row's contiguous slot region (MAX_CB*K_MAX bits; the pad reads the
+    zero slot MAX_CB*K_MAX).  int32, on the host."""
+    segm = cbsegm(tbs)
+    crcb = 1 if segm.C > 1 else 0
+    dump = MAX_CB * K_MAX
+    idx = np.full(TBS_MAX + 24, dump, np.int32)
+    u0 = TBS_MAX + 24 - (tbs + 24)
+    startb = 0
+    for c, k in enumerate(segm.cb_sizes):
+        f = segm.F if c == 0 else 0
+        take = k - f - 24 * crcb
+        u = np.arange(take)
+        idx[u0 + startb + u] = c * K_MAX + f + u
+        startb += take
+    assert startb == tbs + 24
+    return idx
+
+
+_j0_tables = sized_table(512)
+_qpp_tables = sized_table(512)
+_tb_tables = sized_table(128)
+
+
+def class_tables(pack: WindowPack, device):
+    """The window's per-class tables, stacked on `device` from the cached
+    rows, int64: (j0_tab (CF, 3*(K_MAX+4)), perq (CQ, K_MAX), invq (CQ,
+    K_MAX), tb_tab (CT, tb_cap*8 + 24)).  Unused class rows repeat the first.
+    The TB stream is right-aligned, so only its trailing tb_cap*8 + 24 bits
+    can be other than pad for any row of this window: the reassembly tables
+    are cropped to that width."""
+    cq, cf, tb_cap, ct = pack.key[2], pack.key[3], pack.key[6], pack.key[7]
+    kw = dict(device=device, dtype=torch.int64)
+    f_rows = [_j0_tables(_j0_table, *c, **kw) for c in pack.fill_classes]
+    q = [_qpp_tables(_qpp_table, k, **kw) for k in pack.qpp_classes]
+    p_rows, i_rows = [a for a, _ in q], [b for _, b in q]
+    crop = TBS_MAX - tb_cap * 8
+    t_rows = [_tb_tables(_tb_gather_dev, t, **kw)[crop:] for t in pack.tb_classes]
+
+    def stack(rows, n):
+        return torch.stack(rows + [rows[0]] * (n - len(rows)))
+
+    return stack(f_rows, cf), stack(p_rows, cq), stack(i_rows, cq), stack(t_rows, ct)
+
+
+def _tb_crc_table(sw: int) -> np.ndarray:
+    return crc_matrix_np(LTE_CRC24A, sw).astype(np.float32)
+
+
+@lru_cache(maxsize=256)
+def _build_win_c(n_rows: int, n_slots: int, ncls_q: int, ncls_f: int, e_cap: int,
+                 j_fold: int, tb_cap: int, ncls_t: int, d_total: int,
+                 max_iterations: int, device):
+    """Dense-slot TB decode: fold each slot's codeword segment onto its
+    circular positions (log-halving, so any repetition count takes j_fold
+    steps), de-rate-match by one gather through the slot's class table (HARQ
+    += into the softbuffer), dynamic-K turbo over the N dense slots with the
+    window's class QPP tables, codeblock and TB CRCs, per-row reassembly →
+    one dense packed result buffer (d_total + tb_cap + 2,) uint8 in which row
+    r occupies [off_r, off_r + tbs_r/8 + 2) as [tb bytes | ok | n_it].
+
+    fn(llr (R, G_MAX), params (8N + 4R,) integer, j0_tab, perq, invq, tb_tab,
+    softbuffer (N, 3, K_MAX+4)) → (packed, new softbuffer)."""
+    crc_ab = table(crc_table_ab, K_MAX, device=device)
+    # TB stream width bucketed to the window's largest TB (a CRC with zero
+    # initial value ignores leading zeros, so the matrix is exact at any
+    # width >= tbs)
+    sw = tb_cap * 8
+    tb_table = table(_tb_crc_table, sw, device=device)
+    pow2 = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32, device=device)
+    NCB = ncb_max(K_MAX)
+    D = K_MAX + 4
+    N, R = n_slots, n_rows
+    pos_e = torch.arange(e_cap, device=device)[None, :]
+    pos_d = torch.arange(D, device=device)[None, :]
+    cb_idx = torch.arange(MAX_CB, device=device)[None, :]
+    dense_pos = torch.arange(d_total + tb_cap + 2, device=device)
+    dump = MAX_CB * K_MAX
+
+    def fn(llr, params, j0_tab, perq, invq, tb_tab, softbuffer):
+        params = params.to(torch.int64)
+        s_off, s_e, s_k, s_f, s_crcb, s_clsf, s_clsq, nv = params[: 8 * N].reshape(8, N)
+        row_tbs, row_ncb, row_start, cls_tb = params[8 * N :].reshape(4, R)
+        valid = s_e > 0
+
+        # --- fold codeword segments onto circular positions: slot n reads
+        # e_cap LLRs from its offset (masked to its own e), then block b +=
+        # block b + 2^j (blocks of nv) for j = j_fold-1 … 0.  Folded values
+        # beyond e stay zero, so only the head ever updates; a shifted read
+        # past e_cap reads zero. ---
+        llr_flat = llr.reshape(-1)
+        src = (s_off[:, None] + pos_e).clamp(max=llr_flat.shape[0] - 1)
+        seg = torch.where(pos_e < s_e[:, None], llr_flat[src], 0.0)  # (N, e_cap)
+        m = (s_e + nv - 1) // nv.clamp(min=1)
+        for j in range(j_fold - 1, -1, -1):
+            sh_pos = pos_e + ((1 << j) * nv)[:, None]
+            sh = torch.where(sh_pos < e_cap,
+                             torch.gather(seg, 1, sh_pos.clamp(max=e_cap - 1)), 0.0)
+            seg = torch.where((m > (1 << j))[:, None], seg + sh, seg)
+            m = m.clamp(max=1 << j)
+        # (N, NCB + 1): the last column is the zero slot the tables dump to
+        acc = torch.cat([seg[:, :NCB], seg.new_zeros((N, NCB + 1 - min(e_cap, NCB)))], dim=1)
+
+        # --- de-rate-match through the slot's class table; HARQ combine ---
+        fill = torch.gather(acc, 1, j0_tab[s_clsf])
+        fill = torch.where(valid[:, None], fill, 0.0)
+        new_soft = softbuffer + fill.reshape(N, 3, D)
+
+        # the decoder sees filler bits (known 0) pinned in the systematic
+        # stream; the softbuffer handed back is the un-pinned sum
+        d = new_soft.clone()
+        d[:, 0, :] = torch.where(pos_d < s_f[:, None], float(FILLER_LLR), d[:, 0, :])
+
+        # --- dynamic-K turbo with the window's class QPP tables ---
+        bf = s_crcb > 0
+        bits, _post, it_vec = turbo_decode_dyn(
+            d, s_k, None, None, valid, K_MAX, max_iterations,
+            crc_table=crc_ab, crc_is_b=bf, class_perms=(perq, invq, s_clsq))
+        cb_ok = crc_ok_ab(bits, s_k, crc_ab, bf)
+
+        # --- per-row reassembly through the row's TB-size table: a local
+        # index into the row's slot region, the pad reading zero ---
+        local = tb_tab[cls_tb]  # (R, sw + 24)
+        flat = (row_start[:, None] * K_MAX + local).clamp(max=N * K_MAX - 1)
+        stream = torch.where(local < dump, bits.reshape(-1)[flat], 0)
+        tbp, rx_crc = stream[:, :sw], stream[:, sw:]
+        # per-row codeblock verdicts and iteration counts
+        sidx = (row_start[:, None] + cb_idx).clamp(max=N - 1)  # (R, MAX_CB)
+        in_row = cb_idx < row_ncb[:, None]
+        row_cb_ok = (cb_ok[sidx] | ~in_row).all(dim=1)
+        row_it = torch.where(in_row, it_vec[sidx], 0).amax(dim=1)
+        crc_calc = (torch.matmul(tbp.to(torch.float32), tb_table).to(torch.int32) & 1
+                    ).to(torch.uint8)
+        tb_ok = row_cb_ok & (crc_calc == rx_crc).all(dim=1)
+        tb_bytes = (tbp.reshape(R, tb_cap, 8).to(torch.int32) * pow2).sum(dim=-1).to(torch.uint8)
+        rows = torch.cat([tb_bytes, tb_ok.to(torch.uint8)[:, None],
+                          row_it.clamp(0, 255).to(torch.uint8)[:, None]], dim=1)
+        # dense pack: row r's own block is the trailing tbs/8 + 2 bytes of
+        # rows[r]; dense position p belongs to the row whose cumulative range
+        # holds it and reads that block's byte, zero past the last row
+        nb = row_tbs // 8 + 2
+        ends = torch.cumsum(nb, dim=0)
+        r_of = torch.bucketize(dense_pos, ends, right=True).clamp(max=R - 1)
+        src_col = dense_pos - ends[r_of] + (tb_cap + 2)
+        dense = torch.where(dense_pos < ends[-1],
+                            rows.reshape(-1)[r_of * (tb_cap + 2) + src_col.clamp(0, tb_cap + 1)], 0)
+        return dense, new_soft
+
+    return fn
+
+
+# --------------------------------------------------------------------------
+# softbuffer routing (dense slots)
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class PendingWindow:
+    """A dispatched window (device tensors); realize with `results`."""
+
+    # dense 1-D (d_total + tb_cap + 2,) uint8 buffer: row r's block lives at
+    # its cumulative offset as [tbs/8 tb bytes | ok | n_it]
+    packed: torch.Tensor
+    softbuffer: torch.Tensor  # (n_slots, 3, K_MAX + 4) dense slot layout
+    tbs: list                 # per-row true TB sizes
+    pack: WindowPack | None = None
+
+
+def extract_softbuffer(p: PendingWindow, row: int) -> torch.Tensor:
+    """The softbuffer block of window row `row` on the device (MAX_CB slots,
+    the tail beyond the row's codeblocks zero), for the HARQ carry into a
+    later window at any position — retransmissions rarely land in the same
+    window slot."""
+    st, n_cb = p.pack.row_start[row], p.pack.row_ncb[row]
+    blk = p.softbuffer.new_zeros((MAX_CB,) + tuple(p.softbuffer.shape[1:]))
+    blk[:n_cb] = p.softbuffer[st : st + n_cb]
+    return blk
+
+
+def make_softbuffer(entries):
+    """Per-row softbuffer carry list (None = fresh).  The dense slot layout
+    is only known at dispatch time, so this returns the entries for
+    `dispatch_window` to place at the new window's slot offsets."""
+    return list(entries)
+
+
+def _assemble_soft(softbuffer, pack: WindowPack, n_slots: int, device):
+    """Resolve the softbuffer argument into a dense (N, 3, D) tensor."""
+    if softbuffer is None:
+        return torch.zeros((n_slots, 3, K_MAX + 4), dtype=torch.float32, device=device)
+    if isinstance(softbuffer, (list, tuple)):
+        soft = torch.zeros((n_slots + MAX_CB, 3, K_MAX + 4), dtype=torch.float32, device=device)
+        for r, blk in enumerate(softbuffer):
+            if blk is not None:
+                st = pack.row_start[r]
+                soft[st : st + MAX_CB] = blk.to(device)
+        return soft[:n_slots]
+    if softbuffer.shape[0] != n_slots:
+        raise ValueError("a dense softbuffer carry needs the same window codeblock layout; "
+                         "use make_softbuffer/extract_softbuffer to route per row")
+    if softbuffer.device != device:
+        raise ValueError(f"softbuffer is on {softbuffer.device}, expected {device}")
+    return softbuffer
+
+
+# --------------------------------------------------------------------------
+# facades
+# --------------------------------------------------------------------------
+
+
+def _signs_np(cinit: int) -> np.ndarray:
+    return gold_sequence_signs(cinit, G_MAX).astype(np.int8)
+
+
+def _re_idx_full(cell: Cell, sf_idx: int, cfi: int, prb: tuple) -> np.ndarray:
+    """The PDSCH RE indices of a PRB set, zero-padded to (RE_MAX,) int64."""
+    full = np.zeros(RE_MAX, np.int64)
+    pad = _padded_re_indices(cell, sf_idx, cfi, prb)[0]
+    full[: len(pad)] = pad
+    return full
+
+
+def _ref_conj_np(cell: Cell, sf_idx: int, nof_ports: int) -> np.ndarray:
+    """Conjugated CRS of a subframe index, (nof_ports, 4, npil) complex64."""
+    return np.stack([_chest_tables(cell, sf_idx, ChestDlConfig(), p)[2]
+                     for p in range(nof_ports)]).astype(np.complex64)
+
+
+class _WindowedDecoder:
+    """What the three windowed decoders share: the device, the staged plan's
+    run, the packed result's walk, the stage times and the counters.  A
+    subclass builds the plan (`_plan`): an ordered (name, fn) chain in which
+    each fn takes the previous stage's output, and the window's pack."""
+
+    def __init__(self, cell: Cell, w: int, max_iterations: int, ingest: str, device):
+        if ingest not in _INGEST:
+            raise ValueError(f"ingest {ingest!r} is not one of {tuple(_INGEST)}")
+        self.cell = cell
+        self.w = w
+        self.ingest = ingest
+        self.max_iterations = max_iterations
+        self.device = resolve(device)
+        self._b_cache: dict = {}
+        self.stats = {"windows": 0, "ttis": 0, "crc_ok": 0}
+
+    def _c_for(self, key):
+        return _build_win_c(*key, self.max_iterations, self.device)
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _upload(self, samples):
+        """(quantized samples, scales) of a window on the device."""
+        samples_q, scale = _quantize_ingest(samples, self.ingest)
+        if isinstance(samples_q, torch.Tensor):
+            if samples_q.device != self.device:
+                raise ValueError(f"samples are on {samples_q.device}, expected {self.device}")
+            return samples_q, self._dev(scale)
+        return self._dev(samples_q), self._dev(scale)
+
+    def _check(self, sf_indices, grants, sharding=None):
+        if sharding is not None:
+            raise NotImplementedError("sharding the window axis over devices is not ported")
+        if len(sf_indices) != self.w or len(grants) != self.w:
+            raise ValueError(f"a window takes {self.w} subframe indices and grants, got "
+                             f"{len(sf_indices)} and {len(grants)}")
+
+    def _run(self, stages, pack) -> PendingWindow:
+        out = None
+        for _name, fn in stages:
+            out = fn(out)
+        packed, new_soft = out
+        return PendingWindow(packed, new_soft, pack.tbs, pack)
+
+    def dispatch_window(self, samples, sf_indices, grants, softbuffer=None,
+                        sharding=None) -> PendingWindow:
+        """samples: (W, nrx, sf_len) complex64 (numpy, or a complex tensor on
+        this object's device); sf_indices, grants: length-W lists.  Results
+        stay on the device until `results`.  softbuffer: None, the dense
+        softbuffer of an earlier window with the same codeblock layout, or a
+        `make_softbuffer` list.  sharding: only None (one device)."""
+        self._check(sf_indices, grants, sharding)
+        return self._run(*self._plan(samples, sf_indices, grants, softbuffer))
+
+    def dispatch_window_from(self, abc, sf_indices, grants, softbuffer=None) -> PendingWindow:
+        """Decode a window of grants from a stored front-end pass over the
+        same W TTIs: `abc` is what stage A returns (complex tensors on this
+        object's device), stage A is skipped, so each subframe is uploaded
+        and FFT'd once for the control and the data pass."""
+        self._check(sf_indices, grants)
+        return self._run(*self._plan(None, sf_indices, grants, softbuffer, abc=abc))
+
+    def stage_times(self, samples, sf_indices, grants, n: int = 10):
+        """Seconds per stage for one window through the same plan
+        `dispatch_window` runs: n runs of each stage after one warm run,
+        between two CUDA events on a card (the host clock on the CPU).
+        Stage C's host loop reads `done.all()` once per iteration, so its
+        time holds those waits, as in a dispatch."""
+        self._check(sf_indices, grants)
+        stages, _pack = self._plan(samples, sf_indices, grants)
+        cuda = self.device.type == "cuda"
+        times = {}
+        prev = None
+        for name, fn in stages:
+            r = fn(prev)
+            if cuda:
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+            else:
+                t0 = time.perf_counter()
+            for _ in range(n):
+                r = fn(prev)
+            if cuda:
+                end.record()
+                end.synchronize()
+                times[name] = start.elapsed_time(end) * 1e-3 / n
+            else:
+                times[name] = (time.perf_counter() - t0) / n
+            prev = r
+        return times
+
+    def _rows(self, p: PendingWindow):
+        """One read of the dense buffer → [(tb bits, ok, n_it)] per row: row
+        r's block at its cumulative offset is [tbs/8 tb bytes | ok | n_it]."""
+        res = p.packed.cpu().numpy()
+        out = []
+        off = 0
+        for tbs in p.tbs:
+            nb = tbs // 8
+            out.append((np.unpackbits(res[off:off + nb]), bool(res[off + nb]),
+                        int(res[off + nb + 1])))
+            off += nb + 2
+        return out
+
+    def results(self, p: PendingWindow):
+        """Realize a window: one device→host read; returns [(tb, ok, n_it)]
+        * W.  n_it is the largest turbo-iteration count over the TTI's own
+        codeblocks."""
+        out = self._rows(p)
+        self.stats["ttis"] += len(out)
+        self.stats["crc_ok"] += sum(ok for _tb, ok, _n in out)
+        self.stats["windows"] += 1
+        return out
+
+    def decode_window(self, samples, sf_indices, grants, softbuffer=None):
+        p = self.dispatch_window(samples, sf_indices, grants, softbuffer)
+        return self.results(p), p.softbuffer
+
+
+class WindowedUeDl(_WindowedDecoder):
+    """Decode any W-TTI mix of port-0 (or, with scheme="diversity",
+    transmit-diversity) PDSCH grants per dispatch.
+
+    `decode_window` is the synchronous form; `dispatch_window`/`results`
+    keep several windows in flight.  `device=None` means the first CUDA
+    device (and raises when there is none); the tests pass "cpu"."""
+
+    _SCHEMES = ("port0", "diversity")
+
+    def __init__(self, cell: Cell, cfi: int = 1, w: int = 32, max_iterations: int = 5,
+                 scheme: str = "port0", ingest: str = "int8", *, device=None):
+        if scheme not in self._SCHEMES:
+            raise ValueError(f"scheme {scheme!r} is not one of {self._SCHEMES}")
+        super().__init__(cell, w, max_iterations, ingest, device)
+        self.cfi = cfi
+        self.scheme = scheme
+        self.nof_ports = 1 if scheme == "port0" else 2
+        self._a = _build_win_a(cell, self.nof_ports, self.device)
+
+    def _b_for(self, qms: tuple):
+        # keyed on the window's Qm set: a uniform window demodulates once
+        if qms not in self._b_cache:
+            self._b_cache[qms] = _build_win_b(self.scheme, qms)
+        return self._b_cache[qms]
+
+    # -- cached device constants --
+    def _ref(self, sf_idx: int):
+        return table(_ref_conj_np, self.cell, sf_idx, self.nof_ports, device=self.device)
+
+    def _idx(self, sf_idx: int, prb: tuple):
+        """((RE_MAX,) padded RE index vector on the device, n_re)."""
+        key = (self.cell, sf_idx, self.cfi, prb)
+        return table(_re_idx_full, *key, device=self.device), _padded_re_indices(*key)[1]
+
+    def _signs(self, rnti: int, sf_idx: int, q: int = 0):
+        return table(_signs_np, pdsch_cinit(rnti, sf_idx, self.cell.id, q=q), device=self.device)
+
+    def _re_classes(self, sf_indices, grants):
+        """Distinct (subframe, PRB set) classes of the window → (stacked
+        index table (NCLS, RE_MAX) on the device, per-TTI class vector, n_re
+        per TTI)."""
+        keys: dict = {}
+        cls_re = np.zeros(len(grants), np.int32)
+        n_re = []
+        for i, (s, g) in enumerate(zip(sf_indices, grants)):
+            k = (s, tuple(g.prb))
+            cls_re[i] = keys.setdefault(k, len(keys))
+            n_re.append(self._idx(*k)[1])
+        ncls = _bucket_of(len(keys), CLS_BUCKETS)
+        rows = [self._idx(*k)[0] for k in keys]
+        return torch.stack(rows + [rows[0]] * (ncls - len(rows))), cls_re, n_re
+
+    def _front(self, samples, sf_indices, abc):
+        """Stage A of the plan: the stored pass, or the upload and the
+        front end."""
+        if abc is not None:
+            return lambda _prev: abc
+        sq, sc = self._upload(samples)
+        refs = torch.stack([self._ref(s) for s in sf_indices])
+        return lambda _prev: self._a(sq, sc, refs)
+
+    def _plan(self, samples, sf_indices, grants, softbuffer=None, abc=None):
+        """Staged (name, fn) chain and the window's pack.  abc: optional
+        (grid, ce, noise) of a front-end pass over the same W TTIs; stage A
+        is then skipped."""
+        w = self.w
+        idx_cls, cls_re, n_res = self._re_classes(sf_indices, grants)
+        signs = torch.stack([self._signs(g.rnti, s) for s, g in zip(sf_indices, grants)])
+        pack = pack_window([(g.tbs, n_res[i] * g.qm, g.qm, g.rv) for i, g in enumerate(grants)])
+        bpar = np.array([[n_res[i], g.qm, cls_re[i]] for i, g in enumerate(grants)], np.int32)
+        pdev = self._dev(np.concatenate([bpar.reshape(-1), pack.params])).to(torch.int64)
+        bp = pdev[: 3 * w].reshape(w, 3)
+        soft = _assemble_soft(softbuffer, pack, pack.key[1], self.device)
+        tabs = class_tables(pack, self.device)
+        bfn = self._b_for(tuple(sorted({g.qm for g in grants})))
+        cfn = self._c_for(pack.key)
+        stages = [
+            ("A", self._front(samples, sf_indices, abc)),
+            ("B", lambda a: bfn(a[0], a[1], a[2], idx_cls, bp[:, 2], bp[:, 0], bp[:, 1], signs)),
+            ("C", lambda llr: cfn(llr, pdev[3 * w:], *tabs, soft)),
+        ]
+        return stages, pack
+
+
+class WindowedUeDlMimo(WindowedUeDl):
+    """Two-codeword spatial-multiplexing windows (the codebook PMIs 0-2 as
+    data, large-delay CDD as pmi 3): W TTIs of `DlGrant2` per dispatch — each
+    TTI fills two rows of the shared dense stage C."""
+
+    _SCHEMES = ("spatialmux",)
+
+    def __init__(self, cell: Cell, cfi: int = 1, w: int = 32, max_iterations: int = 5,
+                 ingest: str = "int8", *, device=None):
+        super().__init__(cell, cfi, w, max_iterations, "spatialmux", ingest, device=device)
+
+    def _b_for(self, qms: tuple):
+        if qms not in self._b_cache:
+            self._b_cache[qms] = _build_win_b_mimo(qms)
+        return self._b_cache[qms]
+
+    def _plan(self, samples, sf_indices, grants, softbuffer=None, abc=None):
+        w = self.w
+        idx_cls, cls_re, n_res = self._re_classes(sf_indices, grants)
+        signs1, signs2 = (torch.stack([self._signs(g.rnti, s, q)
+                                       for s, g in zip(sf_indices, grants)]) for q in (0, 1))
+        row_specs = []
+        bpar = np.zeros((w, 5), np.int32)  # n_re, qm1, qm2, pmi, cls_re
+        for i, g in enumerate(grants):
+            n_re = n_res[i]
+            bpar[i] = (n_re, g.qm1, g.qm2, 3 if g.tx_scheme == "cdd" else g.pmi, cls_re[i])
+            row_specs.append((g.tbs1, n_re * g.qm1, g.qm1, g.rv1))
+            row_specs.append((g.tbs2, n_re * g.qm2, g.qm2, g.rv2))
+        pack = pack_window(row_specs)
+        pdev = self._dev(np.concatenate([bpar.reshape(-1), pack.params])).to(torch.int64)
+        bp = pdev[: 5 * w].reshape(w, 5)
+        soft = _assemble_soft(softbuffer, pack, pack.key[1], self.device)
+        tabs = class_tables(pack, self.device)
+        bfn = self._b_for(tuple(sorted({g.qm1 for g in grants} | {g.qm2 for g in grants})))
+        cfn = self._c_for(pack.key)
+        stages = [
+            ("A", self._front(samples, sf_indices, abc)),
+            ("B", lambda a: bfn(a[0], a[1], a[2], idx_cls, bp[:, 4], bp[:, 0], bp[:, 1],
+                                bp[:, 2], bp[:, 3], signs1, signs2).reshape(2 * w, G_MAX)),
+            ("C", lambda llr: cfn(llr, pdev[5 * w:], *tabs, soft)),
+        ]
+        return stages, pack
+
+    def results(self, p: PendingWindow):
+        """[((tb1, ok1), (tb2, ok2), n_it)] * W.  The counters take one TTI
+        per codeword pair; crc_ok counts pairs with both codewords good."""
+        rows = self._rows(p)
+        out = []
+        for (t1, ok1, n1), (t2, ok2, n2) in zip(rows[0::2], rows[1::2]):
+            self.stats["ttis"] += 1
+            self.stats["crc_ok"] += int(ok1 and ok2)
+            out.append(((t1, ok1), (t2, ok2), max(n1, n2)))
+        self.stats["windows"] += 1
+        return out
+
+
+class WindowedEnbUl(_WindowedDecoder):
+    """Decode any W-TTI mix of PUSCH data grants per dispatch — the eNB's
+    multi-UE uplink at windowed throughput; shares the downlink window's
+    dense-slot stage C.  The window axis doubles as the multi-UE axis: W
+    grants of one TTI are W copies of its samples.
+
+    `device=None` means the first CUDA device (and raises when there is
+    none); the tests pass "cpu"."""
+
+    def __init__(self, cell: Cell, w: int = 32, max_iterations: int = 5,
+                 ingest: str = "int8", *, device=None):
+        super().__init__(cell, w, max_iterations, ingest, device)
+        self._a = _build_win_a_ul(cell)
+        self._nsym = len(pusch_symbols_data(cell))
+
+    def _b_for_ul(self, qms: tuple):
+        if qms not in self._b_cache:
+            self._b_cache[qms] = _build_win_b_ul(self.cell, qms, self.device)
+        return self._b_cache[qms]
+
+    def _signs(self, rnti: int, sf_idx: int):
+        return table(_signs_np, pusch_cinit(rnti, sf_idx, self.cell.id), device=self.device)
+
+    def _plan(self, samples, sf_indices, grants, softbuffer=None, abc=None):
+        """Staged (name, fn) chain and the window's pack.  abc: optional
+        stored SC-FDMA grid (W, nrx, nsymb, nre) of an uplink front-end pass;
+        stage A is then skipped."""
+        w, dev = self.w, self.device
+        dmrs = torch.stack([table(_win_ul_dmrs, self.cell, g.nof_prb, device=dev) for g in grants])
+        signs = torch.stack([self._signs(g.rnti, s) for s, g in zip(sf_indices, grants)])
+        # composed de-interleave classes by (m_sc, qm)
+        keys: dict = {}
+        cls_il = np.zeros(w, np.int32)
+        for i, g in enumerate(grants):
+            cls_il[i] = keys.setdefault((12 * g.nof_prb, g.qm), len(keys))
+        ncls = _bucket_of(len(keys), CLS_BUCKETS)
+        tabs_il = [table(_ul_compose_tabs, m, q, self._nsym, device=dev, dtype=torch.int64)
+                   for (m, q) in keys]
+        tabs_il += [tabs_il[0]] * (ncls - len(tabs_il))
+        tab_llr = torch.stack([t[0] for t in tabs_il])
+        tab_sig = torch.stack([t[1] for t in tabs_il])
+
+        pack = pack_window([(g.tbs, self._nsym * 12 * g.nof_prb * g.qm, g.qm, g.rv)
+                            for g in grants])
+        bpar = np.array([[g.prb_start * 12, 12 * g.nof_prb, g.qm, cls_il[i]]
+                         for i, g in enumerate(grants)], np.int32)
+        pdev = self._dev(np.concatenate([bpar.reshape(-1), pack.params])).to(torch.int64)
+        bp = pdev[: 4 * w].reshape(w, 4)
+        soft = _assemble_soft(softbuffer, pack, pack.key[1], dev)
+        tabs = class_tables(pack, dev)
+        cfn = self._c_for(pack.key)
+        bfn = self._b_for_ul(tuple(sorted({g.qm for g in grants})))
+        if abc is None:
+            sq, sc = self._upload(samples)
+        stages = [
+            ("A", (lambda _prev: abc) if abc is not None else lambda _prev: self._a(sq, sc)),
+            ("B", lambda grid: bfn(grid, bp[:, 0], bp[:, 1], bp[:, 2], dmrs, signs,
+                                   tab_llr, tab_sig, bp[:, 3])),
+            ("C", lambda llr: cfn(llr, pdev[4 * w:], *tabs, soft)),
+        ]
+        return stages, pack

@@ -2,7 +2,8 @@
 `tools/make_torch_fixture.py` builds from the JAX reference, and the port
 decodes what they store as the reference did: the two noisy subframes of
 the static path (100 PRB MCS 26), the grants of the dynamic path, and the
-2x2 MIMO, eNB UL and dynamic eNB UL ones."""
+2x2 MIMO, eNB UL and dynamic eNB UL ones, and the stored window of each
+windowed decode engine."""
 
 import importlib.util
 from pathlib import Path
@@ -200,3 +201,71 @@ def test_port_decodes_ul_dynamic_fixture_like_reference(i):
     tb, ok, _, n_it = enb.decode(fd["rx"][i], int(fd["sf_idx"][i]), grant)
     assert (ok, n_it) == (bool(fd["ref_crc_ok"][i]), int(fd["ref_n_it"][i]))
     np.testing.assert_array_equal(tb, np.unpackbits(fd["ref_tb_packed"][i], count=grant.tbs))
+
+
+# --- the stored windows of the windowed decode engines ---------------------------
+
+WINDOW_KINDS = ["ue_dl", "ue_dl_mimo", "enb_ul"]
+
+
+def load_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_window_fixtures_stay_small():
+    assert sum((TESTDATA / f"window_{k}_20mhz.npz").stat().st_size for k in WINDOW_KINDS) < 2 * 2**20
+
+
+@pytest.mark.parametrize("kind", WINDOW_KINDS)
+def test_window_fixture_is_current(kind):
+    """Rendering the window again gives what is stored: the int8 pairs (the
+    reference's IFFT rounds in float32, so a sample on a quantisation step's
+    edge may land one step away: at most 1 in 10,000 does), the scales, the
+    sent TBs and the configuration; the stimulus quantises to the stored
+    bytes in the port's ingest."""
+    from srsran_tpu_torch.pipeline_window import _quantize_ingest
+
+    tool = load_tool()
+    fx = np.load(tool.OUT_WIN[kind])
+    for key, val in tool.WIN_CONFIG.items():
+        assert fx[key] == val, key
+    np.testing.assert_array_equal(fx["grant_rows"], np.asarray(tool.WIN_GRANTS[kind], np.float64))
+    _cell, sfs, grants, tbs, q, scale = tool.window_stimulus(kind)
+    assert fx["q"].dtype == np.int8 and fx["q"].shape == q.shape == (
+        4, 2 if kind == "ue_dl_mimo" else 1, 30720, 2)
+    step = np.abs(fx["q"].astype(np.int16) - q)
+    assert step.max() <= 1 and np.count_nonzero(step) <= 1e-4 * q.size
+    np.testing.assert_allclose(fx["scale"], scale, rtol=1e-6)
+    sent = [t for pair in tbs for t in pair] if kind == "ue_dl_mimo" else tbs
+    assert fx["tbs"].tolist() == [t.size for t in sent]
+    for i, t in enumerate(sent):
+        np.testing.assert_array_equal(np.unpackbits(fx["tb_packed"][i], count=t.size), t)
+    q2, scale2 = _quantize_ingest(tool.window_samples(fx["q"], fx["scale"]), "int8")
+    assert q2.tobytes() == fx["q"].tobytes()
+    np.testing.assert_allclose(scale2, fx["scale"], rtol=2e-7)
+    # a CRC-passing reference TB is the sent one
+    for i, ok in enumerate(fx["ref_crc_ok"]):
+        if ok:
+            np.testing.assert_array_equal(fx["ref_tb_packed"][i], fx["tb_packed"][i])
+    assert sfs == [int(r[-3 if kind == "ue_dl_mimo" else -2]) for r in tool.WIN_GRANTS[kind]]
+    assert len(grants) == 4
+
+
+@pytest.mark.parametrize("kind", WINDOW_KINDS)
+def test_port_decodes_window_fixture_like_reference(kind):
+    smoke = load_smoke()
+    fx, cell, sfs, grants, samples = smoke.stored_window(kind)
+    np.testing.assert_array_equal(samples, load_tool().window_samples(fx["q"], fx["scale"]))
+    eng = smoke.window_engine(kind, cell, int(fx["w"]), int(fx["max_iterations"]), device="cpu")
+    p = eng.dispatch_window(samples, sfs, grants)
+    rows, n_it = smoke.window_rows(kind, eng.results(p))
+    assert list(p.pack.key) == fx["ref_key"].tolist()
+    assert [ok for _tb, ok in rows] == fx["ref_crc_ok"].tolist()
+    assert n_it == fx["ref_n_it"].tolist()
+    for i, (tb, ok) in enumerate(rows):
+        if ok:  # a decode that does not converge has no bits to hold
+            np.testing.assert_array_equal(
+                tb, np.unpackbits(fx["ref_tb_packed"][i], count=int(fx["tbs"][i])))

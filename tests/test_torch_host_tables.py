@@ -14,6 +14,7 @@ import srsran_tpu.phy.common as r_common
 import srsran_tpu.phy.crc as r_crc
 import srsran_tpu.phy.fec.cbsegm as r_cbsegm
 import srsran_tpu.phy.fec.rate_match as r_rm
+import srsran_tpu.phy.fec.rate_match_dev as r_rmd
 import srsran_tpu.phy.fec.turbo as r_turbo
 import srsran_tpu.phy.modem as r_modem
 import srsran_tpu.phy.ofdm as r_ofdm
@@ -29,6 +30,7 @@ import srsran_tpu_torch.phy.common as t_common
 import srsran_tpu_torch.phy.crc as t_crc
 import srsran_tpu_torch.phy.fec.cbsegm as t_cbsegm
 import srsran_tpu_torch.phy.fec.rate_match as t_rm
+import srsran_tpu_torch.phy.fec.rate_match_dev as t_rmd
 import srsran_tpu_torch.phy.fec.turbo as t_turbo
 import srsran_tpu_torch.phy.modem as t_modem
 import srsran_tpu_torch.phy.ofdm as t_ofdm
@@ -125,6 +127,30 @@ def test_turbo_rm_indices(k):
             for f in (0, 8, 56):
                 np.testing.assert_array_equal(t_rm.turbo_rm_indices(k, e, rv, f),
                                               r_rm.turbo_rm_indices(k, e, rv, f))
+
+
+@pytest.mark.parametrize("k_max", [768, 6144])
+def test_j0_variant_np_every_rv_and_filler(k_max):
+    """The host de-rate-match table of a layout class: every rv, with and
+    without filler bits, the smallest and the largest K of the buffer."""
+    assert t_rmd.ncb_max(k_max) == r_rmd.ncb_max(k_max)
+    for k in (40, 512, k_max - 64, k_max):
+        for f in (0, 8, 56):
+            for rv in range(4):
+                got, nv = t_rmd.j0_variant_np(k, f, rv, k_max)
+                ref, nv_ref = r_rmd.j0_variant_np(k, f, rv, k_max)
+                assert nv == nv_ref == 3 * (k + 4) - 2 * f and got.dtype == ref.dtype
+                np.testing.assert_array_equal(got, ref)
+
+
+def test_qpp_np_all_188_sizes():
+    for k in t_cbsegm.CB_SIZES:
+        per, inv = t_rmd.qpp_np(k, 6144)
+        r_per, r_inv = r_rmd.qpp_np(k, 6144)
+        assert per.dtype == r_per.dtype and inv.dtype == r_inv.dtype
+        np.testing.assert_array_equal(per, r_per)
+        np.testing.assert_array_equal(inv, r_inv)
+        np.testing.assert_array_equal(per[inv[:k]], np.arange(k))
 
 
 def test_crc_matrices():

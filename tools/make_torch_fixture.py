@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Build the stimulus fixtures of the PyTorch port from the JAX reference,
-on the CPU: the UE DL SISO one, the dynamic-grant one, and the 2x2 MIMO,
-eNB UL and dynamic eNB UL ones.
+on the CPU: the UE DL SISO one, the dynamic-grant one, the 2x2 MIMO, eNB UL
+and dynamic eNB UL ones, and one stored window per windowed decode engine.
 
 The configuration is the repo's headline row (`bench.py` `bench_ue_dl_siso`):
 20 MHz (100 PRB), cell 301, subframe 2, CFI 1, MCS 26 QAM64, port 0.  The
@@ -33,9 +33,19 @@ reference `enb_ul_subframe`.  The dynamic UL fixture
 the reference's `DynamicEnbUl`.  Each stores the noisy subframes, the sent
 TB bits and the reference's TB bits, crc_ok and snr_db or iteration count.
 
+The window fixtures (`window_ue_dl_20mhz.npz`, `window_ue_dl_mimo_20mhz.npz`,
+`window_enb_ul_20mhz.npz`) hold one W = 4 window each on the same 100 PRB
+cell (`WIN_GRANTS`), decoded by the
+reference's `WindowedUeDl`, `WindowedUeDlMimo` and `WindowedEnbUl` (6
+iterations, int8 ingest).  The samples are stored as the int8 pairs and
+per-TTI scales the ingest makes of them; the stimulus both packages decode
+is `window_samples(q, scale)`, which quantises to the same bytes again.
+Beside them: the sent TB bits and the reference's TB bits, CRC flags and
+iteration counts.
+
 Run from the repo root:  JAX_PLATFORMS=cpu python tools/make_torch_fixture.py
 (`main`, `main_dynamic`, `main_mimo`, `main_ul`, `main_ul_dynamic` each
-write one file.)
+write one file, `main_windows` the three windows.)
 """
 
 from __future__ import annotations
@@ -70,6 +80,21 @@ UL_CONFIG = dict(nof_prb=100, cell_id=301, sf_idx=2, mcs=20, prb_start=1, nof_pr
 UL_DYN_GRANTS = ((20, 1, 96, 2, 0.09), (10, 40, 25, 7, 0.45))
 UL_DYN_CONFIG = dict(nof_prb=100, cell_id=301, rnti=0x46, max_iterations=6, seed=20261020)
 DYN_CONFIG = dict(nof_prb=100, cell_id=301, cfi=1, rnti=0x46, max_iterations=6, seed=20261017)
+# the stored windows: W TTIs on the 100 PRB cell, int8 ingest
+WIN_CONFIG = dict(nof_prb=100, cell_id=301, cfi=1, rnti=0x46, max_iterations=6, w=4, seed=20261021)
+OUT_WIN = {kind: TESTDATA / f"window_{kind}_20mhz.npz" for kind in ("ue_dl", "ue_dl_mimo", "enb_ul")}
+WIN_GRANTS = {
+    # (mcs, first PRB, number of PRB, subframe, noise amplitude): 11 codeblocks
+    # of K=5632; a QPSK TB that repeats (rate below 1/3); one small codeblock
+    # in subframe 0; a 64QAM TB in noise that it cannot decode in
+    "ue_dl": ((26, 0, 100, 2, 0.09), (1, 10, 80, 5, 0.3), (9, 20, 6, 0, 0.15), (22, 30, 60, 7, 0.2)),
+    # (mcs 1, mcs 2, first PRB, number of PRB, subframe, pmi (3 = large-delay
+    # CDD), noise amplitude), behind MIMO_CHANNEL
+    "ue_dl_mimo": ((20, 12, 0, 100, 1, 0, 0.045), (8, 16, 20, 50, 4, 1, 0.1),
+                   (14, 6, 60, 40, 9, 2, 0.045), (10, 18, 5, 70, 6, 3, 0.08)),
+    # (mcs, first PRB, number of PRB, subframe, noise amplitude)
+    "enb_ul": ((20, 1, 96, 2, 0.09), (10, 40, 25, 7, 0.45), (3, 70, 9, 0, 0.05), (16, 0, 50, 5, 0.05)),
+}
 
 
 def reference_config():
@@ -305,6 +330,100 @@ def main_ul_dynamic():
     print(f"wrote {OUT_UL_DYN}")
 
 
+def window_samples(q: np.ndarray, scale: np.ndarray) -> np.ndarray:
+    """(W, nrx, sf_len) complex64 samples of stored int8 pairs (W, nrx,
+    sf_len, 2) and per-TTI scales: what the ingest dequantises to."""
+    ri = q.astype(np.float32) * scale[:, None, None, None]
+    return (ri[..., 0] + 1j * ri[..., 1]).astype(np.complex64)
+
+
+def window_stimulus(kind: str):
+    """(reference cell, subframe indices, reference grants, sent TBs, int8
+    samples (W, nrx, sf_len, 2), scales (W,)) of the stored window `kind`.  A
+    sent TB of the MIMO window is the pair of its codewords' bits."""
+    import jax
+
+    from srsran_tpu.phy.chest.refsignal_dl import put_crs_np
+    from srsran_tpu.phy.common import Cell
+    from srsran_tpu.phy.ofdm import OfdmConfig, ofdm_tx_sf
+    from srsran_tpu.phy.phch.pdsch import DlGrant, DlGrant2, pdsch_encode2_np, pdsch_encode_np
+    from srsran_tpu.phy.phch.ra import dl_mcs_to_mod, dl_tbs
+    from srsran_tpu.phy.ue.ue_ul import ue_ul_encode
+    from srsran_tpu.pipeline_window import _quantize_ingest
+
+    c = WIN_CONFIG
+    kinds = list(OUT_WIN)
+    cell = Cell(nof_prb=c["nof_prb"], nof_ports=2 if kind == "ue_dl_mimo" else 1, id=c["cell_id"])
+    ofdm = OfdmConfig.from_cell(cell, normalize=True)
+    rng = np.random.default_rng(c["seed"] + kinds.index(kind))
+    sfs, grants, tbs, rxs = [], [], [], []
+    with jax.default_device(jax.devices("cpu")[0]):
+        for row in WIN_GRANTS[kind]:
+            if kind == "enb_ul":
+                mcs, s0, l, sf_idx, amp = row
+                grant = ul_grant(mcs, s0, l, c["rnti"])
+                tb = rng.integers(0, 2, grant.tbs).astype(np.uint8)
+                clean = np.asarray(ue_ul_encode(cell, sf_idx, pusch=(grant, tb)))[None, :]
+            elif kind == "ue_dl":
+                mcs, s0, l, sf_idx, amp = row
+                grant = DlGrant(prb=tuple(range(s0, s0 + l)), mod=dl_mcs_to_mod(mcs),
+                                tbs=dl_tbs(mcs, l), rnti=c["rnti"])
+                tb = rng.integers(0, 2, grant.tbs).astype(np.uint8)
+                grid = pdsch_encode_np(cell, sf_idx, c["cfi"], grant, tb)
+                put_crs_np(grid, cell, sf_idx)
+                clean = np.asarray(ofdm_tx_sf(ofdm, grid))
+            else:
+                mcs1, mcs2, s0, l, sf_idx, pmi, amp = row
+                grant = DlGrant2(prb=tuple(range(s0, s0 + l)), mod1=dl_mcs_to_mod(mcs1),
+                                 tbs1=dl_tbs(mcs1, l), mod2=dl_mcs_to_mod(mcs2), tbs2=dl_tbs(mcs2, l),
+                                 pmi=pmi % 3, rnti=c["rnti"],
+                                 tx_scheme="cdd" if pmi == 3 else "spatialmux")
+                tb = tuple(rng.integers(0, 2, t).astype(np.uint8) for t in (grant.tbs1, grant.tbs2))
+                grid = np.zeros((2, cell.nsymb_per_sf, cell.nof_re_per_symbol), np.complex64)
+                grid += pdsch_encode2_np(cell, sf_idx, c["cfi"], grant, *tb)
+                put_crs_np(grid, cell, sf_idx)
+                clean = np.einsum("rp,pt->rt", MIMO_CHANNEL, np.asarray(ofdm_tx_sf(ofdm, grid)))
+            noise = rng.standard_normal(clean.shape) + 1j * rng.standard_normal(clean.shape)
+            rxs.append((clean + amp * noise).astype(np.complex64))
+            sfs.append(sf_idx)
+            grants.append(grant)
+            tbs.append(tb)
+    q, scale = _quantize_ingest(np.stack(rxs), "int8")
+    return cell, sfs, grants, tbs, q, scale
+
+
+def main_windows():
+    import srsran_tpu.pipeline_window as pw
+
+    c = WIN_CONFIG
+    for kind, out in OUT_WIN.items():
+        cell, sfs, grants, tbs, q, scale = window_stimulus(kind)
+        if kind == "enb_ul":
+            eng = pw.WindowedEnbUl(cell, w=c["w"], max_iterations=c["max_iterations"])
+        else:
+            cls = pw.WindowedUeDlMimo if kind == "ue_dl_mimo" else pw.WindowedUeDl
+            eng = cls(cell, cfi=c["cfi"], w=c["w"], max_iterations=c["max_iterations"])
+        p = eng.dispatch_window(window_samples(q, scale), sfs, grants)
+        res = eng.results(p)
+        if kind == "ue_dl_mimo":
+            rows = [r for (t1, ok1), (t2, ok2), _n in res for r in ((t1, ok1), (t2, ok2))]
+            sent = [t for pair in tbs for t in pair]
+            n_it = [n for _a, _b, n in res]
+        else:
+            rows = [(tb, ok) for tb, ok, _n in res]
+            sent = tbs
+            n_it = [n for _tb, _ok, n in res]
+        ok = [r[1] for r in rows]
+        np.savez(
+            out, q=q, scale=scale, tb_packed=pack_rows(sent), ref_tb_packed=pack_rows([r[0] for r in rows]),
+            tbs=np.asarray([t.size for t in sent]), ref_crc_ok=np.asarray(ok), ref_n_it=np.asarray(n_it),
+            ref_key=np.asarray(p.pack.key), grant_rows=np.asarray(WIN_GRANTS[kind], np.float64),
+            **{k: np.asarray(v) for k, v in c.items()},
+        )
+        equal = [bool((r[0] == t).all()) for r, t in zip(rows, sent)]
+        print(f"wrote {out}: key {p.pack.key}, crc_ok {ok}, iterations {n_it}, TB equal {equal}")
+
+
 def main():
     import jax
 
@@ -336,3 +455,4 @@ if __name__ == "__main__":
     main_mimo()
     main_ul()
     main_ul_dynamic()
+    main_windows()

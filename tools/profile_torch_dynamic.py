@@ -1,7 +1,9 @@
 #!/usr/bin/env python
 """Where the port's decode paths spend their time, on one NVIDIA GPU.
 
-`--path siso` (the default), `mimo` or `ul` picks the pair of paths.
+`--path siso` (the default), `mimo` or `ul` picks the pair of paths;
+`--path window`, `window_mimo` or `window_ul` profiles one windowed engine
+instead (see the end of this text).
 
 First the static entry point at full width, with the inputs of `chip_smoke.py`:
 `ue_dl_subframe` at 100 PRB, MCS 26, B=128 subframes a call (siso);
@@ -26,10 +28,23 @@ transmitter from a seed.  For each grant it prints
   * from `torch.profiler` over 10 TTIs: kernels launched per TTI, device
     busy time per TTI and its share of the wall time, and the kernels that
     take most device time.
+
+The windowed paths decode one full-width window of `chip_smoke.py`, again
+and again: `WindowedUeDl` (100 PRB, W = 128, the 16-grant mix at noise
+0.09), `WindowedUeDlMimo` (W = 64, 2x2) or `WindowedEnbUl` (W = 64).  They
+print ms per window and per TTI by CUDA events and on the host clock, the
+stages' times, the ingest quantisation alone, kernels per window and the
+device's busy share (`chip_smoke.window_times`, which also profiles the
+kernels printed last); then the host spans of one window, each
+fenced by a synchronize before and after: the plan (with the ingest
+quantisation, the upload, `pack_window`, `class_tables` and the softbuffer
+inside it), stages A, B, C (with `turbo_decode_dyn` and the codeblock CRC
+inside C) and the result read; then the kernels that take most device time.
+
 The last line is all of it as one JSON object.
 
 Run from the repo root on a machine with a card:
-    python3 tools/profile_torch_dynamic.py [--path siso|mimo|ul]
+    python3 tools/profile_torch_dynamic.py [--path siso|mimo|ul|window|window_mimo|window_ul]
 """
 
 from __future__ import annotations
@@ -175,9 +190,97 @@ def dynamic_grants(path: str, rng):
     return dec, out
 
 
+def quantize_plain(samples: np.ndarray, ingest: str):
+    """`pipeline_window._quantize_ingest` written the straightforward way (a
+    stacked copy of the pairs, a temporary per step): what its in-place form
+    is timed against, and must equal."""
+    import srsran_tpu_torch.pipeline_window as pw
+
+    dt, full = pw._INGEST[ingest]
+    sri = np.stack([samples.real, samples.imag], axis=-1)
+    peak = np.maximum(np.abs(sri).reshape(len(sri), -1).max(axis=1), 1e-12)
+    scale = (peak / full).astype(np.float32)
+    return np.clip(np.round(sri / scale[:, None, None, None]), -full, full).astype(dt), scale
+
+
+def host_ms(fn, n: int = 5) -> float:
+    """Median host milliseconds of fn() over n runs (no device work)."""
+    runs = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    return sorted(runs)[n // 2]
+
+
+def profile_window(report, path: str):
+    """One windowed engine at full width: times, fenced host spans, kernels."""
+    import srsran_tpu_torch.pipeline_window as pw
+
+    kind = {"window": "ue_dl", "window_mimo": "ue_dl_mimo", "window_ul": "enb_ul"}[path]
+    cell = Cell(nof_prb=100, nof_ports=2 if kind == "ue_dl_mimo" else 1, id=301)
+    rng = np.random.default_rng(13)
+    w, amp, mix = {"ue_dl": (chip_smoke.W_DL, 0.09, chip_smoke.dl_window_mix),
+                   "ue_dl_mimo": (chip_smoke.W_MIMO, 0.045, chip_smoke.mimo_window_mix),
+                   "enb_ul": (chip_smoke.W_UL, 0.05, chip_smoke.ul_window_mix)}[kind]
+    eng = chip_smoke.window_engine(kind, cell, w, 6)
+    samples, sfs, grants, sent = chip_smoke.window_of(mix(cell, rng, 16), w, rng, amp)
+    if kind == "ue_dl_mimo":
+        sent = [tb for pair in sent for tb in pair]
+    res = eng.results(eng.dispatch_window(samples, sfs, grants))
+    n_ok = chip_smoke.check_window(path, kind, res, sent, 0)
+    entry = chip_smoke.window_times(path, kind, eng, samples, sfs, grants)
+    entry["crc_ok"], entry["rows"] = n_ok, len(sent)
+
+    # the ingest quantisation against its straightforward form: plain, in
+    # place, in place, plain on the same samples
+    (q, sc), (q_p, sc_p) = pw._quantize_ingest(samples, eng.ingest), quantize_plain(samples, eng.ingest)
+    if not ((q == q_p).all() and (sc == sc_p).all() and q.dtype == q_p.dtype):
+        raise RuntimeError(f"{path}: the ingest quantisation differs from its straightforward form")
+    forms = (lambda: quantize_plain(samples, eng.ingest), lambda: pw._quantize_ingest(samples, eng.ingest))
+    t = [host_ms(forms[i]) for i in (0, 1, 1, 0)]
+    entry["quantize_ingest_ms_plain_inplace_inplace_plain"] = t
+    print(f"  {eng.ingest} ingest quantisation of {samples.shape} on the host: straightforward form "
+          f"{t[0]:.3f} and {t[3]:.3f} ms, in place {t[1]:.3f} and {t[2]:.3f} ms, equal bytes")
+
+    # fenced host spans of one window
+    inner = {"plan.quantize_ingest": (pw, "_quantize_ingest"), "plan.pack_window": (pw, "pack_window"),
+             "plan.class_tables": (pw, "class_tables"), "plan.assemble_soft": (pw, "_assemble_soft"),
+             "plan.upload": (eng, "_upload"), "C.turbo_decode_dyn": (pw, "turbo_decode_dyn"),
+             "C.crc_ok_ab": (pw, "crc_ok_ab")}
+    plain = {name: getattr(obj, attr) for name, (obj, attr) in inner.items()}
+    for name, (obj, attr) in inner.items():
+        setattr(obj, attr, timed(name, plain[name]))
+    SPANS.clear()
+
+    def fenced():
+        stages, pack = timed("plan", eng._plan)(samples, sfs, grants)
+        out = None
+        for name, fn in stages:
+            out = timed(name, fn)(out)
+        timed("results", eng.results)(pw.PendingWindow(out[0], out[1], pack.tbs, pack))
+
+    fenced_ms = chip_smoke.wall_ms(fenced, N)
+    spans = {k: v / N for k, v in sorted(SPANS.items())}
+    for name, (obj, attr) in inner.items():
+        if obj is eng:
+            delattr(obj, attr)
+        else:
+            setattr(obj, attr, plain[name])
+
+    entry.update({"ms_per_window_fenced": fenced_ms, "fenced_spans_ms": spans})
+    report["window"] = entry
+    print(f"  fenced: {fenced_ms:.3f} ms per window; spans (ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in spans.items()))
+    for e in entry["top_kernels"]:
+        print(f"    {e['device_ms_per_window']:.4f} ms  {100 * e['share_of_device_time']:5.2f}%  "
+              f"x{e['count_per_window']:g}  {e['name']}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--path", choices=("siso", "mimo", "ul"), default="siso")
+    parser.add_argument("--path", default="siso", choices=(
+        "siso", "mimo", "ul", "window", "window_mimo", "window_ul"))
     path = parser.parse_args().path
     if not torch.cuda.is_available():
         print("profile_torch_dynamic: torch.cuda.is_available() is false", file=sys.stderr)
@@ -188,6 +291,10 @@ def main() -> int:
     print(card)
     rng = np.random.default_rng(1)
     report = {"card": card, "torch": torch.__version__, "path": path, "grants": {}}
+    if path.startswith("window"):
+        profile_window(report, path)
+        print(json.dumps(report))
+        return 0
     profile_static(report, path)
     torch.cuda.empty_cache()
     plain = {name: getattr(pd, name) for name in
