@@ -57,7 +57,7 @@ Phases (each prints its own lines; any failure exits non-zero):
      `testdata/enb_ul_dynamic_20mhz.npz`, stage keys, ms per TTI; and two
      transmit-diversity and two spatial-multiplexing grants through
      `DynamicUeDl` behind the 2x2 channel;
-  12. (run after phases 13-16, whose windows give it its shapes) the
+  12. (run after phases 13-18, whose windows give it its shapes) the
      kernel's dynamic-K mode at every launch shape those phases gave it:
      each dense-slot bucket N that a window of this run reached (N x K_max
      6144, K_i the window's own per-slot sizes, 40 in the unused slots),
@@ -85,7 +85,25 @@ Phases (each prints its own lines; any failure exits non-zero):
      window;
   16. the stored reference windows of `testdata/window_*_20mhz.npz` (W = 4,
      one per engine) give the reference's stage C key, CRC flags, iteration
-     counts and, where the CRC passes, TB bits.
+     counts and, where the CRC passes, TB bits;
+  17. the generate windows at full width (`bench.py` `bench_window_dlgen_rtf`,
+     `bench_window_ulgen_rtf`): `WindowedEnbDl` (MCS 0-26 on 4-100 PRB),
+     `WindowedUeUl` (widths 9/25/50/96, MCS 0-23) and `WindowedEnbDlMimo` (2 x
+     MCS 4-24 on 20-100 PRB, PMI 0-2 and a CDD grant), W = 64, a 16-grant mix
+     repeated: no MAP launch, finite samples, the codewords of four rows
+     equal `dlsch_encode_np`, and the stored W = 4 window of
+     `testdata/window_gen_*.npz` gives the reference's codewords bit for bit
+     and its samples within 2e-6 absolute; ms per window, `stage_times`;
+  18. the loopbacks, generator → `window_channel` → decode engine without the
+     baseband leaving the card (`bench_window_loopback_rtf`,
+     `bench_window_ul_loopback_rtf`): DL W = 128 (h 0.95-0.2j) into
+     `WindowedUeDl`, UL W = 128 (h 0.9+0.25j) into `WindowedEnbUl`, 2x2 W = 64
+     behind H_2X2 into `WindowedUeDlMimo`, noise 0.02, W fresh grants, 6
+     iterations: every TB decodes and equals the sent one;
+     for the windows of phases 17 and 18: ms per window and per TTI by CUDA
+     events and on the host clock (warm medians after two warm calls), the
+     real-time factor, kernels per window, the device's busy share and MAP
+     launches per window.
 Every path is driven with the launch counts set to 0 just before and read
 just after.  Prints one JSON line of kernel results, then as its last line
 {"ok": true, "device": {...}}.  TF32 stays off: the channel-estimate
@@ -129,6 +147,14 @@ OPS_WINDOW_POS = 83
 DYN_KS = {6144: (6144, 6080, 5824, 4800, 3136, 2112, 512, 40),
           2112: (2112, 2048, 1056, 528, 1408, 40),
           768: (768, 512, 384, 40)}
+
+
+T0 = time.perf_counter()
+
+
+def mark(what: str):
+    """One line with the seconds since the script started, at a phase's start."""
+    print(f"[{time.perf_counter() - T0:.1f} s] {what}", flush=True)
 
 
 def check(cond: bool, msg: str):
@@ -611,15 +637,82 @@ def stored_window(kind: str):
     return fx, cell, sfs, grants, (ri[..., 0] + 1j * ri[..., 1]).astype(np.complex64)
 
 
-# dense-slot bucket N -> (per-slot K_i of the first window that reached it,
-# the tags of the windows that did): the dynamic-K kernel's launch shapes
+GEN_KINDS = ("enb_dl", "ue_ul", "enb_dl_mimo")
+SAMPLE_ATOL = 2e-6
+
+
+def stored_gen_window(kind: str):
+    """The stored reference generate window `kind` ("enb_dl", "ue_ul",
+    "enb_dl_mimo") with the port's classes: (fx, cell, subframe indices,
+    grants, payloads (pairs for the MIMO window), dispatch keywords)."""
+    from srsran_tpu_torch.phy.common import Cell
+    from srsran_tpu_torch.phy.phch.pdsch import DlGrant, DlGrant2
+    from srsran_tpu_torch.phy.phch.ra import dl_mcs_to_mod, dl_tbs
+
+    fx = np.load(TESTDATA / f"window_gen_{kind}.npz")
+    rnti = int(fx["rnti"])
+    cell = Cell(nof_prb=int(fx["nof_prb"]), nof_ports=2 if kind == "enb_dl_mimo" else 1,
+                id=int(fx["cell_id"]))
+    sfs, grants = [], []
+    for row in fx["grant_rows"].tolist():
+        if kind == "enb_dl_mimo":
+            mcs1, mcs2, s0, l, sf_idx, pmi = row
+            grants.append(DlGrant2(
+                prb=tuple(range(s0, s0 + l)), mod1=dl_mcs_to_mod(mcs1), tbs1=dl_tbs(mcs1, l),
+                mod2=dl_mcs_to_mod(mcs2), tbs2=dl_tbs(mcs2, l), pmi=pmi % 3, rnti=rnti,
+                tx_scheme="cdd" if pmi == 3 else "spatialmux"))
+        else:
+            mcs, s0, l, sf_idx = row
+            grants.append(ul_grant(mcs, s0, l, rnti) if kind == "ue_ul" else DlGrant(
+                prb=tuple(range(s0, s0 + l)), mod=dl_mcs_to_mod(mcs), tbs=dl_tbs(mcs, l), rnti=rnti))
+        sfs.append(sf_idx)
+    payloads = [np.unpackbits(fx["tb_packed"][i], count=int(t)) for i, t in enumerate(fx["tbs"])]
+    kw = {}
+    if kind == "enb_dl_mimo":
+        payloads = list(zip(payloads[0::2], payloads[1::2]))
+    elif kind == "enb_dl":
+        kw = dict(overlay=(fx["ov_idx"], fx["ov_vals"]))
+    else:
+        kw = dict(pucch=(fx["pucch_prb"], fx["pucch_grids"], fx["pucch_live"]))
+    return fx, cell, sfs, grants, payloads, kw
+
+
+def gen_engine(kind: str, cell, w: int, **kw):
+    """The generate engine of `kind`; the stored "enb_dl" window is
+    rendered with template "full"."""
+    import srsran_tpu_torch.pipeline_window as pw
+
+    if kind == "ue_ul":
+        return pw.WindowedUeUl(cell, w=w, **kw)
+    if kind == "enb_dl_mimo":
+        return pw.WindowedEnbDlMimo(cell, cfi=1, w=w, **kw)
+    return pw.WindowedEnbDl(cell, cfi=1, w=w, template="full", **kw)
+
+
+def stored_gen_errors(eng, fx, sfs, grants, payloads, kw) -> tuple[int, float]:
+    """The port's generate window on a stored one: (codeword bits that
+    differ from the reference's, max_abs_err of the samples)."""
+    stages, _pack = eng._plan(payloads, sfs, grants, **kw)
+    cw = stages[0][1](None)
+    out = stages[1][1](cw)
+    ref_cw = np.unpackbits(fx["ref_cw_packed"], axis=-1)
+    got = out.cpu().numpy()
+    check(got.shape == fx["ref_samples"].shape and got.dtype == np.complex64,
+          f"stored generate window: samples {got.shape} {got.dtype}")
+    return (int((cw.cpu().numpy() != ref_cw).sum()),
+            float(np.abs(got - fx["ref_samples"]).max()))
+
+
+# dense-slot bucket N -> {per-slot K_i of a window that reached it: the tags
+# of the windows that gave those K_i}: the dynamic-K kernel's launch shapes
 WINDOW_SHAPES: dict = {}
 
 
 def note_shape(tag: str, pack):
-    """Record the launch shape stage C gave the kernel for this window."""
+    """Record the launch shape stage C gave the kernel for this window: its
+    bucket N and its per-slot K_i."""
     n = pack.key[1]
-    ks, tags = WINDOW_SHAPES.setdefault(n, (pack.params[2 * n:3 * n].tolist(), []))
+    tags = WINDOW_SHAPES.setdefault(n, {}).setdefault(tuple(pack.params[2 * n:3 * n].tolist()), [])
     if tag not in tags:
         tags.append(tag)
 
@@ -729,20 +822,16 @@ def window_of(mix, w: int, rng, amp: float):
     return samples, [m[1] for m in mm], [m[2] for m in mm], [m[3] for m in mm]
 
 
-def window_times(tag: str, kind: str, eng, samples, sfs, grants) -> dict:
-    """Times and counts of one warm window through `eng`, printed and
-    returned: medians of 5 runs of 2 windows by CUDA events and on the host
-    clock, the host's ingest quantisation alone, the stages' times, and one
-    profiled pair of windows (with the kernels that take most device time)."""
-    import srsran_tpu_torch.pipeline_window as pw
+def time_window(tag: str, one, w: int) -> dict:
+    """Times and counts of one warm window, `one()` ending in a host read or
+    leaving its work queued: two warm calls, then medians of 5 runs of 2
+    windows by CUDA events and on the host clock (synchronised), the
+    dynamic-K MAP launches per window, and one profiled pair of windows
+    (kernels per window, device busy time, the kernels that take most)."""
     from srsran_tpu_torch.phy.fec import turbo_cuda
 
-    def one():
-        return eng.results(eng.dispatch_window(samples, sfs, grants))
-
-    one()
-    rows, _n_it = window_rows(kind, one())
-    ok_bits = sum(tb.size for tb, ok in rows if ok)
+    for _ in range(2):
+        one()
     before = turbo_cuda.LAUNCHES_DYN
     dev, host = [], []
     for _ in range(5):
@@ -758,13 +847,6 @@ def window_times(tag: str, kind: str, eng, samples, sfs, grants) -> dict:
         dev.append(start.elapsed_time(end) / 2)
     map_per_window = (turbo_cuda.LAUNCHES_DYN - before) / 10
     dev_ms, host_ms = sorted(dev)[2], sorted(host)[2]
-    quant = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        pw._quantize_ingest(samples, eng.ingest)
-        quant.append((time.perf_counter() - t0) * 1e3)
-    quant_ms = sorted(quant)[2]
-    stages = {k: v * 1e3 for k, v in eng.stage_times(samples, sfs, grants, n=3).items()}
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         prof_ms = wall_ms(one, 2)
@@ -772,32 +854,60 @@ def window_times(tag: str, kind: str, eng, samples, sfs, grants) -> dict:
     n_kernels = sum(e.count for e in kernels) / 2
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3 / 2
     check(n_kernels > 0 and busy_ms > 0, f"{tag}: the profiler saw no kernel on the card")
-    top = sorted(kernels, key=lambda e: -e.device_time_total)[:14]
+    top = sorted(kernels, key=lambda e: -e.device_time_total)[:5]
+    return {"w": w, "ms_per_window_cuda_events": dev_ms, "ms_per_window_host_wall": host_ms,
+            "ms_per_tti": host_ms / w, "real_time_factor": w / host_ms,
+            "kernels_per_window": n_kernels, "device_busy_ms_per_window": busy_ms,
+            "device_busy_share_of_host_wall": busy_ms / host_ms, "ms_per_window_under_profiler": prof_ms,
+            "map_launches_per_window": map_per_window,
+            "top_kernels": [{"name": e.key[:60], "count_per_window": e.count / 2,
+                             "device_ms_per_window": e.device_time_total / 1e3 / 2,
+                             "share_of_device_time": e.device_time_total / 1e3 / 2 / busy_ms}
+                            for e in top]}
+
+
+def print_times(tag: str, t: dict):
+    w = t["w"]
+    print(f"{tag}: W={w}: {t['ms_per_window_cuda_events']:.3f} ms per window by CUDA events, "
+          f"{t['ms_per_window_host_wall']:.3f} ms host wall ({t['ms_per_window_cuda_events'] / w:.4f} / "
+          f"{t['ms_per_tti']:.4f} ms per TTI), real-time factor {t['real_time_factor']:.2f}x; "
+          f"{t['kernels_per_window']:.0f} kernels per window, device busy "
+          f"{t['device_busy_ms_per_window']:.3f} ms ({100 * t['device_busy_share_of_host_wall']:.1f}% "
+          f"of the host wall; {t['ms_per_window_under_profiler']:.3f} ms per window under the "
+          f"profiler); {t['map_launches_per_window']:g} dynamic-K map launches per window")
+
+
+def window_times(tag: str, kind: str, eng, samples, sfs, grants) -> dict:
+    """`time_window` of one decode window through `eng`, with the CRC-passing
+    Mbps, the host's ingest quantisation alone, the stages' times and the
+    window's dense slots, printed and returned."""
+    import srsran_tpu_torch.pipeline_window as pw
+
+    def one():
+        return eng.results(eng.dispatch_window(samples, sfs, grants))
+
+    rows, _n_it = window_rows(kind, one())
+    ok_bits = sum(tb.size for tb, ok in rows if ok)
+    out = time_window(tag, one, eng.w)
+    quant = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        pw._quantize_ingest(samples, eng.ingest)
+        quant.append((time.perf_counter() - t0) * 1e3)
+    quant_ms = sorted(quant)[2]
+    stages = {k: v * 1e3 for k, v in eng.stage_times(samples, sfs, grants, n=3).items()}
     pack = eng.dispatch_window(samples, sfs, grants).pack
     note_shape(f"{tag}, timed", pack)
-    w = eng.w
-    out = {"w": w, "ms_per_window_cuda_events": dev_ms, "ms_per_window_host_wall": host_ms,
-           "ms_per_tti": host_ms / w, "real_time_factor": w / host_ms,
-           "crc_ok_mbps": ok_bits / host_ms / 1e3, "quantize_ingest_ms": quant_ms, "stage_ms": stages,
-           "real_time_factor_of_stage_times": w / sum(stages.values()),
-           "kernels_per_window": n_kernels, "device_busy_ms_per_window": busy_ms,
-           "device_busy_share_of_host_wall": busy_ms / host_ms, "ms_per_window_under_profiler": prof_ms,
-           "slots_real": sum(pack.row_ncb), "slots_bucketed": pack.key[1], "stage_c_key": list(pack.key),
-           "map_launches_per_window": map_per_window,
-           "top_kernels": [{"name": e.key[:60], "count_per_window": e.count / 2,
-                            "device_ms_per_window": e.device_time_total / 1e3 / 2,
-                            "share_of_device_time": e.device_time_total / 1e3 / 2 / busy_ms}
-                           for e in top]}
-    print(f"{tag}: W={w}: {dev_ms:.3f} ms per window by CUDA events, {host_ms:.3f} ms host wall "
-          f"({dev_ms / w:.4f} / {host_ms / w:.4f} ms per TTI), real-time factor {w / host_ms:.2f}x, "
-          f"{ok_bits / host_ms / 1e3:.1f} Mbps of CRC-passing TBs; of the host wall "
-          f"{quant_ms:.3f} ms is the {eng.ingest} ingest quantisation on the host")
-    print(f"{tag}: stage_times A {stages['A']:.3f} B {stages['B']:.3f} C {stages['C']:.3f} ms "
-          f"({w / sum(stages.values()):.1f}x real time without the host's plan); "
-          f"{n_kernels:.0f} kernels per window, device busy {busy_ms:.3f} ms "
-          f"({100 * busy_ms / host_ms:.1f}% of the host wall; {prof_ms:.3f} ms per window under the "
-          f"profiler); slots {out['slots_real']} real / {out['slots_bucketed']} bucketed, stage C key "
-          f"{pack.key}; {map_per_window:g} dynamic-K map launches per window")
+    host_ms = out["ms_per_window_host_wall"]
+    out.update(crc_ok_mbps=ok_bits / host_ms / 1e3, quantize_ingest_ms=quant_ms, stage_ms=stages,
+               real_time_factor_of_stage_times=eng.w / sum(stages.values()),
+               slots_real=sum(pack.row_ncb), slots_bucketed=pack.key[1], stage_c_key=list(pack.key))
+    print_times(tag, out)
+    print(f"{tag}: {ok_bits / host_ms / 1e3:.1f} Mbps of CRC-passing TBs; of the host wall "
+          f"{quant_ms:.3f} ms is the {eng.ingest} ingest quantisation on the host; stage_times A "
+          f"{stages['A']:.3f} B {stages['B']:.3f} C {stages['C']:.3f} ms "
+          f"({eng.w / sum(stages.values()):.1f}x real time without the host's plan); slots "
+          f"{out['slots_real']} real / {out['slots_bucketed']} bucketed, stage C key {pack.key}")
     return out
 
 
@@ -810,34 +920,42 @@ def phase_window_kernel(dev):
     nw, lw, T = layout = pass_layout(6144)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     check(len(WINDOW_SHAPES) > 0, "no window recorded a launch shape")
-    cases = [(n, ks, tags) for n, (ks, tags) in sorted(WINDOW_SHAPES.items())]
+    # every bucket N with every set of K_i a window gave it; then N = 384 and
+    # 768 with K_i drawn over the 188 sizes
+    cases = [(n, list(k_sets.items())) for n, k_sets in sorted(WINDOW_SHAPES.items())]
     for n in (384, 768):
         ks = np.random.default_rng(n).choice(CB_SIZES, n).tolist()
         check(len(set(ks)) > 100, "the windowed kernel check draws too few sizes")
-        cases.append((n, ks, []))
+        cases.append((n, [(tuple(ks), [])]))
     max_err, shapes = 0.0, []
-    for n, ks, tags in cases:
-        lx, lz, beta_k, k_vec, below_k = dyn_map_inputs(6144, ks, seed=n, device=dev)
-        got = turbo_cuda.map_pass(lx, lz, beta_k, *layout, k_vec=k_vec)
-        ref = map_pass_plain(lx, lz, beta_k, 6144, k_vec)
-        torch.cuda.synchronize()
-        err = float((got - ref)[below_k].abs().max())
-        same_bits = bool(torch.equal((got > 0)[below_k], (ref > 0)[below_k]))
-        check(bool(torch.isfinite(got[below_k]).all()), f"non-finite posteriors at N={n}")
-        check(err <= MAP_ATOL and same_bits, f"dyn kernel disagrees with plain at N={n}")
+    for n, k_sets in cases:
+        errs = []
+        for ks, tags in k_sets:
+            lx, lz, beta_k, k_vec, below_k = dyn_map_inputs(6144, ks, seed=n, device=dev)
+            got = turbo_cuda.map_pass(lx, lz, beta_k, *layout, k_vec=k_vec)
+            ref = map_pass_plain(lx, lz, beta_k, 6144, k_vec)
+            torch.cuda.synchronize()
+            err = float((got - ref)[below_k].abs().max())
+            same_bits = bool(torch.equal((got > 0)[below_k], (ref > 0)[below_k]))
+            check(bool(torch.isfinite(got[below_k]).all()), f"non-finite posteriors at N={n}")
+            check(err <= MAP_ATOL and same_bits, f"dyn kernel disagrees with plain at N={n}, K_i of {tags}")
+            errs.append(err)
+            k_of = (f"K_i of the windows {tags}" if tags else
+                    "K_i drawn over the sizes" + ("" if n in WINDOW_SHAPES else "; no window of this run"))
+            print(f"map dyn N={n} x K_max 6144, {len(set(ks))} sizes of K ({k_of}): max_abs_err below "
+                  f"K {err:.3g}, hard bits identical {same_bits}")
+        # timed on the first set of K_i
+        lx, lz, beta_k, k_vec, _ = dyn_map_inputs(6144, k_sets[0][0], seed=n, device=dev)
         cpb, smem = turbo_cuda.launch_plan(n, nw, lw, n_sm)
         ms = queued_ms(lambda: turbo_cuda.map_pass(lx, lz, beta_k, *layout, k_vec=k_vec), 50)
         plain_ms = cuda_ms(lambda: map_pass_plain(lx, lz, beta_k, 6144, k_vec), 2)
         bound_ms, bound_by = map_bound(lx, lz, beta_k, layout, k_vec)
-        k_of = (f"K_i of the windows {tags}" if tags else
-                "K_i drawn over the sizes" + ("" if n in WINDOW_SHAPES else "; no window of this run"))
-        print(f"map dyn N={n} x K_max 6144, {len(set(ks))} sizes of K ({k_of}; {cpb} codeblock and "
-              f"{smem} B of shared memory a block, {n / (3 * n_sm):.2f} waves of {3 * n_sm}): "
-              f"max_abs_err below K {err:.3g}, hard bits identical {same_bits}; kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-              f"({100 * bound_ms / ms:.1f}% of it)")
-        max_err = max(max_err, err)
-        shapes.append(dict(shape=[n, 6144], windows=tags, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        print(f"map dyn N={n} x K_max 6144 ({cpb} codeblock and {smem} B of shared memory a block, "
+              f"{n / (3 * n_sm):.2f} waves of {3 * n_sm}): kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {bound_ms:.4f} ms by {bound_by} ({100 * bound_ms / ms:.1f}% of it)")
+        max_err = max([max_err] + errs)
+        shapes.append(dict(shape=[n, 6144], windows=[t for _ks, tags in k_sets for t in tags],
+                           k_sets_checked=len(k_sets), max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                            bound_ms=bound_ms, bound_by=bound_by))
     return max_err, shapes
 
@@ -994,6 +1112,170 @@ def phase_stored_windows(dev) -> tuple[int, int]:
     return launches
 
 
+# --- the generate windows and the loopbacks ----------------------------------------
+
+
+W_GEN, W_LOOP, W_LOOP_MIMO = 64, 128, 64
+# (channel, noise amplitude) of the loopbacks: `bench.py` `bench_window_loopback_rtf`
+# and `bench_window_ul_loopback_rtf`; the 2x2 one behind the bench's MIMO channel
+LOOP_CHANNELS = {"enb_dl": (np.array([[0.95 - 0.2j]], np.complex64), 0.02),
+                 "ue_ul": (np.array([[0.9 + 0.25j]], np.complex64), 0.02),
+                 "enb_dl_mimo": (H_2X2, 0.02)}
+LOOP_DECODERS = {"enb_dl": "ue_dl", "ue_ul": "enb_ul", "enb_dl_mimo": "ue_dl_mimo"}
+GEN_NAMES = {"enb_dl": "WindowedEnbDl", "ue_ul": "WindowedUeUl", "enb_dl_mimo": "WindowedEnbDlMimo"}
+
+
+def grant_mix(kind: str, rng, n: int):
+    """n TTIs of the bench's generate mixes on the 100 PRB cell, payloads
+    drawn from `rng`: (subframe indices, grants, payloads; a MIMO payload is
+    the pair of its codewords' bits).  "enb_dl": MCS 0-26 on 4-100 PRB;
+    "ue_ul": widths 9/25/50/96 PRB, MCS 0-23; "enb_dl_mimo": 2 x MCS 4-24 on
+    20-100 PRB, PMI 0-2 and, last, one large-delay CDD grant."""
+    from srsran_tpu_torch.phy.phch.pdsch import DlGrant, DlGrant2
+    from srsran_tpu_torch.phy.phch.ra import dl_mcs_to_mod, dl_tbs
+
+    sfs, grants, payloads = [], [], []
+    while len(grants) < n:
+        sf_idx = int(rng.integers(0, 10))
+        if kind == "ue_ul":
+            mcs, nprb = int(rng.integers(0, 24)), int((9, 25, 50, 96)[rng.integers(0, 4)])
+            g = ul_grant(mcs, int(rng.integers(0, 101 - nprb)), nprb, 0x46)
+            tbs = (g.tbs,)
+        elif kind == "enb_dl":
+            mcs, l = int(rng.integers(0, 27)), int(rng.integers(4, 101))
+            st = int(rng.integers(0, 101 - l))
+            g = DlGrant(prb=tuple(range(st, st + l)), mod=dl_mcs_to_mod(mcs), tbs=dl_tbs(mcs, l),
+                        rnti=0x46)
+            tbs = (g.tbs,)
+        else:
+            mcs1, mcs2 = int(rng.integers(4, 25)), int(rng.integers(4, 25))
+            l = int(rng.integers(20, 101))
+            st = int(rng.integers(0, 101 - l))
+            g = DlGrant2(prb=tuple(range(st, st + l)), mod1=dl_mcs_to_mod(mcs1), tbs1=dl_tbs(mcs1, l),
+                         mod2=dl_mcs_to_mod(mcs2), tbs2=dl_tbs(mcs2, l), pmi=int(rng.integers(0, 3)),
+                         rnti=0x46, tx_scheme="cdd" if len(grants) == n - 1 else "spatialmux")
+            tbs = (g.tbs1, g.tbs2)
+        if min(tbs) == 0:
+            continue
+        bits = tuple(rng.integers(0, 2, t).astype(np.uint8) for t in tbs)
+        sfs.append(sf_idx)
+        grants.append(g)
+        payloads.append(bits if kind == "enb_dl_mimo" else bits[0])
+    return sfs, grants, payloads
+
+
+def phase_generate(dev, kind: str) -> dict:
+    """Phase 17: one generate engine at full width, W = 64 TTIs of the
+    bench's 16-grant mix repeated.  Returns the times dict."""
+    import srsran_tpu_torch.pipeline_window as pw
+    from srsran_tpu_torch.phy.common import Cell
+    from srsran_tpu_torch.phy.phch.sch import TbCoding, dlsch_encode_np
+
+    tag = f"generate {kind}"
+    cell = Cell(nof_prb=100, nof_ports=2 if kind == "enb_dl_mimo" else 1, id=301)
+    rng = np.random.default_rng(17 + GEN_KINDS.index(kind))
+    eng = (pw.WindowedUeUl(cell, w=W_GEN) if kind == "ue_ul" else
+           pw.WindowedEnbDlMimo(cell, cfi=1, w=W_GEN) if kind == "enb_dl_mimo" else
+           pw.WindowedEnbDl(cell, cfi=1, w=W_GEN))
+    check(eng.device == dev, f"{tag}: the engine did not take the card by default")
+    sfs, grants, payloads = (list(v * (W_GEN // 16)) for v in grant_mix(kind, rng, 16))
+    reset_launches()
+    stages, pack = eng._plan(payloads, sfs, grants)
+    cw = stages[0][1](None)
+    out = stages[1][1](cw)
+    check(read_launches() == (0, 0), f"{tag}: the generator launched the MAP kernel")
+    shape = (W_GEN, 2, cell.sf_len) if kind == "enb_dl_mimo" else (W_GEN, cell.sf_len)
+    check(tuple(out.shape) == shape and out.dtype == torch.complex64 and out.device == dev,
+          f"{tag}: samples {tuple(out.shape)} {out.dtype} on {out.device}")
+    check(bool(torch.isfinite(torch.view_as_real(out)).all()), f"{tag}: non-finite samples")
+    check(torch.equal(out, eng.dispatch_window(payloads, sfs, grants)),
+          f"{tag}: two dispatches of one window differ")
+    # the codewords of four rows against the host DL-SCH encoder
+    e = pack.params[pack.key[1]:2 * pack.key[1]]
+    qms = [q for g in grants for q in (g.qm1, g.qm2)] if kind == "enb_dl_mimo" else [g.qm for g in grants]
+    flat = [p for pair in payloads for p in pair] if kind == "enb_dl_mimo" else payloads
+    cw_h = cw.cpu().numpy()
+    for r in range(4):
+        g = int(e[pack.row_start[r]:pack.row_start[r] + pack.row_ncb[r]].sum())
+        want = dlsch_encode_np(flat[r], TbCoding(tbs=pack.tbs[r], g=g, qm=qms[r]))
+        check(bool((cw_h[r, :g] == want).all()) and not cw_h[r, g:].any(),
+              f"{tag}: codeword of row {r} differs from dlsch_encode_np")
+    # the stored reference window of this generator
+    fx, cell4, sfs4, grants4, payloads4, kw4 = stored_gen_window(kind)
+    n_diff, err = stored_gen_errors(gen_engine(kind, cell4, int(fx["w"])), fx, sfs4, grants4,
+                                    payloads4, kw4)
+    check(n_diff == 0 and err <= SAMPLE_ATOL,
+          f"{tag}: stored window: {n_diff} codeword bits differ, samples max_abs_err {err}")
+    times = time_window(tag, lambda: eng.dispatch_window(payloads, sfs, grants), W_GEN)
+    stage_ms = {k: v * 1e3 for k, v in eng.stage_times(payloads, sfs, grants, n=3).items()}
+    bits = sum(pack.tbs)
+    times.update(stage_ms=stage_ms, stored_window_max_abs_err=err, codeword_rows=len(pack.tbs),
+                 slots_real=sum(pack.row_ncb), slots_bucketed=pack.key[1],
+                 generated_mbps=bits / times["ms_per_window_host_wall"] / 1e3)
+    print(f"{tag}: 100 PRB W={W_GEN}, {len(pack.tbs)} codeword rows, {sum(pack.row_ncb)} "
+          f"codeblocks in {pack.key[1]} slots; codewords of rows 0-3 "
+          f"equal dlsch_encode_np; the stored W={int(fx['w'])} window: codewords identical, samples "
+          f"max_abs_err {err:.3g}; stage_times codewords {stage_ms['codewords']:.3f} samples "
+          f"{stage_ms['samples']:.3f} ms; {times['generated_mbps']:.1f} Mbps generated")
+    print_times(tag, times)
+    return times
+
+
+def loopback_engines(kind: str):
+    """(generator, decode engine) of the loopback `kind` on the 100 PRB cell:
+    W = 128 (64 for the 2x2 one), 6 iterations."""
+    import srsran_tpu_torch.pipeline_window as pw
+    from srsran_tpu_torch.phy.common import Cell
+
+    mimo = kind == "enb_dl_mimo"
+    w = W_LOOP_MIMO if mimo else W_LOOP
+    cell = Cell(nof_prb=100, nof_ports=2 if mimo else 1, id=301)
+    gen = (pw.WindowedUeUl(cell, w=w) if kind == "ue_ul" else
+           pw.WindowedEnbDlMimo(cell, cfi=1, w=w) if mimo else pw.WindowedEnbDl(cell, cfi=1, w=w))
+    return gen, window_engine(LOOP_DECODERS[kind], cell, w, 6)
+
+
+def phase_loopback(dev, kind: str) -> tuple[tuple[int, int], dict]:
+    """Phase 18: generator → `window_channel` → decode engine at full width,
+    the baseband never leaving the card: W fresh grants of the bench's mix,
+    6 iterations.  Returns ((static, dynamic-K) launches, times dict)."""
+    import srsran_tpu_torch.pipeline_window as pw
+
+    tag = f"loopback {kind}"
+    gen, dec = loopback_engines(kind)
+    check(gen.device == dev and dec.device == dev, f"{tag}: the engines did not take the card by default")
+    rng = np.random.default_rng(41 + GEN_KINDS.index(kind))
+    w, mimo = gen.w, kind == "enb_dl_mimo"
+    h, amp = LOOP_CHANNELS[kind]
+    sfs, grants, payloads = grant_mix(kind, rng, w)
+    sent = [p for pair in payloads for p in pair] if mimo else payloads
+
+    def one(seed: int = 0):
+        rx = pw.window_channel(gen.dispatch_window(payloads, sfs, grants), h, amp, seed=seed)
+        return dec.dispatch_window(rx, sfs, grants)
+
+    reset_launches()
+    p = one()
+    res = dec.results(p)
+    launches = read_launches()
+    note_shape(tag, p.pack)
+    kind_dec = LOOP_DECODERS[kind]
+    n_ok = check_window(tag, kind_dec, res, sent, len(sent))
+    check(launches[1] > 0 and launches[0] == 0, f"{tag}: map launches {launches}")
+    _rows, n_it = window_rows(kind_dec, res)
+    times = time_window(tag, lambda: dec.results(one()), w)
+    bits = sum(t.size for t in sent)
+    times.update(crc_ok=n_ok, crc_ok_mbps=bits / times["ms_per_window_host_wall"] / 1e3,
+                 slots_real=sum(p.pack.row_ncb), slots_bucketed=p.pack.key[1],
+                 stage_c_key=list(p.pack.key), iterations_max=max(n_it))
+    print(f"{tag}: 100 PRB W={w} through {type(gen).__name__} -> window_channel (noise {amp}) -> "
+          f"{type(dec).__name__}: every TB ({n_ok}/{len(sent)}) decodes and equals the sent one, "
+          f"{sum(p.pack.row_ncb)} codeblocks in {p.pack.key[1]} slots, iterations up to {max(n_it)}, "
+          f"{launches[1]} dynamic-K map launches; {times['crc_ok_mbps']:.1f} Mbps of CRC-passing TBs")
+    print_times(tag, times)
+    return launches, times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1018,6 +1300,7 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
 
     # phase 2: build
+    mark("phase 2: build")
     t0 = time.perf_counter()
     lib = turbo_cuda.build()
     print(f"build: {time.perf_counter() - t0:.1f} s ({lib.name})")
@@ -1032,6 +1315,7 @@ def main() -> int:
         print(f"build: {'dynamic-K' if dyn == '1' else 'static'} mode {regs} registers, {spills}")
 
     # phase 3: kernel against plain on the card
+    mark("phase 3: the kernel against plain")
     max_err = 0.0
     headline = None
     ul_shape = None
@@ -1075,6 +1359,7 @@ def main() -> int:
         max_err_dyn = max(max_err_dyn, err)
 
     # phase 4: the slice at full width
+    mark("phases 4-5: ue_dl_subframe")
     fx, cell, grant, fn, samples = load_slice(dev)
     tbs, nof_prb = grant.tbs, cell.nof_prb
     tb_tx = torch.from_numpy(np.unpackbits(fx["tb_packed"], count=tbs)).to(dev)
@@ -1124,6 +1409,7 @@ def main() -> int:
               f"{map_bound(*ins, pass_layout(k))[0]:.4f} ms")
 
     # phase 6: the dynamic-grant decode at full width
+    mark("phases 6-7: DynamicUeDl")
     ue = DynamicUeDl(cell, cfi=1, max_iterations=int(fx["max_iterations"]))
     check(ue.device == dev, "DynamicUeDl did not take the card by default")
     ofdm = OfdmConfig.from_cell(cell, normalize=True)
@@ -1246,17 +1532,31 @@ def main() -> int:
                         ("enb_dl_subframe_encode+ue_dl_subframe", phase_encode),
                         ("enb_ul_subframe", phase_ul),
                         ("DynamicEnbUl+DynamicUeDl 2-port", phase_dynamic_ul)):
+        mark(name)
         by_path[name] = phase(dev)
         torch.cuda.empty_cache()
 
     # phases 12-16: the windowed engines
     windows = {}
+    mark("phase 13: WindowedUeDl")
     by_path["WindowedUeDl"], windows["WindowedUeDl"] = phase_window_dl(dev)
     torch.cuda.empty_cache()
     for name, kind in (("WindowedUeDlMimo", "ue_dl_mimo"), ("WindowedEnbUl", "enb_ul")):
+        mark(f"phase {14 + (kind == 'enb_ul')}: {name}")
         by_path[name], windows[name] = phase_window_other(dev, kind)
         torch.cuda.empty_cache()
+    mark("phase 16: the stored windows")
     by_path["stored windows"] = phase_stored_windows(dev)
+    # phases 17-18: the generate windows and the loopbacks
+    for kind in GEN_KINDS:
+        mark(f"phase 17: {GEN_NAMES[kind]}")
+        windows[GEN_NAMES[kind]] = phase_generate(dev, kind)
+        torch.cuda.empty_cache()
+    for kind in GEN_KINDS:
+        mark(f"phase 18: loopback {kind}")
+        by_path[f"loopback {kind}"], windows[f"loopback {kind}"] = phase_loopback(dev, kind)
+        torch.cuda.empty_cache()
+    mark("phase 12: the dynamic-K kernel at the windows' shapes")
     max_err_win, win_shapes = phase_window_kernel(dev)
     max_err_dyn = max(max_err_dyn, max_err_win)
     print(json.dumps({"windows": windows}))

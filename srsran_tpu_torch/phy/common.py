@@ -1,7 +1,8 @@
 """LTE numerology and cell configuration (host side, pure Python).
 
-Copy of the parts of `srsran_tpu/phy/common.py` that the UE DL slice uses:
-the CP enum, the frozen `Cell` dataclass, FFT and CP sizes, and the CRC
+Copy of the parts of `srsran_tpu/phy/common.py` that the port uses: the CP
+enum, the frozen `Cell` dataclass (with the PCI's N_id_1 and N_id_2), FFT and
+CP sizes, and the CRC
 polynomials (TS 36.211, TS 36.212 §5.1.1).  Tests hold every value equal
 to the reference.
 """
@@ -86,6 +87,14 @@ class Cell:
             raise ValueError(f"cell id {self.id} out of range")
         if self.nof_ports not in (0, 1, 2, 4):
             raise ValueError(f"nof_ports {self.nof_ports} invalid")
+
+    @property
+    def n_id_1(self) -> int:
+        return self.id // 3
+
+    @property
+    def n_id_2(self) -> int:
+        return self.id % 3
 
     @property
     def symbol_sz(self) -> int:

@@ -213,3 +213,22 @@ def qpp_np(k: int, k_max: int):
     per[:k] = p
     inv[p] = np.arange(k, dtype=np.int32)
     return per, inv
+
+
+def tx_table_np(k: int, f: int, rv: int, k_max: int):
+    """The transmit direction of `j0_variant_np` for one layout class:
+    tx[j] is the flat d-stream index (stream * (k_max+4) + position) of the
+    j-th transmitted bit, j in [0, n_valid) — the table inverted, position
+    → rank becoming rank → position.  Returns (tx (n_valid,) int32,
+    n_valid); repetition past n_valid wraps as j mod n_valid."""
+    j0, n_valid = j0_variant_np(k, f, rv, k_max)
+    dflat = 3 * (k_max + 4)
+    d = k + 4
+    tx = np.zeros(n_valid, np.int32)
+    p = np.arange(dflat, dtype=np.int64)
+    stream = p // (k_max + 4)
+    dpos = p % (k_max + 4)
+    ok = (dpos < d) & ~((stream < 2) & (dpos < f))
+    sel = ok & (j0 < ncb_max(k_max))
+    tx[j0[sel]] = p[sel].astype(np.int32)
+    return tx, n_valid

@@ -18,7 +18,8 @@ Counterpart of the decoder in `srsran_tpu/phy/fec/turbo.py`:
   codeblocks are frozen (one host read of ``done.all()`` per iteration).
 * `turbo_encode_np` is the reference's host encoder (numpy), for stimuli;
   `turbo_encode_device` is the batched encoder on the device, a closed-form
-  GF(2) polynomial division with no sequential step.
+  GF(2) polynomial division with no sequential step, and
+  `turbo_encode_device_dyn` the same for a batch of mixed K.
 
 LLRs are float32 with **positive LLR = bit 1**.  All codeblocks in a batch
 share one K.
@@ -221,6 +222,49 @@ def turbo_encode_device(bits: torch.Tensor, k: int) -> torch.Tensor:
     d[:, 1, k:] = torch.stack([z1[0], x1[2], z2[0], x2[2]], dim=1)
     d[:, 2, k:] = torch.stack([x1[1], z1[2], x2[1], z2[2]], dim=1)
     return d
+
+
+def turbo_encode_device_dyn(bits: torch.Tensor, k_vec: torch.Tensor, perm_cls) -> torch.Tensor:
+    """Dynamic-K batched encoder: bits (N, K_max) uint8, zero beyond each
+    codeblock's K; k_vec (N,) integer; perm_cls = (perC (NCLS, K_max) int64
+    QPP tables, identity beyond K, cls (N,) integer class of each row).
+
+    The closed form of `turbo_encode_device` is elementwise, so one call
+    serves any mix of sizes: each row interleaves through its class's table
+    (`perC[cls]`, one gather), the tail registers are read at K-1, K-2, K-3
+    of that row, and the four tail columns go to [K, K+4).  Returns the
+    d-streams (N, 3, K_max+4) uint8, zero beyond each row's tail."""
+    n, k_max = bits.shape
+    per_c, cls = perm_cls
+    bits = bits.to(torch.uint8)
+    k_vec = k_vec.to(torch.int64)
+    tb_bit, tb_par, tb_nxt = table(_tail_tables_int, device=bits.device)
+    p1, a1 = _rsc_parity_closed_form(bits)
+    p2, a2 = _rsc_parity_closed_form(torch.gather(bits, 1, per_c[cls.to(torch.int64)]))
+    back = torch.arange(1, 4, device=bits.device)[None, :]
+
+    def tails(a):
+        # registers after K steps: (r0, r1, r2) = (a_{K-1}, a_{K-2}, a_{K-3})
+        regs = torch.gather(a, 1, (k_vec[:, None] - back).clamp(0, k_max - 1)).to(torch.int64)
+        s = regs[:, 0] + 2 * regs[:, 1] + 4 * regs[:, 2]
+        xs, zs = [], []
+        for _ in range(3):
+            xs.append(tb_bit[s].to(torch.uint8))
+            zs.append(tb_par[s].to(torch.uint8))
+            s = tb_nxt[s]
+        return xs, zs
+
+    x1, z1 = tails(a1)
+    x2, z2 = tails(a2)
+    # TS 36.212 tail mapping (as `turbo_encode_np`), at column K of each row
+    tail = torch.stack([torch.stack([x1[0], z1[1], x2[0], z2[1]], dim=1),
+                        torch.stack([z1[0], x1[2], z2[0], x2[2]], dim=1),
+                        torch.stack([x1[1], z1[2], x2[1], z2[2]], dim=1)], dim=1)  # (N, 3, 4)
+    in_k = (torch.arange(k_max, device=bits.device)[None, :] < k_vec[:, None])[:, None, :]
+    d = torch.where(in_k, torch.stack([bits, p1, p2], dim=1), 0).to(torch.uint8)
+    d = torch.cat([d, d.new_zeros((n, 3, 4))], dim=2)
+    cols = (k_vec[:, None, None] + torch.arange(4, device=bits.device)).expand(n, 3, 4)
+    return d.scatter_(2, cols, tail)
 
 
 def _window_layout(k: int) -> tuple[int, int]:

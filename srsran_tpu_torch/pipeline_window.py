@@ -1,7 +1,6 @@
-"""Windowed dynamic-grant decodes: W TTIs per dispatch through one
-three-stage program.
+"""Windowed dynamic-grant decodes and generators: W TTIs per dispatch.
 
-Counterpart of the decode half of `srsran_tpu/pipeline_window.py`:
+Counterpart of `srsran_tpu/pipeline_window.py`.  The decode half:
 `WindowedUeDl` (port-0 SISO/MRC or transmit-diversity PDSCH),
 `WindowedUeDlMimo` (two-codeword spatial multiplexing, the codebook PMIs and
 large-delay CDD as data) and `WindowedEnbUl` (multi-UE PUSCH with the
@@ -35,6 +34,17 @@ Latency is traded for sustained throughput, with W as the depth.  Stage keys
 are counted as the reference counts its compiled programs: stages A and B
 are fixed per engine, stage C is one closure per occupancy bucket
 (`WindowPack.key`).
+
+The generate half, payload bits in and baseband out: `WindowedEnbDl` (port-0
+PDSCH, optionally with PSS/SSS and a host-rendered control overlay),
+`WindowedUeUl` (PUSCH with Bluestein DFT precoding, optionally with PUCCH
+blocks) and `WindowedEnbDlMimo` (two codewords, PMIs 0-2 and CDD).  They lay
+a window's codeblocks out with the same `pack_window` and share one codeword
+core (CRC24A, segmentation, the dynamic-K closed-form turbo encoder, the TX
+rate match through each layout class's table, one gather per row codeword),
+and return complex64 samples on the device.  `window_channel` puts a flat
+channel and noise between a generator and a decode engine on the device, so
+a loopback window never brings its baseband to the host.
 """
 
 from __future__ import annotations
@@ -49,11 +59,13 @@ import torch
 from .device import resolve, sized_table, table
 from .phy.chest.chest_dl import ChestDlConfig, _chest_tables, _device_tables
 from .phy.chest.chest_ul import dmrs_symbols, time_interp_weights
-from .phy.common import LTE_CRC24A, Cell
-from .phy.crc import crc_matrix_np
-from .phy.dft_precoding import idft_bluestein
+from .phy.chest.refsignal_dl import put_crs_np
+from .phy.common import LTE_CRC24A, LTE_CRC24B, Cell
+from .phy.crc import crc_matrix_np, crc_table
+from .phy.dft_precoding import dft_bluestein, idft_bluestein
 from .phy.fec.cbsegm import cbsegm
-from .phy.fec.rate_match_dev import j0_variant_np, ncb_max, qpp_np
+from .phy.fec.rate_match_dev import j0_variant_np, ncb_max, qpp_np, tx_table_np
+from .phy.fec.turbo import turbo_encode_device_dyn
 from .phy.fec.turbo_dyn import crc_ok_ab, crc_table_ab, turbo_decode_dyn
 from .phy.mimo import (
     _codebook_2x2,
@@ -61,12 +73,14 @@ from .phy.mimo import (
     predecode_single_mrc,
     predecode_zf_mmse,
 )
-from .phy.modem import Mod, demod_soft
-from .phy.ofdm import OfdmConfig, ofdm_rx_sf
+from .phy.modem import Mod, demod_soft, modulate
+from .phy.ofdm import OfdmConfig, ofdm_rx_sf, ofdm_tx_sf
 from .phy.phch.pdsch import pdsch_cinit
 from .phy.phch.pusch import pusch_cinit, pusch_symbols_data
 from .phy.phch.sch import FILLER_LLR, _e_split
-from .phy.sequence import gold_sequence_signs
+from .phy.sequence import gold_sequence, gold_sequence_signs
+from .phy.sync.pss import put_pss_grid
+from .phy.sync.sss import put_sss_grid
 from .pipeline_dynamic import G_MAX, RE_BUCKETS, _box5, _padded_re_indices, _ul_dmrs_conj
 
 K_MAX = 6144
@@ -689,6 +703,32 @@ def _ref_conj_np(cell: Cell, sf_idx: int, nof_ports: int) -> np.ndarray:
                      for p in range(nof_ports)]).astype(np.complex64)
 
 
+def _stage_times(stages, device, n: int) -> dict:
+    """Seconds per stage of a staged plan: each stage runs once warm, then
+    n times on the previous stage's output, between two CUDA events on a
+    card (the host clock on the CPU)."""
+    cuda = device.type == "cuda"
+    times = {}
+    prev = None
+    for name, fn in stages:
+        r = fn(prev)
+        if cuda:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+        else:
+            t0 = time.perf_counter()
+        for _ in range(n):
+            r = fn(prev)
+        if cuda:
+            end.record()
+            end.synchronize()
+            times[name] = start.elapsed_time(end) * 1e-3 / n
+        else:
+            times[name] = (time.perf_counter() - t0) / n
+        prev = r
+    return times
+
+
 class _WindowedDecoder:
     """What the three windowed decoders share: the device, the staged plan's
     run, the packed result's walk, the stage times and the counters.  A
@@ -760,27 +800,7 @@ class _WindowedDecoder:
         Stage C's host loop reads `done.all()` once per iteration, so its
         time holds those waits, as in a dispatch."""
         self._check(sf_indices, grants)
-        stages, _pack = self._plan(samples, sf_indices, grants)
-        cuda = self.device.type == "cuda"
-        times = {}
-        prev = None
-        for name, fn in stages:
-            r = fn(prev)
-            if cuda:
-                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-                start.record()
-            else:
-                t0 = time.perf_counter()
-            for _ in range(n):
-                r = fn(prev)
-            if cuda:
-                end.record()
-                end.synchronize()
-                times[name] = start.elapsed_time(end) * 1e-3 / n
-            else:
-                times[name] = (time.perf_counter() - t0) / n
-            prev = r
-        return times
+        return _stage_times(self._plan(samples, sf_indices, grants)[0], self.device, n)
 
     def _rows(self, p: PendingWindow):
         """One read of the dense buffer → [(tb bits, ok, n_it)] per row: row
@@ -1012,3 +1032,494 @@ class WindowedEnbUl(_WindowedDecoder):
             ("C", lambda llr: cfn(llr, pdev[4 * w:], *tabs, soft)),
         ]
         return stages, pack
+
+
+# --------------------------------------------------------------------------
+# generate windows: payload bits in, baseband out — the eNB DL and UE UL
+# transmit halves over the same dense slots and class tables as stage C
+# --------------------------------------------------------------------------
+
+
+def _payload_dense(payloads, tbs_list, tb_cap: int, device) -> torch.Tensor:
+    """Per-row TB bits → (R, tb_cap) uint8 on `device`, each row's bytes
+    (MSB first, as `np.packbits`) right-aligned: one flat upload of exactly
+    the rows' own bytes, expanded by one gather on the device."""
+    nb = np.array([t // 8 for t in tbs_list], np.int64)
+    off = np.concatenate([[0], np.cumsum(nb)[:-1]])
+    flat = torch.from_numpy(np.concatenate(
+        [np.packbits(np.asarray(tb, np.uint8)) for tb in payloads])).to(device)
+    nb_d, off_d = torch.from_numpy(np.stack([nb, off])).to(device)
+    col = torch.arange(tb_cap, device=device)[None, :]
+    src = (off_d + nb_d - tb_cap)[:, None] + col  # row r's byte j, left-padded
+    return torch.where(col >= (tb_cap - nb_d)[:, None], flat[src.clamp(min=0)], 0)
+
+
+def _slot_sources(pack: WindowPack, tb_cap: int) -> np.ndarray:
+    """(N,) int64 start of each slot's K_MAX-bit read from the rows' bit
+    streams laid end to end, each row [K_MAX zeros | TB || CRC24A
+    right-aligned in tb_cap*8 + 24 bits]: the read ends at the slot's last
+    data bit, and the zero head keeps every start >= 0."""
+    bw = tb_cap * 8 + 24
+    src = np.zeros(pack.key[1], np.int64)
+    for r, tbs in enumerate(pack.tbs):
+        segm = cbsegm(tbs)
+        start = r * (K_MAX + bw) + bw - (tbs + 24)
+        for c, k in enumerate(segm.cb_sizes):
+            start += k - (segm.F if c == 0 else 0) - (24 if segm.C > 1 else 0)
+            src[pack.row_start[r] + c] = start
+    return src
+
+
+def _tx_table(k: int, f: int, rv: int) -> np.ndarray:
+    """TX rate-match table of one layout class padded to 3*(K_MAX+4):
+    transmitted bit j of a codeblock reads its d-stream position tx[j mod
+    n_valid]."""
+    tx, nv = tx_table_np(k, f, rv, K_MAX)
+    out = np.zeros(3 * (K_MAX + 4), np.int64)
+    out[:nv] = tx
+    return out
+
+
+_tx_tables = sized_table(512)
+
+
+def tx_class_tables(pack: WindowPack, device):
+    """The window's TX class tables on `device` from the cached rows, int64:
+    (tx_tab (CF, 3*(K_MAX+4)), perq (CQ, K_MAX)).  The repetition wrap is
+    j mod n_valid on the device, so the rows are not tiled to a width."""
+    cq, cf = pack.key[2], pack.key[3]
+    kw = dict(device=device, dtype=torch.int64)
+    f_rows = [_tx_tables(_tx_table, *c, **kw) for c in pack.fill_classes]
+    p_rows = [_qpp_tables(_qpp_table, k, **kw)[0] for k in pack.qpp_classes]
+    return (torch.stack(f_rows + [f_rows[0]] * (cf - len(f_rows))),
+            torch.stack(p_rows + [p_rows[0]] * (cq - len(p_rows))))
+
+
+@lru_cache(maxsize=32)
+def _make_codeword_core(tb_cap: int, device):
+    """The transmit chain the three generators share: payload bytes → TB
+    CRC24A → segmentation (filler, CRC24B) → dynamic-K closed-form turbo
+    encode → TX rate match → row codewords.
+
+    core(payload (R, tb_cap) uint8, params (9N + 4R,) int64 = the pack's
+    vector then `_slot_sources`, n_slots, tx_tab, perq) → (R, G_MAX) uint8.
+    The CRC products sum at most 98304 ones in float32 (exact below 2^24;
+    TF32 must stay off).  A row's codeword is one gather: position g reads
+    the slot whose [off, off + e) holds it — every slot of the window
+    carries bits, so the slots' starts ascend — at rank (g - off) mod
+    n_valid of the slot's class table, and zero past the row's last
+    codeblock."""
+    tbl_a = crc_table(LTE_CRC24A, tb_cap * 8, device)
+    tbl_b = crc_table(LTE_CRC24B, K_MAX, device)
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=device)
+    pos_k = torch.arange(K_MAX, device=device)[None, :]
+    d_len = 3 * (K_MAX + 4)
+
+    def crc(bits, tbl):
+        return (torch.matmul(bits.to(torch.float32), tbl).to(torch.int32) & 1).to(torch.uint8)
+
+    def core(payload, params, n_slots: int, tx_tab, perq):
+        r, n = payload.shape[0], n_slots
+        s_off, s_e, s_k, s_f, s_crcb, s_clsf, s_clsq, nv = params[: 8 * n].reshape(8, n)
+        s_src = params[8 * n + 4 * r :]
+        bits_tb = ((payload[:, :, None] >> shifts) & 1).reshape(r, -1)  # MSB first
+        rb_flat = torch.cat([bits_tb.new_zeros((r, K_MAX)), bits_tb, crc(bits_tb, tbl_a)],
+                            dim=1).reshape(-1)
+        # each slot's data right-aligned in K_MAX bits, then its CRC24B;
+        # the filler zeros sit in the masked head
+        take = s_k - s_f - 24 * s_crcb
+        ra = torch.where(pos_k >= K_MAX - take[:, None], rb_flat[s_src[:, None] + pos_k], 0)
+        crc_b = torch.where(s_crcb[:, None] > 0, crc(ra, tbl_b), 0)
+        rak = torch.cat([ra, crc_b, ra.new_zeros((n, K_MAX))], dim=1)
+        cb = torch.gather(rak, 1, (K_MAX + 24 * s_crcb - s_k)[:, None] + pos_k)
+        d = turbo_encode_device_dyn(cb, s_k, (perq, s_clsq)).reshape(-1)
+        # row codewords
+        g = torch.arange(r * G_MAX, device=payload.device)
+        starts = torch.where(s_e > 0, s_off, r * G_MAX)
+        slot = torch.bucketize(g, starts, right=True) - 1  # starts[0] = 0
+        local = g - s_off[slot]
+        src = tx_tab[s_clsf[slot], local % nv[slot]]
+        return torch.where(local < s_e[slot], d[slot * d_len + src], 0).reshape(r, G_MAX)
+
+    return core
+
+
+def _modulate_select(bits, qm, qms: tuple, width: int) -> torch.Tensor:
+    """(R, width) symbols of (R, >= width * Qm) bits, each row in the
+    constellation its Qm (`qm`, (R,)) names; only the window's
+    constellations (`qms`) are computed."""
+    sym = bits.new_zeros((bits.shape[0], width), dtype=torch.complex64)
+    for mod_c, qm_c in zip(MODS, QMS):
+        if qm_c in qms:
+            sym = torch.where((qm == qm_c)[:, None], modulate(mod_c, bits[:, : width * qm_c]), sym)
+    return sym
+
+
+def _inv_re_np(cell: Cell, sf_idx: int, cfi: int, prb: tuple) -> np.ndarray:
+    """(nsymb * nre,) int64: the PDSCH symbol index of each grid RE of a
+    PRB set, RE_MAX (the zero symbol) elsewhere."""
+    pad, n_re, _b = _padded_re_indices(cell, sf_idx, cfi, prb)
+    inv = np.full(cell.nsymb_per_sf * cell.nof_re_per_symbol, RE_MAX, np.int64)
+    inv[pad[:n_re]] = np.arange(n_re)
+    return inv
+
+
+def _seq_bits_np(cinit: int) -> np.ndarray:
+    return gold_sequence(cinit, G_MAX)
+
+
+def _tmpl_np(cell: Cell, sf_idx: int, nof_ports: int, template: str) -> np.ndarray:
+    """(nof_ports, nsymb * nre) complex64 grid before the PDSCH: the CRS of
+    each port and, with template "full" on subframes 0 and 5 of port 0,
+    the PSS and SSS."""
+    t = np.zeros((nof_ports, cell.nsymb_per_sf, cell.nof_re_per_symbol), np.complex64)
+    put_crs_np(t, cell, sf_idx)
+    if template == "full" and sf_idx in (0, 5):
+        ns = cell.nsymb_per_slot
+        put_pss_grid(t[0], cell.n_id_2, cell.nof_prb, ns - 1)
+        put_sss_grid(t[0], cell.n_id_1, cell.n_id_2, sf_idx, cell.nof_prb, ns - 2)
+    return t.reshape(nof_ports, -1)
+
+
+@lru_cache(maxsize=32)
+def _build_win_tx(cell: Cell, qms: tuple, device):
+    """Port-0 PDSCH generate window after the codeword core: scramble → the
+    window's constellations selected by Qm → each row's symbols through
+    its inverse RE table over the template → the optional control overlay
+    → IFFT.  fn(cw (R, G_MAX), …) → (R, sf_len) complex64."""
+    ofdm = OfdmConfig.from_cell(cell, normalize=True)
+    nsymb, nre = cell.nsymb_per_sf, cell.nof_re_per_symbol
+    pos_re = torch.arange(RE_MAX, device=device)[None, :]
+
+    def fn(cw, inv_re, qm, n_re, seqs, tmpl, overlay=None):
+        r = cw.shape[0]
+        sym = torch.where(pos_re < n_re[:, None], _modulate_select(cw ^ seqs, qm, qms, RE_MAX), 0)
+        sym = torch.cat([sym, sym.new_zeros((r, 1))], dim=1)
+        g = torch.where(inv_re < RE_MAX, torch.gather(sym, 1, inv_re), tmpl)
+        if overlay is not None:
+            # host-rendered control REs (PCFICH, PHICH, PDCCH, PBCH) over the
+            # template; a pad index outside the grid lands in a spare column
+            # that is cut off
+            ov_idx, ov_vals = overlay
+            s = g.shape[1]
+            g = torch.cat([g, g.new_zeros((r, 1))], dim=1)
+            g[torch.arange(r, device=device)[:, None],
+              torch.where((ov_idx >= 0) & (ov_idx < s), ov_idx, s)] = ov_vals
+            g = g[:, :s]
+        return ofdm_tx_sf(ofdm, g.reshape(r, nsymb, nre))
+
+    return fn
+
+
+class _WindowedGenerator:
+    """What the three generate windows share: the device, the codeword stage
+    of a window's plan (pack, payload on the device, one integer upload,
+    TX class tables, the shared core), the staged run, `stage_times` and
+    the counters.  A subclass builds the plan (`_plan`): a ("codewords",
+    fn), ("samples", fn) chain and the window's pack.  `device=None` means
+    the first CUDA device (and raises when there is none); the tests pass
+    "cpu"."""
+
+    def __init__(self, cell: Cell, w: int, device):
+        self.cell = cell
+        self.w = w
+        self.device = resolve(device)
+        self.stats = {"windows": 0, "ttis": 0}
+
+    def _check(self, payloads, sf_indices, grants):
+        if not len(payloads) == len(sf_indices) == len(grants) == self.w:
+            raise ValueError(f"a window takes {self.w} payloads, subframe indices and grants, got "
+                             f"{len(payloads)}, {len(sf_indices)} and {len(grants)}")
+
+    def _table(self, fn, *args, **kw):
+        return table(fn, *args, device=self.device, **kw)
+
+    def _codewords(self, row_specs, payloads, row_params):
+        """The codeword stage: (pack, per-row grant parameters (R', P) int64
+        on the device, fn(None) → (R, G_MAX) uint8 codewords).  row_specs:
+        per codeword row (tbs, g, qm, rv); row_params: (R', P) integer grant
+        parameters of the engine, uploaded with the pack's vector."""
+        for i, (tb, spec) in enumerate(zip(payloads, row_specs)):
+            if len(tb) != spec[0]:
+                raise ValueError(f"row {i}: {len(tb)} payload bits for a TB of {spec[0]}")
+        pack = pack_window(row_specs)
+        n_slots, tb_cap = pack.key[1], pack.key[6]
+        rows = np.asarray(row_params, np.int64)
+        flat = torch.from_numpy(np.concatenate(
+            [pack.params.astype(np.int64), _slot_sources(pack, tb_cap), rows.reshape(-1)])
+        ).to(self.device)
+        n_par = flat.shape[0] - rows.size
+        payload = _payload_dense(payloads, pack.tbs, tb_cap, self.device)
+        tabs = tx_class_tables(pack, self.device)
+        core = _make_codeword_core(tb_cap, self.device)
+        return (pack, flat[n_par:].reshape(rows.shape),
+                lambda _prev: core(payload, flat[:n_par], n_slots, *tabs))
+
+    def dispatch_window(self, payloads, sf_indices, grants, **kw) -> torch.Tensor:
+        """Generate one window; see the subclass's `_plan` for the
+        arguments.  Returns the samples as a complex64 tensor on the
+        device."""
+        self._check(payloads, sf_indices, grants)
+        out = None
+        for _name, fn in self._plan(payloads, sf_indices, grants, **kw)[0]:
+            out = fn(out)
+        self.stats["windows"] += 1
+        self.stats["ttis"] += self.w
+        return out
+
+    def stage_times(self, payloads, sf_indices, grants, n: int = 10, **kw):
+        """Seconds per stage ("codewords", "samples") of one window, as
+        `_WindowedDecoder.stage_times` takes them."""
+        self._check(payloads, sf_indices, grants)
+        return _stage_times(self._plan(payloads, sf_indices, grants, **kw)[0], self.device, n)
+
+    @staticmethod
+    def samples(out: torch.Tensor) -> np.ndarray:
+        """A dispatched window on the host: (W, [ports,] sf_len) complex64."""
+        return out.cpu().numpy()
+
+
+class WindowedEnbDl(_WindowedGenerator):
+    """Generate any W-TTI mix of port-0 PDSCH data subframes per dispatch —
+    the eNB's transmit half (payload bits in, baseband out), the mirror of
+    `WindowedUeDl`.  template "full" puts the PSS and SSS into subframes 0
+    and 5 (with `overlay=`, the whole downlink subframe of the control
+    plane)."""
+
+    def __init__(self, cell: Cell, cfi: int = 1, w: int = 32, template: str = "crs", *,
+                 device=None):
+        if template not in ("crs", "full"):
+            raise ValueError(f"template {template!r} is not 'crs' or 'full'")
+        super().__init__(cell, w, device)
+        self.cfi = cfi
+        self.template = template
+
+    def _n_res(self, sf_indices, grants):
+        return [_padded_re_indices(self.cell, s, self.cfi, tuple(g.prb))[1]
+                for s, g in zip(sf_indices, grants)]
+
+    def _inv_re(self, sf_indices, grants):
+        return torch.stack([self._table(_inv_re_np, self.cell, s, self.cfi, tuple(g.prb))
+                            for s, g in zip(sf_indices, grants)])
+
+    def _plan(self, payloads, sf_indices, grants, overlay=None):
+        """payloads: per TTI the TB bits ((tbs,) uint8); grants: `DlGrant`
+        list; → (W, sf_len) complex64.
+
+        overlay: optional (idx (W, n_ov) integer, vals (W, n_ov) complex),
+        host-rendered control REs (PCFICH, PHICH, PDCCH, PBCH) written over
+        the grid before the IFFT; indices outside the grid are dropped."""
+        cell = self.cell
+        n_res = self._n_res(sf_indices, grants)
+        pack, rows, cw_fn = self._codewords(
+            [(g.tbs, n * g.qm, g.qm, g.rv) for g, n in zip(grants, n_res)], payloads,
+            [(g.qm, n) for g, n in zip(grants, n_res)])
+        inv_re = self._inv_re(sf_indices, grants)
+        seqs = torch.stack([self._table(_seq_bits_np, pdsch_cinit(g.rnti, s, cell.id))
+                            for s, g in zip(sf_indices, grants)])
+        tmpl = torch.stack([self._table(_tmpl_np, cell, s, 1, self.template)[0]
+                            for s in sf_indices])
+        ov = None
+        if overlay is not None:
+            ov = (torch.from_numpy(np.asarray(overlay[0], np.int64)).to(self.device),
+                  torch.from_numpy(np.asarray(overlay[1], np.complex64)).to(self.device))
+        fn = _build_win_tx(cell, tuple(sorted({g.qm for g in grants})), self.device)
+        return [("codewords", cw_fn),
+                ("samples", lambda cw: fn(cw, inv_re, rows[:, 0], rows[:, 1], seqs, tmpl, ov))], pack
+
+
+def window_channel(tx: torch.Tensor, h, noise_amp: float, seed: int = 0, device=None) -> torch.Tensor:
+    """Flat channel and AWGN between a generate and a decode window, on the
+    device: tx (W, sf_len) or (W, ntx, sf_len) complex64, h (nrx, ntx)
+    complex.  Returns (W, nrx, sf_len) complex64, which the decode engines
+    take as device-resident ingest.  The noise comes from a
+    `torch.Generator` on the device seeded with `seed`; `device=None`
+    means the first CUDA device (and raises when there is none)."""
+    dev = resolve(device)
+    if tx.device != dev:
+        raise ValueError(f"tx is on {tx.device}, expected {dev}")
+    if tx.dim() == 2:
+        tx = tx[:, None]
+    h = torch.as_tensor(np.asarray(h, np.complex64), device=dev)
+    if h.dim() != 2 or h.shape[1] != tx.shape[1]:
+        raise ValueError(f"h {tuple(h.shape)} does not take {tx.shape[1]} transmit ports")
+    rx = sum(h[None, :, p, None] * tx[:, None, p] for p in range(tx.shape[1]))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    noise = torch.randn(tuple(rx.shape) + (2,), generator=gen, device=dev)
+    return rx + noise_amp * torch.view_as_complex(noise)
+
+
+# --- UE UL (PUSCH) generate window ------------------------------------------
+
+
+def _ul_interleave_tab(m_sc: int, qm: int, nsym: int) -> np.ndarray:
+    """(G_MAX,) int64 transmit-order source index, out[i] = cw[tab[i]]: the
+    TS 36.212 §5.2.2.8 time-first channel interleaver of one (m_sc, Qm)
+    class, G_MAX (the zero bit) past the codeword."""
+    g_len = nsym * m_sc * qm
+    i = np.arange(G_MAX, dtype=np.int64)
+    cc = i // max(m_sc * qm, 1)
+    u = i - cc * (m_sc * qm)
+    r = u // max(qm, 1)
+    q = u - r * qm
+    return np.where(i < g_len, (r * nsym + cc) * qm + q, G_MAX)
+
+
+def _ul_pad_tab(m_sc: int, qm: int, nsym: int) -> np.ndarray:
+    """(nsym * M_MAX * 8,) int64 source of each bit of the padded (symbol,
+    M_MAX) layout: bit q of subcarrier r < m_sc of symbol c reads
+    transmit-order bit c*(m_sc*qm) + r*qm + q; the rest, and everything past
+    the class's own nsym*M_MAX*qm bits, reads G_MAX (zero)."""
+    pp = np.arange(nsym * M_MAX * 8, dtype=np.int64)
+    cc = pp // (M_MAX * qm)
+    u = pp - cc * (M_MAX * qm)
+    ok = (u < m_sc * qm) & (pp < nsym * M_MAX * qm)
+    return np.where(ok, cc * (m_sc * qm) + u, G_MAX)
+
+
+@lru_cache(maxsize=32)
+def _build_win_ul_tx(cell: Cell, qms: tuple, device):
+    """PUSCH generate window after the codeword core: the row's channel
+    interleave → scramble → the padded (symbol, M_MAX) layout → the
+    window's constellations selected by Qm → Bluestein DFT precoding at
+    each row's width → data and DMRS placed at k0 → optional PUCCH blocks
+    → SC-FDMA IFFT with the +0.5 subcarrier shift.  fn(cw (R, G_MAX), …)
+    → (R, sf_len) complex64."""
+    ofdm = OfdmConfig.from_cell(cell, normalize=True, freq_shift_f=0.5)
+    data_syms = list(pusch_symbols_data(cell))
+    nsym, nss = len(data_syms), cell.nsymb_per_slot
+    dmrs_syms = list(dmrs_symbols(cell))
+    nsymb, nre = cell.nsymb_per_sf, cell.nof_re_per_symbol
+    pos = torch.arange(M_MAX, device=device)
+    col = torch.arange(nre, device=device)
+
+    def fn(cw, il_tab, pad_tab, qm, m_sc, k0, seqs, dmrs, pucch=None):
+        r = cw.shape[0]
+        zero = cw.new_zeros((r, 1))
+        cw_t = torch.gather(torch.cat([cw, zero], dim=1), 1, il_tab) ^ seqs
+        bits = torch.gather(torch.cat([cw_t, zero], dim=1), 1, pad_tab)
+        in_m = pos < m_sc[:, None]  # (R, M_MAX)
+        sym = _modulate_select(bits, qm, qms, nsym * M_MAX).reshape(r, nsym, M_MAX)
+        blk = sym.new_zeros((r, nsymb, M_MAX))
+        blk[:, data_syms] = dft_bluestein(torch.where(in_m[:, None], sym, 0), m_sc[:, None])
+        blk[:, dmrs_syms] = torch.where(in_m[:, None], dmrs, 0)
+        # the allocation block at column k0 of the band
+        c = col[None, :] - k0[:, None]  # (R, nre)
+        grid = torch.where(((c >= 0) & (c < M_MAX))[:, None],
+                           torch.gather(blk, 2, c.clamp(0, M_MAX - 1)[:, None].expand(r, nsymb, nre)),
+                           0)
+        if pucch is not None:
+            # PUCCH in the same subframe: a PRB-local block per slot added at
+            # the row's PRB of that slot; `live` masks the PUSCH of pad rows
+            pprb, pgrid, live = pucch
+            grid = grid * live[:, None, None]
+            ri = torch.arange(r, device=device)[:, None, None]
+            for s in range(2):
+                li = torch.arange(s * nss, (s + 1) * nss, device=device)[None, :, None]
+                ci = ((pprb[:, s] * 12).clamp(0, nre - 12)[:, None]
+                      + torch.arange(12, device=device))[:, None, :]
+                grid[ri, li, ci] = grid[ri, li, ci] + pgrid[:, s * nss:(s + 1) * nss]
+        return ofdm_tx_sf(ofdm, grid)
+
+    return fn
+
+
+class WindowedUeUl(_WindowedGenerator):
+    """Generate any W-TTI mix of PUSCH data grants per dispatch — the UE's
+    transmit half, the mirror of `WindowedEnbUl`, which decodes these
+    subframes."""
+
+    def __init__(self, cell: Cell, w: int = 32, *, device=None):
+        super().__init__(cell, w, device)
+        self._nsym = len(pusch_symbols_data(cell))
+
+    def _plan(self, payloads, sf_indices, grants, pucch=None):
+        """payloads: per TTI the TB bits; grants: `UlGrant` list; → (W,
+        sf_len) complex64.
+
+        pucch: optional (prb (W, 2) integer PRB per slot, grids (W, nsymb,
+        12) complex PRB-local blocks, live (W,) bool PUSCH mask): PUCCH and
+        PUSCH in the same subframes; a row with live False transmits only
+        its PUCCH block."""
+        cell, nsym = self.cell, self._nsym
+        pack, rows, cw_fn = self._codewords(
+            [(g.tbs, nsym * 12 * g.nof_prb * g.qm, g.qm, g.rv) for g in grants], payloads,
+            [(g.qm, 12 * g.nof_prb, 12 * g.prb_start) for g in grants])
+        il_tab = torch.stack([self._table(_ul_interleave_tab, 12 * g.nof_prb, g.qm, nsym)
+                              for g in grants])
+        pad_tab = torch.stack([self._table(_ul_pad_tab, 12 * g.nof_prb, g.qm, nsym)
+                               for g in grants])
+        seqs = torch.stack([self._table(_seq_bits_np, pusch_cinit(g.rnti, s, cell.id))
+                            for s, g in zip(sf_indices, grants)])
+        dmrs = torch.stack([self._table(_win_ul_dmrs, cell, g.nof_prb) for g in grants]).conj()
+        p_args = None
+        if pucch is not None:
+            pprb, pgrids, live = pucch
+            p_args = (torch.from_numpy(np.asarray(pprb, np.int64)).to(self.device),
+                      torch.from_numpy(np.asarray(pgrids, np.complex64)).to(self.device),
+                      torch.from_numpy(np.asarray(live, np.float32)).to(self.device))
+        fn = _build_win_ul_tx(cell, tuple(sorted({g.qm for g in grants})), self.device)
+        return [("codewords", cw_fn),
+                ("samples", lambda cw: fn(cw, il_tab, pad_tab, rows[:, 0], rows[:, 1], rows[:, 2],
+                                          seqs, dmrs, p_args))], pack
+
+
+# --- two-codeword (TM3/TM4) DL generate window -------------------------------
+
+
+@lru_cache(maxsize=32)
+def _build_win_tx_mimo(cell: Cell, qms: tuple, device):
+    """Two-codeword spatial-multiplexing generate window after the codeword
+    core, over 2W codeword rows (two per TTI): per-codeword scramble and
+    constellation → layer map (one TTI's two rows are its two layers) →
+    each TTI's precoder `_precoder_table()[pmi]` (PMIs 0-2, CDD as pmi 3,
+    a 2x2 matrix per RE parity) → the inverse RE table over the 2-port CRS
+    template → 2-port IFFT.  fn(cw (2W, G_MAX), …) → (W, 2, sf_len)
+    complex64."""
+    ofdm = OfdmConfig.from_cell(cell, normalize=True)
+    nsymb, nre = cell.nsymb_per_sf, cell.nof_re_per_symbol
+    pos_re = torch.arange(RE_MAX, device=device)[None, :]
+
+    def fn(cw, inv_re, qm, n_re, pmi, seqs, tmpl):
+        w = cw.shape[0] // 2
+        n_re_rows = torch.repeat_interleave(n_re, 2)
+        sym = torch.where(pos_re < n_re_rows[:, None], _modulate_select(cw ^ seqs, qm, qms, RE_MAX), 0)
+        lay = sym.reshape(w, 2, RE_MAX // 2, 2)  # (W, layer, M/2, parity)
+        c = table(_precoder_table, device=device)[pmi].permute(0, 2, 3, 1)[:, :, :, None, :]
+        ports = (c[:, :, 0] * lay[:, None, 0] + c[:, :, 1] * lay[:, None, 1]).reshape(w, 2, RE_MAX)
+        ports = torch.cat([ports, ports.new_zeros((w, 2, 1))], dim=2)
+        idx = inv_re[:, None, :].expand(w, 2, inv_re.shape[1])
+        g = torch.where(idx < RE_MAX, torch.gather(ports, 2, idx), tmpl)
+        return ofdm_tx_sf(ofdm, g.reshape(w, 2, nsymb, nre))
+
+    return fn
+
+
+class WindowedEnbDlMimo(WindowedEnbDl):
+    """Generate any W-TTI mix of two-codeword TM3/TM4 PDSCH subframes per
+    dispatch (`DlGrant2`: the codebook PMIs 0-2 as data, large-delay CDD as
+    pmi 3) — the mirror of `WindowedUeDlMimo`.  The template is the CRS of
+    both ports."""
+
+    def __init__(self, cell: Cell, cfi: int = 1, w: int = 32, *, device=None):
+        super().__init__(cell, cfi, w, device=device)
+
+    def _plan(self, payload_pairs, sf_indices, grants):
+        """payload_pairs: per TTI (tb1 bits, tb2 bits); grants: `DlGrant2`
+        list; → (W, 2, sf_len) complex64.  Codeword rows go two per TTI."""
+        cell = self.cell
+        n_res = self._n_res(sf_indices, grants)
+        specs = [spec for g, n in zip(grants, n_res)
+                 for spec in ((g.tbs1, n * g.qm1, g.qm1, g.rv1), (g.tbs2, n * g.qm2, g.qm2, g.rv2))]
+        pack, rows, cw_fn = self._codewords(
+            specs, [tb for pair in payload_pairs for tb in pair],
+            [(g.qm1, g.qm2, n, 3 if g.tx_scheme == "cdd" else g.pmi) for g, n in zip(grants, n_res)])
+        inv_re = self._inv_re(sf_indices, grants)
+        seqs = torch.stack([self._table(_seq_bits_np, pdsch_cinit(g.rnti, s, cell.id, q=q))
+                            for s, g in zip(sf_indices, grants) for q in (0, 1)])
+        tmpl = torch.stack([self._table(_tmpl_np, cell, s, 2, "crs") for s in sf_indices])
+        fn = _build_win_tx_mimo(cell, tuple(sorted({g.qm1 for g in grants} | {g.qm2 for g in grants})),
+                                self.device)
+        return [("codewords", cw_fn),
+                ("samples", lambda cw: fn(cw, inv_re, rows[:, :2].reshape(-1), rows[:, 2],
+                                          rows[:, 3], seqs, tmpl))], pack

@@ -269,3 +269,51 @@ def test_port_decodes_window_fixture_like_reference(kind):
         if ok:  # a decode that does not converge has no bits to hold
             np.testing.assert_array_equal(
                 tb, np.unpackbits(fx["ref_tb_packed"][i], count=int(fx["tbs"][i])))
+
+
+# --- the stored windows of the generate engines -----------------------------------
+
+GEN_KINDS = ["enb_dl", "ue_ul", "enb_dl_mimo"]
+
+
+def test_gen_window_fixtures_stay_small():
+    assert sum((TESTDATA / f"window_gen_{k}.npz").stat().st_size for k in GEN_KINDS) < 1.5 * 2**20
+
+
+@pytest.mark.parametrize("kind", GEN_KINDS)
+def test_gen_window_fixture_is_current(kind):
+    """The stored payloads, grants and overlay or PUCCH inputs are what the
+    tool makes from its seed, and the stored reference codewords are the
+    reference host DL-SCH encoder's of those payloads."""
+    from srsran_tpu.phy.phch.sch import TbCoding, dlsch_encode_np
+
+    tool = load_tool()
+    fx = np.load(tool.OUT_GEN[kind])
+    for key, val in tool.GEN_CONFIG.items():
+        assert fx[key] == val, key
+    np.testing.assert_array_equal(fx["grant_rows"], np.asarray(tool.GEN_GRANTS[kind]))
+    _cell, sfs, _grants, payloads, kw, specs = tool.gen_window_stimulus(kind)
+    assert fx["tbs"].tolist() == [p.size for p in payloads]
+    for i, p in enumerate(payloads):
+        np.testing.assert_array_equal(np.unpackbits(fx["tb_packed"][i], count=p.size), p)
+    for name, arrays in kw.items():
+        stored = (fx["ov_idx"], fx["ov_vals"]) if name == "overlay" else (
+            fx["pucch_prb"], fx["pucch_grids"], fx["pucch_live"])
+        for a, b in zip(stored, arrays):
+            np.testing.assert_array_equal(a, b)
+    cw = np.unpackbits(fx["ref_cw_packed"], axis=-1)
+    for row, (tbs, g, qm, rv), p in zip(cw, specs, payloads):
+        np.testing.assert_array_equal(row[:g], dlsch_encode_np(p, TbCoding(tbs=tbs, g=g, qm=qm, rv=rv)))
+        assert not row[g:].any()
+    assert fx["ref_samples"].dtype == np.complex64 and len(sfs) == fx["ref_samples"].shape[0]
+
+
+@pytest.mark.parametrize("kind", GEN_KINDS)
+def test_port_generates_gen_window_fixture_like_reference(kind):
+    """Codewords identical, samples within 2e-6 absolute of the stored
+    reference window, through the loader `chip_smoke.py` uses."""
+    smoke = load_smoke()
+    fx, cell, sfs, grants, payloads, kw = smoke.stored_gen_window(kind)
+    eng = smoke.gen_engine(kind, cell, int(fx["w"]), device="cpu")
+    n_diff, err = smoke.stored_gen_errors(eng, fx, sfs, grants, payloads, kw)
+    assert n_diff == 0 and err <= smoke.SAMPLE_ATOL

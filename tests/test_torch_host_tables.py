@@ -24,6 +24,8 @@ import srsran_tpu.phy.phch.sch as r_sch
 import srsran_tpu.phy.phch.tbs_data as r_tbs_data
 import srsran_tpu.phy.scrambling as r_scr
 import srsran_tpu.phy.sequence as r_seq
+import srsran_tpu.phy.sync.pss as r_pss
+import srsran_tpu.phy.sync.sss as r_sss
 import srsran_tpu_torch.phy.chest.chest_dl as t_chest
 import srsran_tpu_torch.phy.chest.refsignal_dl as t_rs
 import srsran_tpu_torch.phy.common as t_common
@@ -40,6 +42,8 @@ import srsran_tpu_torch.phy.phch.sch as t_sch
 import srsran_tpu_torch.phy.phch.tbs_data as t_tbs_data
 import srsran_tpu_torch.phy.scrambling as t_scr
 import srsran_tpu_torch.phy.sequence as t_seq
+import srsran_tpu_torch.phy.sync.pss as t_pss
+import srsran_tpu_torch.phy.sync.sss as t_sss
 from srsran_tpu_torch.convert import from_reference
 
 torch.set_num_threads(1)
@@ -71,7 +75,8 @@ def test_common_numerology():
 @pytest.mark.parametrize("kw", CELLS)
 def test_cell_properties(kw):
     ref, port = cells(**kw)
-    for prop in ("symbol_sz", "nsymb_per_slot", "nsymb_per_sf", "nof_re_per_symbol", "sf_len"):
+    for prop in ("symbol_sz", "nsymb_per_slot", "nsymb_per_sf", "nof_re_per_symbol", "sf_len",
+                 "n_id_1", "n_id_2"):
         assert getattr(port, prop) == getattr(ref, prop), prop
     assert int(port.cp) == int(ref.cp) and port.cp.nsymb == ref.cp.nsymb
 
@@ -141,6 +146,53 @@ def test_j0_variant_np_every_rv_and_filler(k_max):
                 ref, nv_ref = r_rmd.j0_variant_np(k, f, rv, k_max)
                 assert nv == nv_ref == 3 * (k + 4) - 2 * f and got.dtype == ref.dtype
                 np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("k_max", [768, 6144])
+def test_tx_table_np_every_rv_and_filler(k_max):
+    """The TX rate-match table of a layout class, every rv, with and without
+    filler bits: equal to the reference and the inverse of `j0_variant_np`
+    (rank j0[p] of position p transmits p)."""
+    for k in (40, 512, k_max - 64, k_max):
+        for f in (0, 8, 56):
+            for rv in range(4):
+                got, nv = t_rmd.tx_table_np(k, f, rv, k_max)
+                ref, nv_ref = r_rmd.tx_table_np(k, f, rv, k_max)
+                assert nv == nv_ref and got.dtype == ref.dtype == np.int32
+                np.testing.assert_array_equal(got, ref)
+                j0, _ = t_rmd.j0_variant_np(k, f, rv, k_max)
+                np.testing.assert_array_equal(j0[got], np.arange(nv))
+
+
+def test_pss_and_sss_sequences():
+    """Every PSS root, the (m0, m1) pair of every N_id_1 and its SSS for both
+    subframes and every N_id_2."""
+    for n_id_2 in range(3):
+        got = t_pss.pss_freq_np(n_id_2)
+        assert got.dtype == np.complex64
+        np.testing.assert_array_equal(got, r_pss.pss_freq_np(n_id_2))
+    for a, b in zip(t_sss._base_sequences(), r_sss._base_sequences()):
+        np.testing.assert_array_equal(a, b)
+    for n_id_1 in range(168):
+        assert t_sss._m0m1(n_id_1) == r_sss._m0m1(n_id_1)
+        for n_id_2 in range(3):
+            for sf in (0, 5):
+                got = t_sss.sss_sequence_np(n_id_1, n_id_2, sf)
+                assert got.dtype == np.float32
+                np.testing.assert_array_equal(got, r_sss.sss_sequence_np(n_id_1, n_id_2, sf))
+
+
+@pytest.mark.parametrize("nof_prb,cell_id", [(6, 0), (25, 301), (100, 503)])
+def test_pss_and_sss_grid_writers(nof_prb, cell_id):
+    ref_cell, cell = cells(nof_prb=nof_prb, id=cell_id)
+    for sf in (0, 5):
+        grids = [np.zeros((14, 12 * nof_prb), np.complex64) for _ in range(2)]
+        t_pss.put_pss_grid(grids[0], cell.n_id_2, nof_prb, 6)
+        t_sss.put_sss_grid(grids[0], cell.n_id_1, cell.n_id_2, sf, nof_prb, 5)
+        r_pss.put_pss_grid(grids[1], ref_cell.n_id_2, nof_prb, 6)
+        r_sss.put_sss_grid(grids[1], ref_cell.n_id_1, ref_cell.n_id_2, sf, nof_prb, 5)
+        np.testing.assert_array_equal(grids[0], grids[1])
+        assert np.count_nonzero(grids[0]) == 124
 
 
 def test_qpp_np_all_188_sizes():

@@ -15,7 +15,8 @@ def test_import_leaves_jax_out():
         "import srsran_tpu_torch.phy.mimo, srsran_tpu_torch.phy.dft_precoding\n"
         "import srsran_tpu_torch.phy.chest.chest_ul, srsran_tpu_torch.phy.chest.refsignal_ul\n"
         "import srsran_tpu_torch.phy.phch.pusch, srsran_tpu_torch.phy.ue.ue_ul\n"
-        "import srsran_tpu_torch.pipeline_window\n"
+        "import srsran_tpu_torch.pipeline_window, srsran_tpu_torch.phy.sync.pss\n"
+        "import srsran_tpu_torch.phy.sync.sss\n"
         "import importlib.util as u\n"
         "spec = u.spec_from_file_location('prof', 'tools/profile_torch_dynamic.py')\n"
         "spec.loader.exec_module(u.module_from_spec(spec))\n"
@@ -33,6 +34,7 @@ def test_every_module_of_the_port_imports_without_jax():
         for p in (ROOT / "srsran_tpu_torch").rglob("*.py"))
     assert "srsran_tpu_torch.phy.ue.ue_ul" in mods and "srsran_tpu_torch.phy.mimo" in mods
     assert "srsran_tpu_torch.pipeline_window" in mods
+    assert "srsran_tpu_torch.phy.sync.pss" in mods and "srsran_tpu_torch.phy.sync.sss" in mods
     code = (
         "import sys, importlib\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

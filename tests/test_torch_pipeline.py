@@ -25,14 +25,10 @@ torch.set_num_threads(1)
 CASES = [(6, Mod.QPSK, 504, 0.3), (25, Mod.QAM16, 6208, 0.08), (25, Mod.QAM64, 9024, 0.04)]
 
 
-@pytest.mark.parametrize("prb,mod,tbs,amp", CASES)
-def test_ue_dl_subframe_matches_reference(prb, mod, tbs, amp):
-    rng = np.random.default_rng(prb * 100 + int(mod))
-    cell = Cell(nof_prb=prb, id=7)
-    grant = DlGrant(prb=tuple(range(prb)), mod=mod, tbs=tbs)
-    if prb == 25:
-        s = cbsegm(tbs)
-        assert s.C > 1 and s.F > 0 and s.K_minus != s.K_plus
+def check_against_reference(cell, grant, amp, rng):
+    """Two noisy subframes of one grant through the reference and the port:
+    identical TB bits and crc_ok, snr_db within 1e-3 dB, every TB passes."""
+    tbs = grant.tbs
     tb = rng.integers(0, 2, tbs).astype(np.uint8)
     grid = pdsch_encode_np(cell, 2, 1, grant, tb)
     put_crs_np(grid, cell, 2)
@@ -53,6 +49,25 @@ def test_ue_dl_subframe_matches_reference(prb, mod, tbs, amp):
     # snr_db from FFT + einsum sums in another order: 1e-3 dB
     np.testing.assert_allclose(got_snr.numpy(), ref_snr, atol=1e-3)
     assert got_ok.all() and (got_tb.numpy() == tb).all()
+
+
+@pytest.mark.parametrize("prb,mod,tbs,amp", CASES)
+def test_ue_dl_subframe_matches_reference(prb, mod, tbs, amp):
+    rng = np.random.default_rng(prb * 100 + int(mod))
+    if prb == 25:
+        s = cbsegm(tbs)
+        assert s.C > 1 and s.F > 0 and s.K_minus != s.K_plus
+    check_against_reference(Cell(nof_prb=prb, id=7), DlGrant(prb=tuple(range(prb)), mod=mod, tbs=tbs),
+                            amp, rng)
+
+
+def test_ue_dl_subframe_off_the_standard_rates():
+    """25 PRB on the 384-point grid of the reduced sample rate
+    (`use_standard_rates=False`)."""
+    cell = Cell(nof_prb=25, id=7, use_standard_rates=False)
+    assert cell.symbol_sz == 384
+    check_against_reference(cell, DlGrant(prb=tuple(range(25)), mod=Mod.QAM16, tbs=6208), 0.08,
+                            np.random.default_rng(2501))
 
 
 def test_ue_dl_subframe_checks_its_inputs():

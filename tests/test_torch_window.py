@@ -595,6 +595,22 @@ def test_dispatch_window_from_stored_front_end(dl_engines, ul_engines):
         assert list(times) == ["A", "B", "C"] and all(t > 0 for t in times.values())
 
 
+def test_window_reduced_rate():
+    """A window at 50 PRB on the 768-point grid of the reduced sample rate
+    (`use_standard_rates=False`), held to the reference stage by stage and
+    as a whole."""
+    cell = Cell(nof_prb=50, nof_ports=1, id=17, use_standard_rates=False)
+    assert cell.symbol_sz == 768
+    eng = make_engines("dl", cell, 3)
+    win = eng.window(dl_mix(cell, np.random.default_rng(47), W))
+    for got, want in zip(win["port_stages"]["A"](None), eng.a_to_port(win["ref"]["A"])):
+        assert got.shape == want.shape and rel_err(got.numpy(), want.numpy()) <= LLR_RTOL
+    res, soft = eng.port.decode_window(win["samples"], win["sfs"],
+                                       [from_reference(g) for g in win["grants"]])
+    check_window(eng, win, res, want_ok=[True] * W)
+    assert rel_err(soft.numpy(), win["ref"]["C"][1]) <= SOFT_RTOL
+
+
 def test_int16_ingest_window():
     eng = make_engines("dl", Cell(nof_prb=25, nof_ports=1, id=5), 2, ingest="int16")
     win = eng.window(dl_mix(eng.ref.cell, np.random.default_rng(11), W))

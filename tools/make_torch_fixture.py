@@ -43,9 +43,19 @@ is `window_samples(q, scale)`, which quantises to the same bytes again.
 Beside them: the sent TB bits and the reference's TB bits, CRC flags and
 iteration counts.
 
+The generate-window fixtures (`window_gen_enb_dl.npz`,
+`window_gen_ue_ul.npz`, `window_gen_enb_dl_mimo.npz`) hold one W = 4 window
+each of the reference's `WindowedEnbDl` (template "full" and a control
+overlay), `WindowedUeUl` (with PUCCH blocks and one row whose PUSCH is
+masked) and `WindowedEnbDlMimo` (PMIs 0-2 and one CDD TTI) on a 25 PRB cell
+(`GEN_GRANTS`): the payload bits, the grants and the overlay or PUCCH
+inputs, the reference's row codewords (its codeword core, packed) and its
+samples (complex64).
+
 Run from the repo root:  JAX_PLATFORMS=cpu python tools/make_torch_fixture.py
 (`main`, `main_dynamic`, `main_mimo`, `main_ul`, `main_ul_dynamic` each
-write one file, `main_windows` the three windows.)
+write one file, `main_windows` the three decode windows, `main_gen_windows`
+the three generate windows.)
 """
 
 from __future__ import annotations
@@ -94,6 +104,18 @@ WIN_GRANTS = {
                    (14, 6, 60, 40, 9, 2, 0.045), (10, 18, 5, 70, 6, 3, 0.08)),
     # (mcs, first PRB, number of PRB, subframe, noise amplitude)
     "enb_ul": ((20, 1, 96, 2, 0.09), (10, 40, 25, 7, 0.45), (3, 70, 9, 0, 0.05), (16, 0, 50, 5, 0.05)),
+}
+GEN_CONFIG = dict(nof_prb=25, cell_id=301, cfi=1, rnti=0x46, w=4, seed=20261022)
+OUT_GEN = {kind: TESTDATA / f"window_gen_{kind}.npz" for kind in ("enb_dl", "ue_ul", "enb_dl_mimo")}
+GEN_GRANTS = {
+    # (mcs, first PRB, number of PRB, subframe): subframes 0 and 5 carry the
+    # PSS and SSS of template "full"; a QPSK TB that repeats; 2 codeblocks
+    "enb_dl": ((5, 0, 25, 0), (17, 3, 20, 5), (26, 0, 25, 2), (0, 10, 6, 7)),
+    # (mcs, first PRB, number of PRB, subframe)
+    "ue_ul": ((0, 0, 4, 1), (12, 4, 9, 3), (20, 0, 25, 6), (23, 15, 10, 8)),
+    # (mcs 1, mcs 2, first PRB, number of PRB, subframe, pmi (3 = large-delay CDD))
+    "enb_dl_mimo": ((4, 10, 0, 25, 1, 0), (15, 8, 5, 20, 4, 1), (12, 12, 2, 18, 6, 2),
+                    (6, 14, 0, 25, 8, 3)),
 }
 
 
@@ -424,6 +446,113 @@ def main_windows():
         print(f"wrote {out}: key {p.pack.key}, crc_ok {ok}, iterations {n_it}, TB equal {equal}")
 
 
+def reference_codewords(specs, payloads) -> np.ndarray:
+    """The reference's codeword core on one window's codeword rows (tbs, g,
+    qm, rv) with the inputs its generators build: (R, G_MAX) uint8."""
+    import jax
+    import jax.numpy as jnp
+
+    import srsran_tpu.pipeline_window as pw
+    from srsran_tpu.phy.fec.cbsegm import cbsegm
+
+    pack = pw.pack_window(specs)
+    _r, n_slots, _cq, cf, e_cap, _jf, tb_cap = pack.key[:7]
+    bw = tb_cap * 8 + 24
+    s_src = np.zeros(n_slots, np.int32)
+    for r, (tbs, *_rest) in enumerate(specs):
+        segm, startb = cbsegm(tbs), 0
+        for c, k in enumerate(segm.cb_sizes):
+            take = k - (segm.F if c == 0 else 0) - (24 if segm.C > 1 else 0)
+            s_src[pack.row_start[r] + c] = r * (pw.K_MAX + bw) + bw - (tbs + 24) + startb + take
+            startb += take
+    tx_tab, perq = pw.tx_class_tables(pack, e_cap)
+    core = jax.jit(pw._make_codeword_core(len(specs), n_slots, cf, e_cap, tb_cap))
+    pay = pw._upload_payload_dense(payloads, [s[0] for s in specs], tb_cap)
+    return np.asarray(core(pay, jnp.asarray(np.concatenate([pack.params, s_src])), tx_tab, perq))
+
+
+def gen_window_stimulus(kind: str):
+    """(reference cell, subframe indices, reference grants, payload rows
+    (two per TTI for the MIMO window), dispatch keywords, codeword rows
+    (tbs, g, qm, rv)) of the stored generate window `kind`."""
+    from srsran_tpu.phy.common import Cell
+    from srsran_tpu.phy.phch.pdsch import DlGrant, DlGrant2
+    from srsran_tpu.phy.phch.ra import dl_mcs_to_mod, dl_tbs
+    from srsran_tpu.pipeline_dynamic import _padded_re_indices
+
+    c = GEN_CONFIG
+    w = c["w"]
+    cell = Cell(nof_prb=c["nof_prb"], nof_ports=2 if kind == "enb_dl_mimo" else 1, id=c["cell_id"])
+    rng = np.random.default_rng(c["seed"] + list(OUT_GEN).index(kind))
+    sfs, grants, specs = [], [], []
+    for row in GEN_GRANTS[kind]:
+        if kind == "ue_ul":
+            mcs, s0, l, sf_idx = row
+            g = ul_grant(mcs, s0, l, c["rnti"])
+            specs.append((g.tbs, 12 * 12 * l * g.qm, g.qm, 0))
+        elif kind == "enb_dl":
+            mcs, s0, l, sf_idx = row
+            g = DlGrant(prb=tuple(range(s0, s0 + l)), mod=dl_mcs_to_mod(mcs), tbs=dl_tbs(mcs, l),
+                        rnti=c["rnti"])
+            n_re = _padded_re_indices(cell, sf_idx, c["cfi"], g.prb)[1]
+            specs.append((g.tbs, n_re * g.qm, g.qm, 0))
+        else:
+            mcs1, mcs2, s0, l, sf_idx, pmi = row
+            g = DlGrant2(prb=tuple(range(s0, s0 + l)), mod1=dl_mcs_to_mod(mcs1), tbs1=dl_tbs(mcs1, l),
+                         mod2=dl_mcs_to_mod(mcs2), tbs2=dl_tbs(mcs2, l), pmi=pmi % 3, rnti=c["rnti"],
+                         tx_scheme="cdd" if pmi == 3 else "spatialmux")
+            n_re = _padded_re_indices(cell, sf_idx, c["cfi"], g.prb)[1]
+            specs += [(g.tbs1, n_re * g.qm1, g.qm1, 0), (g.tbs2, n_re * g.qm2, g.qm2, 0)]
+        sfs.append(sf_idx)
+        grants.append(g)
+    payloads = [rng.integers(0, 2, sp[0]).astype(np.uint8) for sp in specs]
+    kw = {}
+    if kind == "enb_dl":
+        # control-region REs of the overlay: random values on distinct REs,
+        # the last five of each row past the grid (pad, dropped)
+        s = cell.nsymb_per_sf * cell.nof_re_per_symbol
+        idx = np.stack([rng.choice(s, 60, replace=False) for _ in range(w)]).astype(np.int32)
+        idx[:, -5:] = s + 3
+        vals = (rng.standard_normal((w, 60)) + 1j * rng.standard_normal((w, 60))).astype(np.complex64)
+        kw = dict(overlay=(idx, vals))
+    elif kind == "ue_ul":
+        prb = rng.integers(0, c["nof_prb"], (w, 2)).astype(np.int32)
+        prb[0] = (0, c["nof_prb"] - 1)
+        grids = (rng.standard_normal((w, 14, 12)) + 1j * rng.standard_normal((w, 14, 12))
+                 ).astype(np.complex64)
+        kw = dict(pucch=(prb, grids, np.array([True, True, False, True])))
+    return cell, sfs, grants, payloads, kw, specs
+
+
+def main_gen_windows():
+    import srsran_tpu.pipeline_window as pw
+
+    c = GEN_CONFIG
+    for kind, out in OUT_GEN.items():
+        cell, sfs, grants, payloads, kw, specs = gen_window_stimulus(kind)
+        if kind == "enb_dl":
+            eng = pw.WindowedEnbDl(cell, cfi=c["cfi"], w=c["w"], template="full")
+        elif kind == "ue_ul":
+            eng = pw.WindowedUeUl(cell, w=c["w"])
+        else:
+            eng = pw.WindowedEnbDlMimo(cell, cfi=c["cfi"], w=c["w"])
+        pairs = list(zip(payloads[0::2], payloads[1::2])) if kind == "enb_dl_mimo" else payloads
+        ri = np.asarray(eng.dispatch_window(pairs, sfs, grants, **kw))
+        extra = {}
+        if kind == "enb_dl":
+            extra = dict(ov_idx=kw["overlay"][0], ov_vals=kw["overlay"][1])
+        elif kind == "ue_ul":
+            extra = dict(pucch_prb=kw["pucch"][0], pucch_grids=kw["pucch"][1], pucch_live=kw["pucch"][2])
+        np.savez(
+            out, tb_packed=pack_rows(payloads), tbs=np.asarray([p.size for p in payloads]),
+            ref_cw_packed=np.packbits(reference_codewords(specs, payloads), axis=-1),
+            ref_samples=(ri[..., 0] + 1j * ri[..., 1]).astype(np.complex64),
+            grant_rows=np.asarray(GEN_GRANTS[kind], np.int64), **extra,
+            **{k: np.asarray(v) for k, v in c.items()},
+        )
+        print(f"wrote {out}: {len(payloads)} codeword rows, samples {ri.shape[:-1]}")
+
+
 def main():
     import jax
 
@@ -456,3 +585,4 @@ if __name__ == "__main__":
     main_ul()
     main_ul_dynamic()
     main_windows()
+    main_gen_windows()

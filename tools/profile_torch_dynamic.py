@@ -3,7 +3,8 @@
 
 `--path siso` (the default), `mimo` or `ul` picks the pair of paths;
 `--path window`, `window_mimo` or `window_ul` profiles one windowed engine
-instead (see the end of this text).
+instead, `--path loopback`, `loopback_ul` or `loopback_mimo` one loopback
+window (see the end of this text).
 
 First the static entry point at full width, with the inputs of `chip_smoke.py`:
 `ue_dl_subframe` at 100 PRB, MCS 26, B=128 subframes a call (siso);
@@ -41,10 +42,21 @@ quantisation, the upload, `pack_window`, `class_tables` and the softbuffer
 inside it), stages A, B, C (with `turbo_decode_dyn` and the codeblock CRC
 inside C) and the result read; then the kernels that take most device time.
 
+The loopback paths run one loopback window of `chip_smoke.py` phase 18 again
+and again: the generator (`WindowedEnbDl`, `WindowedUeUl` or
+`WindowedEnbDlMimo`), `window_channel` and the decode engine, W fresh grants
+at 100 PRB.  They print the same times and counts (`chip_smoke.time_window`),
+then the host spans of one window, each fenced by a synchronize before and
+after: the generator's plan (with `pack_window`, `_slot_sources`, the dense
+payload and the TX class tables inside it), its codeword and sample stages,
+the channel, the decoder's plan (with `class_tables` and the softbuffer),
+stages A, B, C (with `turbo_decode_dyn`) and the result read.
+
 The last line is all of it as one JSON object.
 
 Run from the repo root on a machine with a card:
-    python3 tools/profile_torch_dynamic.py [--path siso|mimo|ul|window|window_mimo|window_ul]
+    python3 tools/profile_torch_dynamic.py [--path siso|mimo|ul|window|window_mimo|window_ul|
+                                                   loopback|loopback_ul|loopback_mimo]
 """
 
 from __future__ import annotations
@@ -277,10 +289,68 @@ def profile_window(report, path: str):
               f"x{e['count_per_window']:g}  {e['name']}")
 
 
+def profile_loopback(report, path: str):
+    """One loopback window of `chip_smoke.py` phase 18, timed, profiled and
+    split into fenced host spans."""
+    import srsran_tpu_torch.pipeline_window as pw
+
+    kind = {"loopback": "enb_dl", "loopback_ul": "ue_ul", "loopback_mimo": "enb_dl_mimo"}[path]
+    gen, dec = chip_smoke.loopback_engines(kind)
+    h, amp = chip_smoke.LOOP_CHANNELS[kind]
+    sfs, grants, payloads = chip_smoke.grant_mix(
+        kind, np.random.default_rng(41 + chip_smoke.GEN_KINDS.index(kind)), gen.w)
+
+    def one():
+        rx = pw.window_channel(gen.dispatch_window(payloads, sfs, grants), h, amp)
+        return dec.results(dec.dispatch_window(rx, sfs, grants))
+
+    rows, _n_it = chip_smoke.window_rows(chip_smoke.LOOP_DECODERS[kind], one())
+    n_ok = sum(ok for _tb, ok in rows)
+    if n_ok < len(rows):
+        raise RuntimeError(f"{path}: {n_ok} of {len(rows)} TBs come back")
+    entry = chip_smoke.time_window(path, one, gen.w)
+    entry["crc_ok"] = n_ok
+    chip_smoke.print_times(path, entry)
+
+    inner = {"gen.plan._slot_sources": "_slot_sources", "gen.plan._payload_dense": "_payload_dense",
+             "gen.plan.tx_class_tables": "tx_class_tables", "plan.pack_window": "pack_window",
+             "dec.plan.class_tables": "class_tables", "dec.plan.assemble_soft": "_assemble_soft",
+             "C.turbo_decode_dyn": "turbo_decode_dyn", "channel": "window_channel"}
+    plain = {name: getattr(pw, attr) for name, attr in inner.items()}
+    for name, attr in inner.items():
+        setattr(pw, attr, timed(name, plain[name]))
+    SPANS.clear()
+
+    def fenced():
+        stages, _pack = timed("gen.plan", gen._plan)(payloads, sfs, grants)
+        out = None
+        for name, fn in stages:
+            out = timed(f"gen.{name}", fn)(out)
+        rx = pw.window_channel(out, h, amp)
+        stages, pack = timed("dec.plan", dec._plan)(rx, sfs, grants)
+        out = None
+        for name, fn in stages:
+            out = timed(name, fn)(out)
+        timed("results", dec.results)(pw.PendingWindow(out[0], out[1], pack.tbs, pack))
+
+    fenced_ms = chip_smoke.wall_ms(fenced, N)
+    spans = {k: v / N for k, v in sorted(SPANS.items())}
+    for name, attr in inner.items():
+        setattr(pw, attr, plain[name])
+    entry.update({"ms_per_window_fenced": fenced_ms, "fenced_spans_ms": spans})
+    report["loopback"] = entry
+    print(f"  fenced: {fenced_ms:.3f} ms per window; spans (ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in spans.items()))
+    for e in entry["top_kernels"]:
+        print(f"    {e['device_ms_per_window']:.4f} ms  {100 * e['share_of_device_time']:5.2f}%  "
+              f"x{e['count_per_window']:g}  {e['name']}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--path", default="siso", choices=(
-        "siso", "mimo", "ul", "window", "window_mimo", "window_ul"))
+        "siso", "mimo", "ul", "window", "window_mimo", "window_ul",
+        "loopback", "loopback_ul", "loopback_mimo"))
     path = parser.parse_args().path
     if not torch.cuda.is_available():
         print("profile_torch_dynamic: torch.cuda.is_available() is false", file=sys.stderr)
@@ -291,6 +361,10 @@ def main() -> int:
     print(card)
     rng = np.random.default_rng(1)
     report = {"card": card, "torch": torch.__version__, "path": path, "grants": {}}
+    if path.startswith("loopback"):
+        profile_loopback(report, path)
+        print(json.dumps(report))
+        return 0
     if path.startswith("window"):
         profile_window(report, path)
         print(json.dumps(report))
