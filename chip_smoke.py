@@ -57,7 +57,7 @@ Phases (each prints its own lines; any failure exits non-zero):
      `testdata/enb_ul_dynamic_20mhz.npz`, stage keys, ms per TTI; and two
      transmit-diversity and two spatial-multiplexing grants through
      `DynamicUeDl` behind the 2x2 channel;
-  12. (run after phases 13-18, whose windows give it its shapes) the
+  12. (run after phases 13-21, whose windows give it its shapes) the
      kernel's dynamic-K mode at every launch shape those phases gave it:
      each dense-slot bucket N that a window of this run reached (N x K_max
      6144, K_i the window's own per-slot sizes, 40 in the unused slots),
@@ -103,7 +103,36 @@ Phases (each prints its own lines; any failure exits non-zero):
      for the windows of phases 17 and 18: ms per window and per TTI by CUDA
      events and on the host clock (warm medians after two warm calls), the
      real-time factor, kernels per window, the device's busy share and MAP
-     launches per window.
+     launches per window;
+  19. the DL control loopback at full width (`bench.py`
+     `bench_stack_window_rtf`'s W = 64, at 100 PRB, cell 301, CFI 2): four
+     C-RNTIs; per TTI a `Dci1A` DL assignment at aggregation 4 with its PDSCH
+     TB, a `Dci0` for another RNTI at aggregation 2 (both in their RNTIs'
+     search spaces, apart), one PHICH and, on subframe 0, the MIB, rendered
+     by `enb_ctrl_overlay` into `WindowedEnbDl(template="full", overlay=)`;
+     `window_channel` (h 0.95-0.2j, noise 0.02); `WindowedUeFrontEnd` with
+     device-resident ingest, `realize`, `window_blind_search` over the four
+     RNTIs in every TTI (one Viterbi on the card); every sent DCI found with
+     its bits (found DCIs that were not sent are counted), the PCFICH gives
+     CFI 2, every PHICH ACK and MIB right, the grants unpacked from the found
+     DCIs go through `dispatch_data` and every TB comes back; the Viterbi on
+     the card gives the CPU's bits for the whole hypothesis batch;
+  20. the UL control loopback: `WindowedUeUl(pucch=)` with PUSCH grants and
+     format-1 ACKs (1 and 2 bits on two resources), `window_channel` (h
+     0.9+0.25j, noise 0.02), `WindowedEnbUlFrontEnd(edge_prbs=4)`,
+     `realize_pucch`, `pucch_prb_grid`, `pucch_format1_decode_batch`: every
+     ACK right with metric > 0.25, each PUSCH PRB above every empty PRB in
+     power, every TB back from `dispatch_data` and equal to the inner
+     engine's own pass over the samples;
+     for both: ms per window and per TTI (host clock, synchronised, and CUDA
+     events), the fenced spans of the front end, blind search host part,
+     Viterbi, collect, data and results, kernels per window, the busy share,
+     the Viterbi's calls, kernels and device ms;
+  21. the stored control windows of `testdata/window_ctrl_{ue_dl,enb_ul}.npz`
+     (W = 4, 100 PRB, CFI 2) decoded on the card: the reference's control
+     REs, band edges and PRB powers within 2e-5 of the largest magnitude,
+     its found DCIs, PHICH decisions, PUCCH format-1 and format-2 bits
+     (metrics within 1e-3), CRC flags, iteration counts and TB bits.
 Every path is driven with the launch counts set to 0 just before and read
 just after.  Prints one JSON line of kernel results, then as its last line
 {"ok": true, "device": {...}}.  TF32 stays off: the channel-estimate
@@ -1276,6 +1305,506 @@ def phase_loopback(dev, kind: str) -> tuple[tuple[int, int], dict]:
     return launches, times
 
 
+# --- the control plane: DL and UL control loopbacks, the stored control windows -----
+
+# four C-RNTIs; CFI 2 and W = 64 (`bench.py` `bench_stack_window_rtf`'s window)
+CTRL_RNTIS = (0x46, 0x47, 0x1234, 0x4601)
+CTRL_CFI, W_CTRL, CTRL_EDGE_PRBS = 2, 64, 4
+# PUCCH format-1 resources of the UL loopback: (n_pucch, ACK bits carried)
+CTRL_PUCCH = ((2, 1), (40, 2))
+CTRL_KINDS = ("ue_dl", "enb_ul")
+FIXTURE_CTRL = {kind: TESTDATA / f"window_ctrl_{kind}.npz" for kind in CTRL_KINDS}
+PUCCH_METRIC_ATOL = 1e-3
+CTRL_RTOL = 2e-5
+
+
+def sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_steps(steps, device, state=None, fence: bool = True):
+    """Run ordered (span, fn(state)) steps over one state dict.  With `fence`
+    each step is fenced by a synchronize before and after and timed on the
+    host clock.  Returns (state, {span: ms})."""
+    state = {} if state is None else state
+    spans = {}
+    for name, fn in steps:
+        if fence:
+            sync(device)
+        t0 = time.perf_counter()
+        fn(state)
+        if fence:
+            sync(device)
+        spans[name] = (time.perf_counter() - t0) * 1e3
+    return state, spans
+
+
+def median_spans(steps, device, state, n: int = 3) -> dict:
+    """Median ms of each span over n fenced runs of the steps."""
+    runs = [run_steps(steps, device, dict(state))[1] for _ in range(n)]
+    return {k: sorted(r[k] for r in runs)[n // 2] for k in runs[0]}
+
+
+def ctrl_dl_window(cell, cfi: int, w: int, rng) -> dict:
+    """The DL control window on `cell`: TTI t in subframe t mod 10 carries a
+    `Dci1A` DL grant for CTRL_RNTIS[t mod 4] at aggregation 4 with its PDSCH
+    TB (MCS 0-26 on 4..nof_prb PRB), a `Dci0` for the next RNTI at
+    aggregation 2 (each at a start of its RNTI's UE-specific search space,
+    the two apart), one PHICH (group 0, n_seq 1, ACK t & 1) and, on
+    subframe 0, the MIB of frame t // 10, all rendered by `enb_ctrl_overlay`
+    into (idx (W, n_ov), vals (W, n_ov))."""
+    from srsran_tpu_torch.phy.enb.enb_dl import DlSched
+    from srsran_tpu_torch.phy.phch.dci import Dci0, Dci1A
+    from srsran_tpu_torch.phy.phch.pbch import Mib
+    from srsran_tpu_torch.phy.phch.pdcch import nof_cce, search_space_candidates
+    from srsran_tpu_torch.phy.phch.pdsch import DlGrant
+    from srsran_tpu_torch.phy.phch.ra import dl_mcs_to_mod, dl_tbs, riv_encode
+    from srsran_tpu_torch.pipeline_ctrl import enb_ctrl_overlay
+
+    n_prb = cell.nof_prb
+    n_cce = nof_cce(cell, 0, cfi)
+    mib = Mib(nof_prb=n_prb, phich_length=cell.phich_length, phich_resources=cell.phich_resources)
+    win = dict(cfi=cfi, mib=mib, dci_len=Dci1A.nof_bits(n_prb), sfs=[], grants=[], payloads=[],
+               sent=[], acks=[], idx=[], vals=[])
+    for t in range(w):
+        sf = t % 10
+        r_dl, r_ul = CTRL_RNTIS[t % 4], CTRL_RNTIS[(t + 1) % 4]
+        while True:
+            mcs, l = int(rng.integers(0, 27)), int(rng.integers(4, n_prb + 1))
+            if dl_tbs(mcs, l):
+                break
+        st = int(rng.integers(0, n_prb - l + 1))
+        g = DlGrant(prb=tuple(range(st, st + l)), mod=dl_mcs_to_mod(mcs), tbs=dl_tbs(mcs, l), rnti=r_dl)
+        l0 = int(rng.integers(1, n_prb + 1))
+        d1a = Dci1A(riv=riv_encode(n_prb, st, l), mcs=mcs, harq_pid=t % 8, ndi=(t // 8) & 1, tpc=1)
+        d0 = Dci0(riv=riv_encode(n_prb, int(rng.integers(0, n_prb - l0 + 1)), l0),
+                  mcs=int(rng.integers(0, 29)), ndi=t & 1, tpc=2)
+        c4 = search_space_candidates(r_dl, sf, n_cce)[4][0]
+        c2 = next(c for c in search_space_candidates(r_ul, sf, n_cce)[2] if c + 2 <= c4 or c >= c4 + 4)
+        sent = [(r_dl, d1a.pack(n_prb)), (r_ul, d0.pack(n_prb))]
+        sched = DlSched(cfi=cfi, dcis=[(sent[0][1], r_dl, 4, c4), (sent[1][1], r_ul, 2, c2)],
+                        phich=[(0, 1, t & 1)])
+        idx, vals = enb_ctrl_overlay(cell, cfi, sf, sched, mib=mib, sfn=t // 10)
+        for key, v in (("sfs", sf), ("grants", g), ("payloads", rng.integers(0, 2, g.tbs).astype(np.uint8)),
+                       ("sent", sent), ("acks", t & 1), ("idx", idx), ("vals", vals)):
+            win[key].append(v)
+    win["overlay"] = (np.stack(win.pop("idx")), np.stack(win.pop("vals")))
+    win["searches"] = [[(r, "1A", win["dci_len"], True) for r in CTRL_RNTIS]] * w
+    return win
+
+
+def dl_grants_of(found, cell, sent):
+    """The UE's view of its grants: per TTI the `DlGrant` unpacked from the
+    found `Dci1A` that carries the sent DL assignment (its RNTI and bits);
+    None where it was not found."""
+    from srsran_tpu_torch.phy.phch.dci import Dci1A
+    from srsran_tpu_torch.phy.phch.pdsch import DlGrant
+    from srsran_tpu_torch.phy.phch.ra import dl_mcs_to_mod, dl_tbs, riv_decode
+
+    grants = []
+    for hits, (r_dl, bits_dl) in zip(found, (s[0] for s in sent)):
+        hit = next((b for r, _f, b, _l, _c in hits if r == r_dl and np.array_equal(b, bits_dl)), None)
+        if hit is None:
+            grants.append(None)
+            continue
+        d = Dci1A.unpack(hit, cell.nof_prb)
+        st, l = riv_decode(cell.nof_prb, d.riv)
+        grants.append(DlGrant(prb=tuple(range(st, st + l)), mod=dl_mcs_to_mod(d.mcs),
+                              tbs=dl_tbs(d.mcs, l), rv=d.rv, rnti=r_dl))
+    return grants
+
+
+def ctrl_dl_steps(cell, win, gen, fe, h, amp, seed: int = 0):
+    """One DL control loopback window as ordered (span, fn(state)) steps:
+    the generator with the control overlay and `window_channel`; the UE
+    front end (stage A and the control equalize, one read); the blind
+    search's host part; its Viterbi, one per DCI length on the card; the
+    collect (one read per length, CRC-RNTI check, dedup) and the grants
+    unpacked from the found DCIs; the data pass from the stored front end;
+    the result read."""
+    from srsran_tpu_torch.pipeline_ctrl import _blind_hypotheses, _viterbi_batch, blind_search_collect
+    from srsran_tpu_torch.pipeline_window import window_channel
+
+    sfs = win["sfs"]
+
+    def generate(s):
+        tx = gen.dispatch_window(win["payloads"], sfs, win["grants"], overlay=win["overlay"])
+        s["rx"] = window_channel(tx, h, amp, seed=seed, device=fe.device)
+
+    def front_end(s):
+        s["pf"] = fe.dispatch(s["rx"], sfs)
+        s["ctrl"], s["rsrp"], s["noise"] = fe.realize(s["pf"])
+
+    def blind_host(s):
+        s["hyps"] = _blind_hypotheses(s["ctrl"], fe.layout, cell, sfs, win["searches"])
+
+    def viterbi(s):
+        s["pend"] = (len(sfs), [(d, e, _viterbi_batch(d, e, fe.device)) for d, e in s["hyps"].items()])
+
+    def collect(s):
+        s["found"] = blind_search_collect(s["pend"])
+        s["dl_grants"] = dl_grants_of(s["found"], cell, win["sent"])
+
+    def data(s):
+        grants = s["dl_grants"]
+        check(all(g is not None for g in grants), "a DL assignment was not found")
+        s["p"] = fe.dispatch_data(s["pf"], grants)
+
+    def results(s):
+        s["res"] = fe.results(s["p"])
+
+    return [("generate", generate), ("front end", front_end), ("blind search host", blind_host),
+            ("viterbi", viterbi), ("collect", collect), ("data", data), ("results", results)]
+
+
+def check_ctrl_dl(tag: str, cell, win, fe, s) -> dict:
+    """Every sent DCI is found with its bits (found DCIs that were not sent
+    are counted), the PCFICH gives the CFI, every PHICH ACK is right, the
+    MIB decodes on subframe 0, every TB comes back."""
+    from srsran_tpu_torch.phy.phch.pbch import Mib, pbch_decode, pbch_re_indices
+    from srsran_tpu_torch.phy.phch.pcfich import pcfich_decode
+    from srsran_tpu_torch.pipeline_ctrl import phich_decode_np
+
+    lay, sfs, dev = fe.layout, win["sfs"], fe.device
+    ctrl = s["ctrl"]
+    check(ctrl.shape == (len(sfs), lay.idx.size) and ctrl.dtype == np.complex64
+          and bool(np.isfinite(ctrl.view(np.float32)).all()), f"{tag}: control REs {ctrl.shape} {ctrl.dtype}")
+    n_extra = 0
+    for t, (hits, sent) in enumerate(zip(s["found"], win["sent"])):
+        got = {(r, b.tobytes()) for r, _f, b, _l, _c in hits}
+        want = {(r, b.tobytes()) for r, b in sent}
+        check(want <= got, f"{tag}: TTI {t}: sent DCIs not found: {want - got}")
+        n_extra += len(got - want)
+    ctrl_d = torch.from_numpy(ctrl).to(dev)
+    cfis = [int(pcfich_decode(ctrl_d[t, lay.pcfich], cell, sf)[0]) for t, sf in enumerate(sfs)]
+    check(cfis == [win["cfi"]] * len(sfs), f"{tag}: PCFICH gives {set(cfis)}")
+    acks = [phich_decode_np(ctrl[t, lay.phich[0]], cell, sf, 1)[0] for t, sf in enumerate(sfs)]
+    check(acks == [bool(a) for a in win["acks"]], f"{tag}: PHICH ACKs {acks}")
+    grid, ce, _noise = s["pf"].abc
+    pbch = torch.from_numpy(pbch_re_indices(cell).astype(np.int64)).to(dev)
+    n_mib = 0
+    for t in (t for t, sf in enumerate(sfs) if sf == 0):
+        y = grid[t].reshape(grid.shape[1], -1)[:, pbch]
+        hh = ce[t, :, 0].reshape(grid.shape[1], -1)[:, pbch]
+        x = torch.sum(hh.conj() * y, dim=0) / torch.sum(hh.abs() ** 2, dim=0)
+        bits, ports, off, ok = pbch_decode(x, cell)
+        mib = Mib.unpack(bits)
+        check(ok and ports == 1 and mib.nof_prb == cell.nof_prb and mib.sfn + off == t // 10,
+              f"{tag}: TTI {t}: MIB {mib}, ports {ports}, offset {off}, ok {ok}")
+        n_mib += 1
+    for t, ((tb, ok, _n), sent) in enumerate(zip(s["res"], win["payloads"])):
+        check(ok and np.array_equal(tb, sent), f"{tag}: TTI {t}: the TB did not come back")
+    return dict(extra_dcis=n_extra, mibs=n_mib)
+
+
+def ctrl_ul_window(cell, w: int, rng, edge_prbs: int = CTRL_EDGE_PRBS) -> dict:
+    """The UL control window on `cell`: TTI t in subframe t mod 10 carries a
+    PUSCH grant (widths 9/25/50/90 PRB inside the band edges, MCS 0-23) for
+    CTRL_RNTIS[t mod 4] and a PUCCH format-1 ACK on the resource
+    CTRL_PUCCH[t mod 2] (1 or 2 bits) from `pucch_format1_encode_np`."""
+    from srsran_tpu_torch.phy.phch.pucch import (PucchConfig, _f1_covers, pucch_f1_prb,
+                                                 pucch_format1_encode_np)
+
+    n_prb = cell.nof_prb
+    room = n_prb - 2 * edge_prbs
+    widths = [n for n in (9, 25, 50, 90) if n <= room]
+    win = dict(sfs=[], grants=[], payloads=[], res=[], acks=[], prb=[], grids=[])
+    for t in range(w):
+        sf = t % 10
+        while True:
+            mcs, nprb = int(rng.integers(0, 24)), int(widths[rng.integers(0, len(widths))])
+            g = ul_grant(mcs, edge_prbs + int(rng.integers(0, room - nprb + 1)), nprb, CTRL_RNTIS[t % 4])
+            if g.tbs:
+                break
+        n_pucch, nbits = CTRL_PUCCH[t % 2]
+        ack = rng.integers(0, 2, nbits).astype(np.uint8)
+        cfg = PucchConfig(n_pucch=n_pucch)
+        prbs = [pucch_f1_prb(n_pucch, 2 * sf + slot, n_prb, cfg.delta_shift, covers=_f1_covers(cell))
+                for slot in range(2)]
+        for key, v in (("sfs", sf), ("grants", g), ("payloads", rng.integers(0, 2, g.tbs).astype(np.uint8)),
+                       ("res", n_pucch), ("acks", ack), ("prb", prbs),
+                       ("grids", pucch_format1_encode_np(cell, cfg, sf, ack))):
+            win[key].append(v)
+    win["pucch"] = (np.asarray(win["prb"], np.int64), np.stack(win["grids"]), np.ones(w, bool))
+    return win
+
+
+def ctrl_ul_steps(cell, win, gen, fe, h, amp, seed: int = 0):
+    """One UL control loopback window as ordered (span, fn(state)) steps: the
+    generator with the PUCCH blocks and `window_channel`; the eNB front end
+    (SC-FDMA demod, band edges and per-PRB power, one read); the PUCCH
+    format-1 decodes, one batch per resource; the data pass from the stored
+    grids; the result read."""
+    from srsran_tpu_torch.pipeline_ctrl import pucch_format1_decode_batch
+    from srsran_tpu_torch.pipeline_window import window_channel
+
+    sfs = win["sfs"]
+
+    def generate(s):
+        tx = gen.dispatch_window(win["payloads"], sfs, win["grants"], pucch=win["pucch"])
+        s["rx"] = window_channel(tx, h, amp, seed=seed, device=fe.device)
+
+    def front_end(s):
+        s["pf"] = fe.dispatch(s["rx"], sfs)
+        s["edge"], s["prb_pow"] = fe.realize_pucch(s["pf"])
+
+    def pucch(s):
+        s["pucch_bits"], s["pucch_metric"] = [None] * len(sfs), np.zeros(len(sfs))
+        for n_pucch, nbits in CTRL_PUCCH:
+            ts = [t for t, r in enumerate(win["res"]) if r == n_pucch]
+            grids = np.stack([fe.pucch_prb_grid(s["edge"], t, win["prb"][t]) for t in ts])
+            bits, metric = pucch_format1_decode_batch(grids, cell, n_pucch, [sfs[t] for t in ts], nbits)
+            for t, b, m in zip(ts, bits, metric):
+                s["pucch_bits"][t], s["pucch_metric"][t] = b, m
+
+    def data(s):
+        s["p"] = fe.dispatch_data(s["pf"], win["grants"])
+
+    def results(s):
+        s["res"] = fe.results(s["p"])
+
+    return [("generate", generate), ("front end", front_end), ("pucch", pucch), ("data", data),
+            ("results", results)]
+
+
+def check_ctrl_ul(tag: str, cell, win, s, edge_prbs: int = CTRL_EDGE_PRBS) -> dict:
+    """Every ACK is right with metric > 0.25, each PUSCH PRB receives more
+    power than every empty PRB, every TB comes back."""
+    w = len(win["sfs"])
+    check(s["edge"].shape == (w, cell.nsymb_per_sf, 24 * edge_prbs) and s["edge"].dtype == np.complex64,
+          f"{tag}: band edges {s['edge'].shape}")
+    for t in range(w):
+        check(np.array_equal(s["pucch_bits"][t], win["acks"][t]) and s["pucch_metric"][t] > 0.25,
+              f"{tag}: TTI {t}: ACK {s['pucch_bits'][t]} (sent {win['acks'][t]}), metric "
+              f"{s['pucch_metric'][t]:.3f}")
+    margin = np.inf
+    for t, g in enumerate(win["grants"]):
+        used = np.zeros(cell.nof_prb, bool)
+        used[g.prb_start:g.prb_start + g.nof_prb] = True
+        empty = ~used
+        empty[list(win["prb"][t])] = False
+        margin = min(margin, s["prb_pow"][t][used].min() / s["prb_pow"][t][empty].max())
+    check(margin > 1, f"{tag}: a PUSCH PRB receives no more power than an empty one ({margin:.3g})")
+    for t, ((tb, ok, _n), sent) in enumerate(zip(s["res"], win["payloads"])):
+        check(ok and np.array_equal(tb, sent), f"{tag}: TTI {t}: the TB did not come back")
+    return dict(min_ack_metric=float(s["pucch_metric"].min()), pusch_to_empty_power=float(margin))
+
+
+def profile_kernels(fn) -> tuple[int, float]:
+    """(CUDA kernels, device ms) of one fn() under `torch.profiler`."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.count for e in kernels), sum(e.device_time_total for e in kernels) / 1e3
+
+
+def ctrl_engines(kind: str, cell, w: int, device=None, **kw):
+    """(generator, front end) of a control loopback on `cell`."""
+    import srsran_tpu_torch.pipeline_ctrl as pc
+    import srsran_tpu_torch.pipeline_window as pw
+
+    if kind == "dl":
+        return (pw.WindowedEnbDl(cell, cfi=CTRL_CFI, w=w, template="full", device=device),
+                pc.WindowedUeFrontEnd(cell, cfi=CTRL_CFI, w=w, max_iterations=6, device=device, **kw))
+    return (pw.WindowedUeUl(cell, w=w, device=device),
+            pc.WindowedEnbUlFrontEnd(cell, w=w, edge_prbs=CTRL_EDGE_PRBS, max_iterations=6, device=device,
+                                     **kw))
+
+
+def phase_ctrl_dl(dev) -> tuple[tuple[int, int], dict]:
+    """Phase 19: the DL control loopback at full width.  Returns ((static,
+    dynamic-K) launches, times dict)."""
+    from srsran_tpu_torch.phy.common import Cell
+    from srsran_tpu_torch.pipeline_ctrl import _viterbi_batch, window_blind_search
+
+    tag = "ctrl loopback dl"
+    cell = Cell(nof_prb=100, nof_ports=1, id=301)
+    gen, fe = ctrl_engines("dl", cell, W_CTRL)
+    check(gen.device == dev and fe.device == dev, f"{tag}: the engines did not take the card by default")
+    win = ctrl_dl_window(cell, CTRL_CFI, W_CTRL, np.random.default_rng(19))
+    h, amp = LOOP_CHANNELS["enb_dl"]
+    steps = ctrl_dl_steps(cell, win, gen, fe, h, amp)
+    reset_launches()
+    s, _ = run_steps(steps, dev)
+    launches = read_launches()
+    note_shape(tag, s["p"].pack)
+    info = check_ctrl_dl(tag, cell, win, fe, s)
+    check(launches[1] > 0 and launches[0] == 0, f"{tag}: map launches {launches}")
+    found_pub = window_blind_search(s["ctrl"], fe.layout, cell, win["sfs"], win["searches"])
+    check(all(len(a) == len(b) and all(x[:2] == y[:2] and np.array_equal(x[2], y[2]) and x[3:] == y[3:]
+                                       for x, y in zip(a, b)) for a, b in zip(found_pub, s["found"])),
+          f"{tag}: window_blind_search differs from its dispatch and collect")
+    # the card's Viterbi against the same function on the CPU, the whole batch
+    n_hyp = {d: len(e) for d, e in s["hyps"].items()}
+    n_cand = sum(n_hyp.values()) / (W_CTRL * len(CTRL_RNTIS))
+    for d, entries in s["hyps"].items():
+        on_card = _viterbi_batch(d, entries, dev).cpu()
+        check(torch.equal(on_card, _viterbi_batch(d, entries, "cpu")),
+              f"{tag}: the Viterbi's bits on the card differ from the CPU's at d={d}")
+    print(f"{tag}: 100 PRB CFI {CTRL_CFI} W={W_CTRL}: {fe.layout.n_cce} CCEs, {fe.layout.idx.size} control "
+          f"REs, DCI 1A {win['dci_len']} bits, {n_cand:.2f} candidates per RNTI per TTI, {len(CTRL_RNTIS)} "
+          f"RNTIs: {n_hyp} hypotheses per Viterbi length (bucket "
+          f"{[s['pend'][1][i][2].shape[0] for i in range(len(n_hyp))]}); every sent DCI found "
+          f"({info['extra_dcis']} found that were not sent), CFI {CTRL_CFI} in every TTI, every PHICH "
+          f"ACK right, {info['mibs']} MIBs, every TB back, {launches[1]} dynamic-K map launches; the "
+          f"Viterbi's bits on the card equal the CPU's")
+    rx, recv = s["rx"], steps[1:]
+    times = time_window(tag, lambda: run_steps(recv, dev, {"rx": rx}, fence=False), W_CTRL)
+    spans = median_spans(recv, dev, {"rx": rx})
+    st = run_steps(recv[:2], dev, {"rx": rx})[0]
+    vit_kernels, vit_ms = profile_kernels(lambda: recv[2][1](st))
+    times.update(spans_ms=spans, viterbi_calls_per_window=len(n_hyp), hypotheses=n_hyp,
+                 viterbi_kernels_per_window=vit_kernels, viterbi_device_ms_per_window=vit_ms,
+                 extra_dcis=info["extra_dcis"], slots_real=sum(s["p"].pack.row_ncb),
+                 slots_bucketed=s["p"].pack.key[1])
+    print(f"{tag}: spans (fenced, ms): " + ", ".join(f"{k} {v:.3f}" for k, v in spans.items())
+          + f"; Viterbi: {len(n_hyp)} call(s) per window, {vit_kernels} kernels, {vit_ms:.3f} ms of "
+          f"device time")
+    print_times(tag, times)
+    return launches, times
+
+
+def phase_ctrl_ul(dev) -> tuple[tuple[int, int], dict]:
+    """Phase 20: the UL control loopback at full width.  Returns ((static,
+    dynamic-K) launches, times dict)."""
+    from srsran_tpu_torch.phy.common import Cell
+
+    tag = "ctrl loopback ul"
+    cell = Cell(nof_prb=100, nof_ports=1, id=301)
+    gen, fe = ctrl_engines("ul", cell, W_CTRL)
+    check(gen.device == dev and fe.device == dev, f"{tag}: the engines did not take the card by default")
+    win = ctrl_ul_window(cell, W_CTRL, np.random.default_rng(20))
+    h, amp = LOOP_CHANNELS["ue_ul"]
+    steps = ctrl_ul_steps(cell, win, gen, fe, h, amp)
+    reset_launches()
+    s, _ = run_steps(steps, dev)
+    launches = read_launches()
+    note_shape(tag, s["p"].pack)
+    info = check_ctrl_ul(tag, cell, win, s)
+    check(launches[1] > 0 and launches[0] == 0, f"{tag}: map launches {launches}")
+    # the stored grids are the ones the engine itself computes from the samples
+    direct = fe.inner.results(fe.inner.dispatch_window(s["rx"], win["sfs"], win["grants"]))
+    check(all(np.array_equal(a[0], b[0]) and a[1:] == b[1:] for a, b in zip(direct, s["res"])),
+          f"{tag}: dispatch_data differs from dispatch_window on the same samples")
+    print(f"{tag}: 100 PRB W={W_CTRL}: PUSCH grants and format-1 ACKs on n_pucch "
+          f"{[r for r, _ in CTRL_PUCCH]}: every ACK right (metric >= {info['min_ack_metric']:.3f}), PUSCH "
+          f"PRBs at least {info['pusch_to_empty_power']:.1f}x the power of empty PRBs, every TB back "
+          f"(and equal to dispatch_window's), {launches[1]} dynamic-K map launches")
+    rx, recv = s["rx"], steps[1:]
+    times = time_window(tag, lambda: run_steps(recv, dev, {"rx": rx}, fence=False), W_CTRL)
+    spans = median_spans(recv, dev, {"rx": rx})
+    times.update(spans_ms=spans, slots_real=sum(s["p"].pack.row_ncb), slots_bucketed=s["p"].pack.key[1], **info)
+    print(f"{tag}: spans (fenced, ms): " + ", ".join(f"{k} {v:.3f}" for k, v in spans.items()))
+    print_times(tag, times)
+    return launches, times
+
+
+def stored_ctrl(kind: str):
+    """The stored reference control window `kind` ("ue_dl", "enb_ul") with
+    the port's classes: (fx, cell, subframe indices, samples (W, 1, sf_len)
+    complex64 — what the int8 pairs dequantise to)."""
+    from srsran_tpu_torch.phy.common import Cell
+
+    fx = np.load(FIXTURE_CTRL[kind])
+    cell = Cell(nof_prb=int(fx["nof_prb"]), nof_ports=1, id=int(fx["cell_id"]))
+    ri = fx["q"].astype(np.float32) * fx["scale"][:, None, None, None]
+    return fx, cell, fx["sfs"].tolist(), (ri[..., 0] + 1j * ri[..., 1]).astype(np.complex64)
+
+
+def stored_ctrl_decode(kind: str, device) -> dict:
+    """The port's decode of a stored control window, on `device`, float32
+    ingest.  ue_dl: the control REs, the found DCIs, the PHICH decisions and
+    the TBs of the found DL assignments; enb_ul: the band edges, the PRB
+    powers, the PUCCH format-1 and format-2 decodes and the TBs."""
+    import srsran_tpu_torch.pipeline_ctrl as pc
+    from srsran_tpu_torch.phy.phch.pucch import PucchConfig
+
+    fx, cell, sfs, samples = stored_ctrl(kind)
+    w = len(sfs)
+    if kind == "ue_dl":
+        fe = pc.WindowedUeFrontEnd(cell, cfi=int(fx["cfi"]), w=w, ingest="float32",
+                                   max_iterations=int(fx["max_iterations"]), device=device)
+        pf = fe.dispatch(samples, sfs)
+        ctrl, rsrp, noise = fe.realize(pf)
+        searches = [[(int(r), "1A", int(fx["dci_len"]), True) for r in fx["rntis"]]] * w
+        found = pc.window_blind_search(ctrl, fe.layout, cell, sfs, searches, device=device)
+        phich = [pc.phich_decode_np(ctrl[t, fe.layout.phich[0]], cell, sf, 1) for t, sf in enumerate(sfs)]
+        sent = [[(int(fx["sent_rnti"][t, 0]), fx["sent_bits"][t, 0])] for t in range(w)]
+        p = fe.dispatch_data(pf, dl_grants_of(found, cell, sent))
+        return dict(ctrl=ctrl, rsrp=rsrp, noise=noise, found=found, phich=phich, res=fe.results(p), pack=p.pack)
+    fe = pc.WindowedEnbUlFrontEnd(cell, w=w, edge_prbs=int(fx["edge_prbs"]),
+                                  max_iterations=int(fx["max_iterations"]), device=device)
+    pf = fe.dispatch(samples, sfs)
+    edge, prb_pow = fe.realize_pucch(pf)
+    grids1 = np.stack([fe.pucch_prb_grid(edge, t, tuple(fx["f1_prb"][t])) for t in range(w)])
+    f1 = pc.pucch_format1_decode_batch(grids1, cell, int(fx["f1_n_pucch"]), sfs, int(fx["f1_nbits"]))
+    cfg2 = PucchConfig(n_pucch=int(fx["f2_n_pucch"]))
+    f2 = [pc.pucch_format2_decode_np(fe.pucch_prb_grid(edge, t, tuple(fx["f2_prb"][t])), cell, cfg2, sf,
+                                     int(fx["f2_nbits"])) for t, sf in enumerate(sfs)]
+    p = fe.dispatch_data(pf, [ul_grant(*(int(v) for v in row[:3]), int(fx["rnti"])) for row in fx["grant_rows"]])
+    return dict(edge=edge, prb_pow=prb_pow, f1=f1, f2=f2, res=fe.results(p), pack=p.pack)
+
+
+def check_stored_ctrl(kind: str, fx, out) -> str:
+    """The port's decode of a stored control window against the reference's:
+    control REs or band edges and PRB powers within 2e-5 of the largest
+    magnitude, the found DCIs (RNTI, bits, level, CCE), the PHICH and PUCCH
+    decisions identical, PUCCH metrics within 1e-3, CRC flags, iteration
+    counts and, where the CRC passes, TB bits identical.  Returns a line."""
+    def close(got, ref, what):
+        err = float(np.abs(got - ref).max())
+        check(got.shape == ref.shape and err <= CTRL_RTOL * float(np.abs(ref).max()),
+              f"stored ctrl {kind}: {what} differ by {err:.3g}")
+        return err
+
+    if kind == "ue_dl":
+        err = close(out["ctrl"], fx["ref_ctrl"], "control REs")
+        found = [(t, r, b, l, c) for t, hits in enumerate(out["found"]) for r, _f, b, l, c in hits]
+        check(len(found) == len(fx["found_t"]), f"stored ctrl ue_dl: {len(found)} DCIs found, "
+              f"the reference found {len(fx['found_t'])}")
+        for i, (t, r, b, l, c) in enumerate(found):
+            check((t, r, l, c) == tuple(int(fx[k][i]) for k in ("found_t", "found_rnti", "found_lvl", "found_cce"))
+                  and np.array_equal(b, fx["found_bits"][i]), f"stored ctrl ue_dl: found DCI {i} differs")
+        phich = [bool(a) for a, _m in out["phich"]]
+        check(phich == fx["ref_phich"].astype(bool).tolist(), f"stored ctrl ue_dl: PHICH {phich}")
+        extra = f"{len(found)} DCIs, PHICH {phich}"
+    else:
+        err = max(close(out["edge"], fx["ref_edge"], "band edges"),
+                  close(out["prb_pow"], fx["ref_prb_pow"], "PRB powers"))
+        bits1, metric1 = out["f1"]
+        check(np.array_equal(bits1, fx["ref_f1_bits"]) and np.abs(metric1 - fx["ref_f1_metric"]).max()
+              <= PUCCH_METRIC_ATOL, "stored ctrl enb_ul: PUCCH format 1 differs")
+        bits2 = np.stack([b for b, _m in out["f2"]])
+        metric2 = np.array([m for _b, m in out["f2"]])
+        check(np.array_equal(bits2, fx["ref_f2_bits"]) and np.abs(metric2 - fx["ref_f2_metric"]).max()
+              <= PUCCH_METRIC_ATOL, "stored ctrl enb_ul: PUCCH format 2 differs")
+        extra = f"PUCCH format 1 {bits1.tolist()}, format 2 identical"
+    for i, (tb, ok, n_it) in enumerate(out["res"]):
+        check(ok == bool(fx["ref_crc_ok"][i]) and n_it == int(fx["ref_n_it"][i]),
+              f"stored ctrl {kind}: TTI {i}: crc_ok {ok}, {n_it} iterations")
+        check(not ok or np.array_equal(tb, np.unpackbits(fx["ref_tb_packed"][i], count=tb.size)),
+              f"stored ctrl {kind}: TTI {i}: TB bits differ from the reference")
+    return (f"stored ctrl {kind}: W={len(out['res'])}, max_abs_err {err:.3g}, {extra}, crc_ok "
+            f"{fx['ref_crc_ok'].tolist()} as the reference")
+
+
+def phase_stored_ctrl(dev) -> tuple[int, int]:
+    """Phase 21: the stored control windows.  Returns the (static,
+    dynamic-K) launches."""
+    reset_launches()
+    for kind in CTRL_KINDS:
+        fx = stored_ctrl(kind)[0]
+        out = stored_ctrl_decode(kind, dev)
+        note_shape(f"stored ctrl {kind}", out["pack"])
+        print(check_stored_ctrl(kind, fx, out))
+    launches = read_launches()
+    check(launches[1] > 0 and launches[0] == 0, f"stored ctrl windows: map launches {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1556,6 +2085,13 @@ def main() -> int:
         mark(f"phase 18: loopback {kind}")
         by_path[f"loopback {kind}"], windows[f"loopback {kind}"] = phase_loopback(dev, kind)
         torch.cuda.empty_cache()
+    # phases 19-21: the control plane
+    for kind, phase in (("dl", phase_ctrl_dl), ("ul", phase_ctrl_ul)):
+        mark(f"phase {19 + (kind == 'ul')}: ctrl loopback {kind}")
+        by_path[f"ctrl loopback {kind}"], windows[f"ctrl loopback {kind}"] = phase(dev)
+        torch.cuda.empty_cache()
+    mark("phase 21: the stored control windows")
+    by_path["stored ctrl windows"] = phase_stored_ctrl(dev)
     mark("phase 12: the dynamic-K kernel at the windows' shapes")
     max_err_win, win_shapes = phase_window_kernel(dev)
     max_err_dyn = max(max_err_dyn, max_err_win)

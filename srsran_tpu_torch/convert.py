@@ -1,9 +1,11 @@
 """Turn reference configuration objects into the port's counterparts.
 
 `from_reference(obj)` reads the dataclass fields of a `srsran_tpu` `Cell`,
-`DlGrant`, `DlGrant2`, `UlGrant`, `ChestDlConfig`, `OfdmConfig` or
-`TbCoding` and builds the port's class of the same name, so that both
-packages decode one configuration.
+`DlGrant`, `DlGrant2`, `UlGrant`, `ChestDlConfig`, `OfdmConfig`, `TbCoding`,
+`DlSched`, `Mib`, `PucchConfig` or `UciCfg` and builds the port's class of
+the same name, so that both packages decode one configuration.  A
+`DlSched`'s grants are converted too, and its DCI bits become numpy
+arrays.
 It goes by the class name and the fields (duck typing), so this package
 needs no import of the reference (which would import jax).
 
@@ -22,14 +24,18 @@ import torch
 
 from .phy.chest.chest_dl import ChestDlConfig
 from .phy.common import CP, Cell
+from .phy.enb.enb_dl import DlSched
 from .phy.modem import Mod
 from .phy.ofdm import OfdmConfig
+from .phy.phch.pbch import Mib
 from .phy.phch.pdsch import DlGrant, DlGrant2
-from .phy.phch.pusch import UlGrant
+from .phy.phch.pucch import PucchConfig
+from .phy.phch.pusch import UciCfg, UlGrant
 from .phy.phch.sch import TbCoding
 
 _CLASSES = {c.__name__: c for c in (
-    Cell, DlGrant, DlGrant2, UlGrant, ChestDlConfig, OfdmConfig, TbCoding)}
+    Cell, DlGrant, DlGrant2, UlGrant, ChestDlConfig, OfdmConfig, TbCoding, Mib, PucchConfig,
+    UciCfg)}
 _ENUMS = {e.__name__: e for e in (CP, Mod)}
 
 
@@ -41,6 +47,12 @@ def _value(v):
 
 def from_reference(obj):
     """The port's counterpart of a reference config dataclass."""
+    if type(obj).__name__ == "DlSched" and dataclasses.is_dataclass(obj):
+        return DlSched(
+            cfi=obj.cfi,
+            dcis=[(np.array(bits, np.uint8), rnti, agg, cce) for bits, rnti, agg, cce in obj.dcis],
+            grants=[(from_reference(g), tb) for g, tb in obj.grants],
+            phich=list(obj.phich))
     cls = _CLASSES.get(type(obj).__name__)
     if cls is None or not dataclasses.is_dataclass(obj):
         raise TypeError(f"no counterpart for {type(obj).__name__}")

@@ -58,6 +58,12 @@ def crc_attach_np(bits: np.ndarray, poly: int) -> np.ndarray:
     return np.concatenate([bits.astype(np.uint8), crc.astype(np.uint8)])
 
 
+def crc_compute_np(bits: np.ndarray, poly: int) -> np.ndarray:
+    """Host: the (order,) uint8 CRC of a {0,1} bit array."""
+    m = crc_matrix_np(poly, len(bits))
+    return ((bits.astype(np.uint32) @ m.astype(np.uint32)) & 1).astype(np.uint8)
+
+
 def crc_table(poly: int, length: int, device) -> torch.Tensor:
     """`crc_matrix_np` as a float32 tensor on `device` (cached)."""
     return table(crc_matrix_np, poly, length, device=torch.device(device), dtype=torch.float32)

@@ -1,7 +1,8 @@
-"""Turbo de-rate-matching, TS 36.212 §5.1.4.1.
+"""Rate matching for turbo (TS 36.212 §5.1.4.1) and convolutional (§5.1.4.2)
+codes.
 
-Counterpart of `srsran_tpu/phy/fec/rate_match.py` (the transmit side as
-host numpy, for stimuli):
+Counterpart of `srsran_tpu/phy/fec/rate_match.py` (the transmit sides as
+host numpy, for stimuli).  Turbo:
 the host derives, per (K, E, rv, filler), one index vector into the flat
 (3*(K+4),) d-stream array (circular buffer, dummy-bit skipping, rv start
 k0); on the device the de-rate-match is one `index_add_` that sums
@@ -24,6 +25,12 @@ NCOLS = 32
 RM_PERM_TC = np.array(
     [0, 16, 8, 24, 4, 20, 12, 28, 2, 18, 10, 26, 6, 22, 14, 30,
      1, 17, 9, 25, 5, 21, 13, 29, 3, 19, 11, 27, 7, 23, 15, 31],
+    dtype=np.int64,
+)
+# TS 36.212 Table 5.1.4-2 inter-column permutation (convolutional)
+RM_PERM_CC = np.array(
+    [1, 17, 9, 25, 5, 21, 13, 29, 3, 19, 11, 27, 7, 23, 15, 31,
+     0, 16, 8, 24, 4, 20, 12, 28, 2, 18, 10, 26, 6, 22, 14, 30],
     dtype=np.int64,
 )
 
@@ -95,3 +102,76 @@ def turbo_rate_match_rx(llr_e: torch.Tensor, k: int, rv: int = 0,
                        device=llr_e.device)
     flat.index_add_(-1, idx, llr_e)
     return flat.reshape(llr_e.shape[:-1] + (3, k + 4))
+
+
+# --- convolutional (tail-biting) rate matching --------------------------------
+
+
+@lru_cache(maxsize=512)
+def _conv_wbuffer(d: int):
+    """w map for conv coding: 3 streams of length d, concatenated v0|v1|v2."""
+    r = -(-d // NCOLS)
+    kp = r * NCOLS
+    nd = kp - d
+    y_idx = (np.arange(r)[None, :] * NCOLS + RM_PERM_CC[:, None]).reshape(-1)
+    w = np.empty(3 * kp, np.int64)
+    for s in range(3):
+        w[s * kp : (s + 1) * kp] = np.where(y_idx < nd, -1, s * d + (y_idx - nd))
+    return w, kp
+
+
+@lru_cache(maxsize=4096)
+def conv_rm_indices(d: int, e: int) -> np.ndarray:
+    """Gather indices (length e) into the flat (3*d,) d-stream array."""
+    w, _kp = _conv_wbuffer(d)
+    stream = w[w >= 0]
+    reps = -(-e // len(stream))
+    return np.tile(stream, reps)[:e].astype(np.int32)
+
+
+def conv_rate_match_tx(d: np.ndarray, e: int) -> np.ndarray:
+    """Host: d (..., 3, D) → (..., e)."""
+    return d.reshape(d.shape[:-2] + (-1,))[..., conv_rm_indices(d.shape[-1], e)]
+
+
+def conv_rate_match_rx(llr_e: torch.Tensor, d: int) -> torch.Tensor:
+    """LLRs (..., e) → (..., 3, d), summing repetitions, on the device of
+    `llr_e`."""
+    e = llr_e.shape[-1]
+    idx = table(conv_rm_indices, d, e, device=llr_e.device, dtype=torch.int64)
+    flat = torch.zeros(llr_e.shape[:-1] + (3 * d,), dtype=llr_e.dtype, device=llr_e.device)
+    flat.index_add_(-1, idx, llr_e)
+    return flat.reshape(llr_e.shape[:-1] + (3, d))
+
+
+@lru_cache(maxsize=256)
+def _conv_stream(d: int) -> np.ndarray:
+    """The circular-buffer read order (each flat position at most once per
+    cycle): the batch de-rate-match folds repetitions by cycle."""
+    w, _kp = _conv_wbuffer(d)
+    return w[w >= 0].astype(np.int32)
+
+
+def conv_rate_match_rx_batch_np(llr_e: np.ndarray, d: int) -> np.ndarray:
+    """Host: (H, e) LLR rows → (H, 3, d), the repetitions folded by cycle —
+    the blind search runs one per (DCI length, aggregation level)."""
+    llr_e = np.asarray(llr_e, np.float32)
+    h, e = llr_e.shape
+    stream = _conv_stream(d)
+    ls = stream.size
+    reps = -(-e // ls)
+    pad = np.zeros((h, reps * ls), np.float32)
+    pad[:, :e] = llr_e
+    folded = pad.reshape(h, reps, ls).sum(axis=1)
+    flat = np.zeros((h, 3 * d), np.float32)
+    flat[:, stream] = folded
+    return flat.reshape(h, 3, d)
+
+
+def conv_rate_match_rx_np(llr_e: np.ndarray, d: int) -> np.ndarray:
+    """Host: de-rate-match of control-sized payloads by one scatter-add."""
+    llr_e = np.asarray(llr_e, np.float32)
+    idx = conv_rm_indices(d, llr_e.shape[-1])
+    flat = np.zeros(llr_e.shape[:-1] + (3 * d,), np.float32)
+    np.add.at(flat, (..., idx), llr_e)
+    return flat.reshape(llr_e.shape[:-1] + (3, d))

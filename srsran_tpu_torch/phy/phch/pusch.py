@@ -1,11 +1,16 @@
-"""PUSCH: grant, channel interleaver, scrambling c_init and host encode.
+"""PUSCH: grant, channel interleaver, UCI multiplexing, scrambling c_init and
+host encode.
 
-Counterpart of `UlGrant`, `_interleaver_indices`, `pusch_symbols_data`,
-`pusch_cinit` and `pusch_encode_np` of `srsran_tpu/phy/phch/pusch.py`, for
-data-only grants.  Chain (TS 36.212 §5.2.2 / 36.211 §5.3): UL-SCH coding →
-time-first channel interleaver → scrambling → modulation → DFT precoding →
-mapping to the allocated PRBs (every symbol but the DMRS symbol of each
-slot) → DMRS.  UCI multiplexing on PUSCH is not ported yet.
+Counterpart of `UlGrant`, `UciCfg`, `_interleaver_indices`,
+`pusch_symbols_data`, `pusch_cinit` and `pusch_encode_np` of
+`srsran_tpu/phy/phch/pusch.py`.  Chain (TS 36.212 §5.2.2 / 36.211 §5.3):
+UL-SCH coding → CQI concatenation + RI-reserved / ACK-punctured time-first
+channel interleaver → scrambling → modulation → DFT precoding → mapping to
+the allocated PRBs (every symbol but the DMRS symbol of each slot) → DMRS.
+UCI coding: RM(32,O) cyclically extended for CQI up to 11 bits, CRC8 + the
+tail-biting conv code above; RI/ACK as Qm-wise repetition; Q' dimensioning
+per §5.2.2.6 with the TS 36.213 §8.6.3 beta tables.  The receive side with
+UCI (`pusch_decode(uci=)`) is not ported.
 """
 
 from __future__ import annotations
@@ -16,13 +21,18 @@ from functools import lru_cache
 import numpy as np
 
 from ..chest.refsignal_ul import dmrs_symbol_in_slot, pusch_dmrs
-from ..common import Cell
+from ..common import LTE_CRC8, Cell
+from ..crc import crc_compute_np
 from ..dft_precoding import _dft_matrix
+from ..fec.cbsegm import cbsegm
+from ..fec.conv import convcoder_encode_np
+from ..fec.rate_match import conv_rm_indices
 from ..modem import Mod, modulate_np
 from ..scrambling import scramble_bits
 from ..sequence import gold_sequence
 from .pdsch import MOD_QM
 from .sch import TbCoding, dlsch_encode_np
+from .uci import rm_encode
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +47,18 @@ class UlGrant:
     @property
     def qm(self) -> int:
         return MOD_QM[self.mod]
+
+
+@dataclasses.dataclass(frozen=True)
+class UciCfg:
+    """UCI carried on PUSCH (srslte_uci_cfg_t/uci_value_t roles)."""
+
+    cqi_bits: tuple = ()  # payload bits (wideband CQI/PMI up to 11, subband above)
+    ack: tuple = ()       # HARQ-ACK values (0/1)
+    ri: tuple = ()        # rank indicator values (0/1)
+    i_offset_cqi: int = 7
+    i_offset_ack: int = 6
+    i_offset_ri: int = 6
 
 
 @lru_cache(maxsize=256)
@@ -62,6 +84,86 @@ def _deinterleaver_indices(g: int, qm: int, c_mux: int = 12) -> np.ndarray:
     return inv
 
 
+# TS 36.213 Tables 8.6.3-1/-2/-3
+BETA_ACK = [2.0, 2.5, 3.125, 4.0, 5.0, 6.25, 8.0, 10.0, 12.625, 15.875, 20.0,
+            31.0, 50.0, 80.0, 126.0]
+BETA_RI = [1.25, 1.625, 2.0, 2.5, 3.125, 4.0, 5.0, 6.25, 8.0, 10.0, 12.625,
+           15.875, 20.0]
+BETA_CQI = [None, None, 1.125, 1.25, 1.375, 1.625, 1.750, 2.0, 2.25, 2.5,
+            2.875, 3.125, 3.5, 4.0, 5.0, 6.25]
+
+_RI_COLUMNS = (1, 4, 7, 10)   # normal CP
+_ACK_COLUMNS = (2, 3, 8, 9)   # normal CP
+
+
+def _k_segm(tbs: int) -> int:
+    seg = cbsegm(tbs)
+    return seg.C_plus * seg.K_plus + seg.C_minus * seg.K_minus
+
+
+def _qprime_cqi(o: int, l_prb: int, nsymb: int, beta: float, k_segm: int,
+                qprime_ri: int) -> int:
+    l = 0 if o < 11 else 8
+    x = int(np.ceil((o + l) * l_prb * 12 * nsymb * beta / k_segm))
+    return min(x, l_prb * 12 * nsymb - qprime_ri)
+
+
+def _qprime_ri_ack(o: int, l_prb: int, nsymb: int, beta: float, k_segm: int) -> int:
+    x = int(np.ceil(o * l_prb * 12 * nsymb * beta / k_segm))
+    return min(x, 4 * l_prb * 12)
+
+
+def _uci_positions(qprime: int, qm: int, rows: int, columns) -> np.ndarray:
+    """Bit positions of RI (reserved) or ACK (puncturing) groups — from the
+    bottom interleaver row upward over the 4-column set."""
+    i = np.arange(qprime)
+    row = rows - 1 - i // 4
+    col = np.asarray(columns)[(3 * i) % 4]
+    base = (col * rows + row) * qm
+    return (base[:, None] + np.arange(qm)[None, :]).reshape(-1).astype(np.int32)
+
+
+@lru_cache(maxsize=64)
+def _uci_layout(tbs: int, g: int, qm: int, nsymb: int, l_prb: int,
+                n_cqi: int, n_ack: int, n_ri: int,
+                i_cqi: int, i_ack: int, i_ri: int):
+    """(data_write_positions, cqi_qbits, ri_positions, ack_positions,
+    g_data) for one PUSCH+UCI configuration."""
+    rows = g // (qm * 12)
+    k_segm = _k_segm(tbs)
+    qp_ri = _qprime_ri_ack(n_ri, l_prb, nsymb, BETA_RI[i_ri], k_segm) if n_ri else 0
+    qp_ack = _qprime_ri_ack(n_ack, l_prb, nsymb, BETA_ACK[i_ack], k_segm) if n_ack else 0
+    qp_cqi = _qprime_cqi(n_cqi, l_prb, nsymb, BETA_CQI[i_cqi], k_segm, qp_ri) if n_cqi else 0
+    ri_pos = _uci_positions(qp_ri, qm, rows, _RI_COLUMNS)
+    ack_pos = _uci_positions(qp_ack, qm, rows, _ACK_COLUMNS)
+    # row-major read, column-major write, skipping RI-reserved positions
+    j, i, k = np.meshgrid(np.arange(rows), np.arange(12), np.arange(qm), indexing="ij")
+    order = ((i * rows + j) * qm + k).reshape(-1)
+    reserved = np.zeros(g, bool)
+    reserved[ri_pos] = True
+    write_pos = order[~reserved[order]]
+    g_data = g - qm * (qp_ri + qp_cqi)
+    return write_pos.astype(np.int32), qp_cqi * qm, ri_pos, ack_pos, g_data
+
+
+def _encode_rep(values, nbits: int, qm: int) -> np.ndarray:
+    """1..2-bit RI/ACK: Qm-wise repetition blocks (QPSK placeholder form)."""
+    v = np.asarray(values, np.uint8)
+    reps = nbits // qm
+    return np.tile(np.repeat(v[:1] if len(v) == 1 else v[:2][:1], qm), reps)[:nbits]
+
+
+def _cqi_coded(cqi_bits: tuple, n_bits: int) -> np.ndarray:
+    """The CQI's n_bits coded bits: RM(32,O) cyclically extended for up to
+    11 payload bits; above, CRC8 + the tail-biting conv code + circular
+    rate match (TS 36.212 §5.2.2.6.4)."""
+    b = np.asarray(cqi_bits, np.uint8)
+    if len(b) > 11:
+        coded = convcoder_encode_np(np.concatenate([b, crc_compute_np(b, LTE_CRC8)]))
+        return coded.reshape(-1)[conv_rm_indices(coded.shape[-1], n_bits)]
+    return rm_encode(b, 32)[np.arange(n_bits) % 32]
+
+
 def pusch_symbols_data(cell: Cell, shortened: bool = False) -> list[int]:
     """Data-bearing SC-FDMA symbols.  `shortened` drops the last symbol, the
     cell-specific SRS subframe format (TS 36.211 §5.5.3.3)."""
@@ -75,16 +177,30 @@ def pusch_cinit(rnti: int, sf_idx: int, cell_id: int) -> int:
 
 
 def pusch_encode_np(cell: Cell, sf_idx: int, grant: UlGrant, tb_bits: np.ndarray,
-                    uci=None, shortened: bool = False) -> np.ndarray:
-    """Host TX: one TB → (nsymb_sf, nre) complex64 grid (UE side, 1 antenna)."""
-    if uci is not None:
-        raise NotImplementedError("UCI on PUSCH is not ported")
+                    uci: UciCfg | None = None, shortened: bool = False) -> np.ndarray:
+    """Host TX: one TB (+ optional UCI) → (nsymb_sf, nre) complex64 grid (UE
+    side, 1 antenna)."""
     m_sc = 12 * grant.nof_prb
     data_syms = pusch_symbols_data(cell, shortened)
     g = len(data_syms) * m_sc * grant.qm
-    coding = TbCoding(tbs=grant.tbs, g=g, qm=grant.qm, rv=grant.rv)
-    bits = dlsch_encode_np(tb_bits, coding)  # UL-SCH is the same chain here
-    inter = bits[_interleaver_indices(g, grant.qm)]
+    if uci is not None and (uci.cqi_bits or uci.ack or uci.ri):
+        write_pos, n_cqi_bits, ri_pos, ack_pos, g_data = _uci_layout(
+            grant.tbs, g, grant.qm, len(data_syms), grant.nof_prb,
+            len(uci.cqi_bits), len(uci.ack), len(uci.ri),
+            uci.i_offset_cqi, uci.i_offset_ack, uci.i_offset_ri)
+        data = dlsch_encode_np(tb_bits, TbCoding(tbs=grant.tbs, g=g_data, qm=grant.qm, rv=grant.rv))
+        if n_cqi_bits:
+            data = np.concatenate([_cqi_coded(tuple(uci.cqi_bits), n_cqi_bits), data])
+        inter = np.zeros(g, np.uint8)
+        inter[write_pos] = data
+        if len(ri_pos):
+            inter[ri_pos] = _encode_rep(uci.ri, len(ri_pos), grant.qm)
+        if len(ack_pos):  # ACK punctures data
+            inter[ack_pos] = _encode_rep(uci.ack, len(ack_pos), grant.qm)
+    else:
+        coding = TbCoding(tbs=grant.tbs, g=g, qm=grant.qm, rv=grant.rv)
+        bits = dlsch_encode_np(tb_bits, coding)  # UL-SCH is the same chain here
+        inter = bits[_interleaver_indices(g, grant.qm)]
     seq = gold_sequence(pusch_cinit(grant.rnti, sf_idx, cell.id), g)
     sym = modulate_np(grant.mod, scramble_bits(inter, seq)).reshape(len(data_syms), m_sc)
     precoded = (sym @ _dft_matrix(m_sc, False)).astype(np.complex64)

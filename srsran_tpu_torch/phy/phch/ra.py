@@ -1,6 +1,7 @@
-"""DL and UL MCS → (modulation, I_TBS) and the TBS lookup, TS 36.213 §7.1.7
-and §8.6.1 — host side.  Copy of that part of `srsran_tpu/phy/phch/ra.py`;
-the spec tables are in `tbs_data.py`."""
+"""DL and UL MCS → (modulation, I_TBS), the TBS lookup and the resource
+indication value, TS 36.213 §7.1.7, §8.6.1 and §7.1.6.3 — host side.  Copy
+of that part of `srsran_tpu/phy/phch/ra.py`; the spec tables are in
+`tbs_data.py`."""
 
 from __future__ import annotations
 
@@ -45,3 +46,24 @@ def dl_tbs(mcs: int, n_prb: int, use_256qam: bool = False, dwpts: bool = False) 
     if dwpts:
         n_prb = max(1, int(0.75 * n_prb))
     return tbs_lookup(dl_mcs_to_itbs(mcs, use_256qam), n_prb)
+
+
+def riv_encode(nof_prb: int, rb_start: int, l_crb: int) -> int:
+    """TS 36.213 §7.1.6.3."""
+    if l_crb < 1 or rb_start + l_crb > nof_prb:
+        raise ValueError("invalid allocation")
+    if (l_crb - 1) <= nof_prb // 2:
+        return nof_prb * (l_crb - 1) + rb_start
+    return nof_prb * (nof_prb - l_crb + 1) + (nof_prb - 1 - rb_start)
+
+
+def riv_decode(nof_prb: int, riv: int) -> tuple[int, int]:
+    """Returns (rb_start, l_crb)."""
+    l_crb = riv // nof_prb + 1
+    rb_start = riv % nof_prb
+    if rb_start + l_crb > nof_prb:  # encoded with the flipped branch
+        l_crb = nof_prb - l_crb + 2
+        rb_start = nof_prb - 1 - rb_start
+    if l_crb < 1 or rb_start + l_crb > nof_prb:
+        raise ValueError(f"invalid RIV {riv}")
+    return rb_start, l_crb

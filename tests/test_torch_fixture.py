@@ -317,3 +317,52 @@ def test_port_generates_gen_window_fixture_like_reference(kind):
     eng = smoke.gen_engine(kind, cell, int(fx["w"]), device="cpu")
     n_diff, err = smoke.stored_gen_errors(eng, fx, sfs, grants, payloads, kw)
     assert n_diff == 0 and err <= smoke.SAMPLE_ATOL
+
+
+# --- the stored control windows ----------------------------------------------------
+
+
+def test_ctrl_window_fixtures_stay_small():
+    assert sum((TESTDATA / f"window_ctrl_{k}.npz").stat().st_size for k in ("ue_dl", "enb_ul")) < 2**20
+
+
+@pytest.mark.parametrize("kind", ["ue_dl", "enb_ul"])
+def test_ctrl_window_fixture_is_current(kind):
+    """Rendering the control window again gives what is stored: the int8
+    pairs (at most 1 in 10,000 one step away, as for the decode windows),
+    the scales, the subframes, the sent TBs, DCIs and PUCCH payloads and the
+    configuration; a CRC-passing reference TB is the sent one."""
+    tool = load_tool()
+    fx = np.load(tool.OUT_CTRL[kind])
+    for key, val in tool.CTRL_CONFIG.items():
+        assert fx[key] == val, key
+    np.testing.assert_array_equal(fx["grant_rows"], np.asarray(tool.CTRL_GRANTS[kind], np.float64))
+    _cell, sfs, q, scale, ex = tool.ctrl_window_stimulus(kind)
+    assert fx["q"].dtype == np.int8 and fx["q"].shape == q.shape == (4, 1, 30720, 2)
+    step = np.abs(fx["q"].astype(np.int16) - q)
+    assert step.max() <= 1 and np.count_nonzero(step) <= 1e-4 * q.size
+    np.testing.assert_allclose(fx["scale"], scale, rtol=1e-6)
+    assert fx["sfs"].tolist() == sfs
+    for i, t in enumerate(ex["tbs"]):
+        np.testing.assert_array_equal(np.unpackbits(fx["tb_packed"][i], count=t.size), t)
+        if fx["ref_crc_ok"][i]:
+            np.testing.assert_array_equal(fx["ref_tb_packed"][i], fx["tb_packed"][i])
+    if kind == "ue_dl":
+        for t, dcis in enumerate(ex["dcis"]):
+            assert fx["sent_rnti"][t].tolist() == [r for _b, r, _a, _c in dcis]
+            np.testing.assert_array_equal(fx["sent_bits"][t], np.stack([b for b, _r, _a, _c in dcis]))
+        assert fx["sent_acks"].tolist() == ex["acks"] == fx["ref_phich"].astype(int).tolist()
+    else:
+        np.testing.assert_array_equal(fx["sent_f1"], np.stack(ex["f1"]))
+        np.testing.assert_array_equal(fx["ref_f1_bits"], fx["sent_f1"])
+        np.testing.assert_array_equal(fx["sent_f2"], np.stack(ex["f2"]))
+
+
+@pytest.mark.parametrize("kind", ["ue_dl", "enb_ul"])
+def test_port_decodes_ctrl_window_fixture_like_reference(kind):
+    """Through the loader and the check `chip_smoke.py` phase 21 uses."""
+    smoke = load_smoke()
+    fx, _cell, _sfs, samples = smoke.stored_ctrl(kind)
+    np.testing.assert_array_equal(samples[:, 0], load_tool().window_samples(fx["q"], fx["scale"])[:, 0])
+    line = smoke.check_stored_ctrl(kind, fx, smoke.stored_ctrl_decode(kind, "cpu"))
+    assert line.startswith(f"stored ctrl {kind}: W=4")

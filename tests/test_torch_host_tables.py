@@ -378,3 +378,73 @@ def test_from_reference_takes_every_grant_class():
     assert from_reference(pairs[1][0]).qm1 == 6 and from_reference(pairs[1][0]).qm2 == 2
     with pytest.raises(TypeError):
         from_reference(object())
+
+
+# --- the control plane's host tables ----------------------------------------------
+
+REG_CELLS = CELLS + [dict(nof_prb=25, id=7, phich_length=1), dict(nof_prb=100, id=301, phich_resources=3),
+                     dict(nof_prb=6, id=5, cp=1, phich_resources=0)]
+
+
+@pytest.mark.parametrize("kw", REG_CELLS)
+def test_reg_interleaver_tables(kw):
+    """TS 36.211 §6.8.5 REGs of both CPs and both PHICH durations: the
+    master list, the PCFICH, PHICH and PDCCH assignments and the flat RE
+    indices of every channel."""
+    import srsran_tpu.phy.phch.regs as r_regs
+    import srsran_tpu_torch.phy.phch.regs as t_regs
+
+    ref, port = cells(**kw)
+    assert t_regs.PDCCH_PERM == r_regs.PDCCH_PERM and t_regs.PDCCH_NCOLS == r_regs.PDCCH_NCOLS
+    got, want = t_regs.build_regs(port), r_regs.build_regs(ref)
+    assert got == want
+    np.testing.assert_array_equal(t_regs.pcfich_re_indices_true(port), r_regs.pcfich_re_indices_true(ref))
+    assert t_regs.nof_phich_groups_true(port) == r_regs.nof_phich_groups_true(ref)
+    groups = len(want["phich"]) * (1 if ref.nsymb_per_slot == 7 else 2)
+    for g in range(groups):
+        np.testing.assert_array_equal(t_regs.phich_group_re_indices_true(port, g),
+                                      r_regs.phich_group_re_indices_true(ref, g))
+    for cfi in (1, 2, 3):
+        np.testing.assert_array_equal(t_regs.pdcch_re_indices_true(port, cfi),
+                                      r_regs.pdcch_re_indices_true(ref, cfi))
+
+
+def test_rm_bases_and_riv():
+    import srsran_tpu.phy.phch.uci_data as r_uci_data
+    import srsran_tpu_torch.phy.phch.uci_data as t_uci_data
+
+    for name in ("RM32_BASIS", "RM20_BASIS"):
+        assert getattr(t_uci_data, name) == getattr(r_uci_data, name), name
+    for prb in (6, 15, 25, 50, 75, 100):
+        for st in range(prb):
+            for l in range(1, prb - st + 1):
+                riv = t_ra.riv_encode(prb, st, l)
+                assert riv == r_ra.riv_encode(prb, st, l)
+                assert t_ra.riv_decode(prb, riv) == r_ra.riv_decode(prb, riv) == (st, l)
+
+
+def test_from_reference_takes_the_control_plane_classes():
+    """`DlSched` (with its grants and DCI bits), `Mib`, `PucchConfig` and
+    `UciCfg` come over field by field."""
+    import srsran_tpu.phy.enb.enb_dl as r_enb_dl
+    import srsran_tpu.phy.phch.pbch as r_pbch
+    import srsran_tpu.phy.phch.pucch as r_pucch
+    import srsran_tpu.phy.phch.pusch as r_pusch
+    import srsran_tpu_torch.phy.enb.enb_dl as t_enb_dl
+
+    g = r_pdsch.DlGrant(prb=(1, 2), mod=r_modem.Mod.QAM16, tbs=600, rnti=7)
+    tb = np.ones(600, np.uint8)
+    sched = r_enb_dl.DlSched(cfi=3, dcis=[(np.array([1, 0, 1], np.uint8), 0x46, 4, 8)],
+                             grants=[(g, tb)], phich=[(1, 5, 1)])
+    got = from_reference(sched)
+    assert type(got) is t_enb_dl.DlSched and got.cfi == 3 and got.phich == [(1, 5, 1)]
+    (bits, rnti, agg, cce), = got.dcis
+    assert bits.tolist() == [1, 0, 1] and (rnti, agg, cce) == (0x46, 4, 8)
+    (g2, tb2), = got.grants
+    assert type(g2) is t_pdsch.DlGrant and g2.tbs == 600 and tb2 is tb
+    for ref in (r_pbch.Mib(nof_prb=50, phich_length=1, phich_resources=2, sfn=513),
+                r_pucch.PucchConfig(n_pucch=17, delta_shift=3),
+                r_pusch.UciCfg(cqi_bits=(1, 0), ack=(1,), ri=(0,), i_offset_cqi=9)):
+        got = from_reference(ref)
+        assert type(got).__name__ == type(ref).__name__ and type(got) is not type(ref)
+        assert dataclasses.asdict(got) == dataclasses.asdict(ref)

@@ -16,7 +16,12 @@ def test_import_leaves_jax_out():
         "import srsran_tpu_torch.phy.chest.chest_ul, srsran_tpu_torch.phy.chest.refsignal_ul\n"
         "import srsran_tpu_torch.phy.phch.pusch, srsran_tpu_torch.phy.ue.ue_ul\n"
         "import srsran_tpu_torch.pipeline_window, srsran_tpu_torch.phy.sync.pss\n"
-        "import srsran_tpu_torch.phy.sync.sss\n"
+        "import srsran_tpu_torch.phy.sync.sss, srsran_tpu_torch.pipeline_ctrl\n"
+        "import srsran_tpu_torch.phy.fec.conv, srsran_tpu_torch.phy.enb.enb_dl\n"
+        "import srsran_tpu_torch.phy.phch.pdcch, srsran_tpu_torch.phy.phch.pbch\n"
+        "import srsran_tpu_torch.phy.phch.pcfich, srsran_tpu_torch.phy.phch.phich\n"
+        "import srsran_tpu_torch.phy.phch.pucch, srsran_tpu_torch.phy.phch.uci\n"
+        "import srsran_tpu_torch.phy.phch.dci, srsran_tpu_torch.phy.phch.regs\n"
         "import importlib.util as u\n"
         "spec = u.spec_from_file_location('prof', 'tools/profile_torch_dynamic.py')\n"
         "spec.loader.exec_module(u.module_from_spec(spec))\n"
@@ -35,6 +40,10 @@ def test_every_module_of_the_port_imports_without_jax():
     assert "srsran_tpu_torch.phy.ue.ue_ul" in mods and "srsran_tpu_torch.phy.mimo" in mods
     assert "srsran_tpu_torch.pipeline_window" in mods
     assert "srsran_tpu_torch.phy.sync.pss" in mods and "srsran_tpu_torch.phy.sync.sss" in mods
+    for m in ("pipeline_ctrl", "phy.fec.conv", "phy.enb.enb_dl", "phy.phch.regs", "phy.phch.dci",
+              "phy.phch.pcfich", "phy.phch.phich", "phy.phch.pdcch", "phy.phch.pbch",
+              "phy.phch.uci_data", "phy.phch.uci", "phy.phch.pucch"):
+        assert f"srsran_tpu_torch.{m}" in mods, m
     code = (
         "import sys, importlib\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -52,10 +52,25 @@ masked) and `WindowedEnbDlMimo` (PMIs 0-2 and one CDD TTI) on a 25 PRB cell
 inputs, the reference's row codewords (its codeword core, packed) and its
 samples (complex64).
 
+The control-window fixtures (`window_ctrl_ue_dl.npz`,
+`window_ctrl_enb_ul.npz`) hold one W = 4 window each on the 100 PRB cell
+301 at CFI 2 (`CTRL_GRANTS`), rendered by the reference's host transmitters
+and decoded by its control front ends (float32 ingest, 6 iterations).  The
+DL one: per TTI a `Dci1A` DL assignment for RNTI 0x46 at aggregation 4 with
+its PDSCH TB, a `Dci0` for RNTI 0x1234 at aggregation 2, one PHICH (group
+0, n_seq 1) and the MIB on subframe 0 (`enb_dl_subframe`); stored are the
+int8 samples and scales, the sent DCIs, the reference's control REs
+(`realize`), its found DCIs (`window_blind_search` over both RNTIs), PHICH
+decisions and the TBs of its data pass over the grants it found.  The UL
+one: per TTI a PUSCH grant, a 2-bit format-1 ACK on n_pucch 2 and a 10-bit
+format-2 report on n_pucch 40 (`ue_ul_encode`); stored are the samples, the
+reference's band edges and PRB powers (`realize_pucch`), its format-1 batch
+and format-2 decodes and the TBs of its data pass.
+
 Run from the repo root:  JAX_PLATFORMS=cpu python tools/make_torch_fixture.py
 (`main`, `main_dynamic`, `main_mimo`, `main_ul`, `main_ul_dynamic` each
 write one file, `main_windows` the three decode windows, `main_gen_windows`
-the three generate windows.)
+the three generate windows, `main_ctrl_windows` the two control windows.)
 """
 
 from __future__ import annotations
@@ -205,6 +220,22 @@ def main_dynamic():
         noise_amp=cols[:, 4], **{k: np.asarray(v) for k, v in DYN_CONFIG.items()},
     )
     print(f"wrote {OUT_DYN}")
+
+# the stored control windows: W TTIs on the 100 PRB cell at CFI 2, float32 ingest
+CTRL_CONFIG = dict(nof_prb=100, cell_id=301, cfi=2, w=4, max_iterations=6, edge_prbs=4, rnti=0x46,
+                   rnti_ul=0x1234, seed=20261023)
+OUT_CTRL = {kind: TESTDATA / f"window_ctrl_{kind}.npz" for kind in ("ue_dl", "enb_ul")}
+CTRL_GRANTS = {
+    # (mcs, first PRB, number of PRB, subframe, noise amplitude) of the DL
+    # assignment: subframe 0 carries the MIB; a 64QAM TB in noise that it
+    # cannot decode in (its DCIs still decode)
+    "ue_dl": ((20, 0, 100, 0, 0.05), (9, 10, 30, 1, 0.05), (26, 50, 50, 5, 0.05), (22, 0, 100, 6, 0.2)),
+    # (mcs, first PRB, number of PRB, subframe, noise amplitude) of the PUSCH
+    # grant inside the band edges
+    "enb_ul": ((20, 4, 90, 2, 0.05), (10, 40, 25, 7, 0.05), (3, 70, 9, 0, 0.05), (16, 10, 50, 5, 0.25)),
+}
+# PUCCH resources of the UL control window: (n_pucch, payload bits)
+CTRL_F1, CTRL_F2 = (2, 2), (40, 10)
 
 
 def awgn(seed: int, x: np.ndarray, amp: float) -> np.ndarray:
@@ -553,6 +584,137 @@ def main_gen_windows():
         print(f"wrote {out}: {len(payloads)} codeword rows, samples {ri.shape[:-1]}")
 
 
+def ctrl_window_stimulus(kind: str):
+    """(reference cell, subframe indices, int8 samples (W, 1, sf_len, 2),
+    scales (W,), extras) of the stored control window `kind`.  extras:
+    "ue_dl": the reference grants and TBs, the sent DCIs per TTI [(rnti,
+    bits, level, CCE)] (the DL assignment first), the PHICH ACKs, the MIB;
+    "enb_ul": the reference grants and TBs, the format-1 ACK bits and
+    format-2 payloads."""
+    import jax
+
+    from srsran_tpu.phy.common import Cell
+    from srsran_tpu.phy.enb.enb_dl import DlSched, enb_dl_subframe
+    from srsran_tpu.phy.phch.dci import Dci0, Dci1A
+    from srsran_tpu.phy.phch.pbch import Mib
+    from srsran_tpu.phy.phch.pdcch import nof_cce, search_space_candidates
+    from srsran_tpu.phy.phch.pdsch import DlGrant
+    from srsran_tpu.phy.phch.pucch import PucchConfig
+    from srsran_tpu.phy.phch.ra import dl_mcs_to_mod, dl_tbs, riv_encode
+    from srsran_tpu.phy.ue.ue_ul import ue_ul_encode
+    from srsran_tpu.pipeline_window import _quantize_ingest
+
+    c = CTRL_CONFIG
+    n_prb = c["nof_prb"]
+    cell = Cell(nof_prb=n_prb, nof_ports=1, id=c["cell_id"])
+    rng = np.random.default_rng(c["seed"] + list(OUT_CTRL).index(kind))
+    mib = Mib(nof_prb=n_prb, phich_length=cell.phich_length, phich_resources=cell.phich_resources)
+    sfs, grants, tbs, rxs = [], [], [], []
+    ex = dict(dcis=[], acks=[], f1=[], f2=[], mib=mib)
+    with jax.default_device(jax.devices("cpu")[0]):
+        for t, (mcs, s0, l, sf_idx, amp) in enumerate(CTRL_GRANTS[kind]):
+            if kind == "ue_dl":
+                g = DlGrant(prb=tuple(range(s0, s0 + l)), mod=dl_mcs_to_mod(mcs), tbs=dl_tbs(mcs, l),
+                            rnti=c["rnti"])
+                tb = rng.integers(0, 2, g.tbs).astype(np.uint8)
+                n_cce = nof_cce(cell, sf_idx, c["cfi"])
+                c4 = search_space_candidates(c["rnti"], sf_idx, n_cce)[4][0]
+                c2 = next(x for x in search_space_candidates(c["rnti_ul"], sf_idx, n_cce)[2]
+                          if x + 2 <= c4 or x >= c4 + 4)
+                d1a = Dci1A(riv=riv_encode(n_prb, s0, l), mcs=mcs, harq_pid=t, ndi=1, tpc=1)
+                d0 = Dci0(riv=riv_encode(n_prb, 5, 20), mcs=10 + t, ndi=t & 1, tpc=2)
+                dcis = [(np.asarray(d1a.pack(n_prb)), c["rnti"], 4, c4),
+                        (np.asarray(d0.pack(n_prb)), c["rnti_ul"], 2, c2)]
+                sched = DlSched(cfi=c["cfi"], dcis=list(dcis), grants=[(g, tb)], phich=[(0, 1, t & 1)])
+                clean = np.asarray(enb_dl_subframe(cell, sf_idx, sched, mib=mib, sfn=0)[1])
+                ex["dcis"].append(dcis)
+                ex["acks"].append(t & 1)
+            else:
+                g = ul_grant(mcs, s0, l, c["rnti"])
+                tb = rng.integers(0, 2, g.tbs).astype(np.uint8)
+                ack = rng.integers(0, 2, CTRL_F1[1]).astype(np.uint8)
+                cqi = rng.integers(0, 2, CTRL_F2[1]).astype(np.uint8)
+                clean = np.asarray(ue_ul_encode(
+                    cell, sf_idx, pusch=(g, tb), pucch1=(PucchConfig(n_pucch=CTRL_F1[0]), list(ack)),
+                    pucch2=(PucchConfig(n_pucch=CTRL_F2[0]), cqi)))[None, :]
+                ex["f1"].append(ack)
+                ex["f2"].append(cqi)
+            noise = rng.standard_normal(clean.shape) + 1j * rng.standard_normal(clean.shape)
+            rxs.append((clean + amp * noise).astype(np.complex64))
+            sfs.append(sf_idx)
+            grants.append(g)
+            tbs.append(tb)
+    q, scale = _quantize_ingest(np.stack(rxs), "int8")
+    ex.update(grants=grants, tbs=tbs)
+    return cell, sfs, q, scale, ex
+
+
+def main_ctrl_windows():
+    import srsran_tpu.pipeline_ctrl as pc
+    from srsran_tpu.phy.phch.dci import Dci1A
+    from srsran_tpu.phy.phch.pucch import PucchConfig, _f1_covers, pucch_f1_prb
+
+    c = CTRL_CONFIG
+    for kind, out in OUT_CTRL.items():
+        cell, sfs, q, scale, ex = ctrl_window_stimulus(kind)
+        samples = window_samples(q, scale)
+        w = c["w"]
+        common = dict(q=q, scale=scale, sfs=np.asarray(sfs), grant_rows=np.asarray(CTRL_GRANTS[kind], np.float64),
+                      tb_packed=pack_rows(ex["tbs"]), tbs=np.asarray([t.size for t in ex["tbs"]]),
+                      **{k: np.asarray(v) for k, v in c.items()})
+        if kind == "ue_dl":
+            fe = pc.WindowedUeFrontEnd(cell, cfi=c["cfi"], w=w, ingest="float32",
+                                       max_iterations=c["max_iterations"])
+            pf = fe.dispatch(samples, sfs)
+            ctrl, _rsrp, _noise = fe.realize(pf)
+            dci_len = Dci1A.nof_bits(c["nof_prb"])
+            rntis = (c["rnti"], c["rnti_ul"])
+            found = pc.window_blind_search(ctrl, fe.layout, cell, sfs,
+                                           [[(r, "1A", dci_len, True) for r in rntis]] * w)
+            hits = [(t, r, b, l, cc) for t, f in enumerate(found) for r, _f, b, l, cc in f]
+            for t, dcis in enumerate(ex["dcis"]):
+                got = {(r, b.tobytes()) for tt, r, b, _l, _c in hits if tt == t}
+                assert all((r, b.tobytes()) in got for b, r, _a, _cc in dcis), f"TTI {t}: a DCI was missed"
+            grants = ex["grants"]  # the found DL assignments are the sent ones
+            phich = [pc.phich_decode_np(ctrl[t, fe.layout.phich[0]], cell, sf, 1) for t, sf in enumerate(sfs)]
+            res = fe.results(fe.dispatch_data(pf, grants))
+            extra = dict(
+                ref_ctrl=ctrl, rntis=np.asarray(rntis), dci_len=np.int64(dci_len),
+                sent_rnti=np.asarray([[r for _b, r, _a, _c in d] for d in ex["dcis"]]),
+                sent_bits=np.asarray([[b for b, _r, _a, _c in d] for d in ex["dcis"]], np.uint8),
+                sent_acks=np.asarray(ex["acks"]),
+                found_t=np.asarray([h[0] for h in hits]), found_rnti=np.asarray([h[1] for h in hits]),
+                found_bits=np.asarray([h[2] for h in hits], np.uint8),
+                found_lvl=np.asarray([h[3] for h in hits]), found_cce=np.asarray([h[4] for h in hits]),
+                ref_phich=np.asarray([a for a, _m in phich]), ref_phich_metric=np.asarray([m for _a, m in phich]))
+            summary = f"{len(hits)} DCIs found, PHICH {[bool(a) for a, _m in phich]}"
+        else:
+            fe = pc.WindowedEnbUlFrontEnd(cell, w=w, edge_prbs=c["edge_prbs"], max_iterations=c["max_iterations"])
+            pf = fe.dispatch(samples, sfs)
+            edge, prb_pow = fe.realize_pucch(pf)
+            prbs = {n: np.asarray([[pucch_f1_prb(n, 2 * sf + slot, c["nof_prb"], 2, covers=_f1_covers(cell))
+                                    for slot in range(2)] for sf in sfs]) for n in (CTRL_F1[0], CTRL_F2[0])}
+            grids1 = np.stack([fe.pucch_prb_grid(edge, t, tuple(prbs[CTRL_F1[0]][t])) for t in range(w)])
+            bits1, metric1 = pc.pucch_format1_decode_batch(grids1, cell, CTRL_F1[0], sfs, CTRL_F1[1])
+            f2 = [pc.pucch_format2_decode_np(fe.pucch_prb_grid(edge, t, tuple(prbs[CTRL_F2[0]][t])), cell,
+                                             PucchConfig(n_pucch=CTRL_F2[0]), sf, CTRL_F2[1])
+                  for t, sf in enumerate(sfs)]
+            res = fe.results(fe.dispatch_data(pf, ex["grants"]))
+            extra = dict(
+                ref_edge=edge, ref_prb_pow=prb_pow, f1_n_pucch=np.int64(CTRL_F1[0]),
+                f1_nbits=np.int64(CTRL_F1[1]), f2_n_pucch=np.int64(CTRL_F2[0]), f2_nbits=np.int64(CTRL_F2[1]),
+                f1_prb=prbs[CTRL_F1[0]], f2_prb=prbs[CTRL_F2[0]], sent_f1=np.asarray(ex["f1"]),
+                sent_f2=np.asarray(ex["f2"]), ref_f1_bits=bits1, ref_f1_metric=np.asarray(metric1),
+                ref_f2_bits=np.stack([np.asarray(b) for b, _m in f2]),
+                ref_f2_metric=np.asarray([m for _b, m in f2]))
+            summary = f"format 1 {bits1.tolist()} (sent {np.asarray(ex['f1']).tolist()})"
+        ok = [bool(r[1]) for r in res]
+        np.savez(out, ref_tb_packed=pack_rows([r[0] for r in res]), ref_crc_ok=np.asarray(ok),
+                 ref_n_it=np.asarray([r[2] for r in res]), **common, **extra)
+        equal = [bool(np.array_equal(r[0], t)) for r, t in zip(res, ex["tbs"])]
+        print(f"wrote {out}: {summary}, crc_ok {ok}, iterations {[r[2] for r in res]}, TB equal {equal}")
+
+
 def main():
     import jax
 
@@ -586,3 +748,4 @@ if __name__ == "__main__":
     main_ul_dynamic()
     main_windows()
     main_gen_windows()
+    main_ctrl_windows()

@@ -4,7 +4,8 @@
 `--path siso` (the default), `mimo` or `ul` picks the pair of paths;
 `--path window`, `window_mimo` or `window_ul` profiles one windowed engine
 instead, `--path loopback`, `loopback_ul` or `loopback_mimo` one loopback
-window (see the end of this text).
+window, `--path ctrl_dl` or `ctrl_ul` one control loopback window (see the
+end of this text).
 
 First the static entry point at full width, with the inputs of `chip_smoke.py`:
 `ue_dl_subframe` at 100 PRB, MCS 26, B=128 subframes a call (siso);
@@ -52,11 +53,22 @@ payload and the TX class tables inside it), its codeword and sample stages,
 the channel, the decoder's plan (with `class_tables` and the softbuffer),
 stages A, B, C (with `turbo_decode_dyn`) and the result read.
 
+The control paths run one control loopback window of `chip_smoke.py`
+phases 19 and 20 again and again at 100 PRB, W = 64: ctrl_dl the eNB
+generator with the control overlay, `window_channel`, `WindowedUeFrontEnd`,
+the blind search over four RNTIs and the data pass over the grants it
+found; ctrl_ul `WindowedUeUl` with PUCCH ACKs, `WindowedEnbUlFrontEnd`, the
+format-1 decodes and the data pass.  They print the receive side's times
+and counts (`chip_smoke.time_window`), the fenced host spans of the
+window's steps (`chip_smoke.ctrl_dl_steps` / `ctrl_ul_steps`: front end,
+blind search host part, Viterbi, collect, data, results; medians of 5), and
+the kernels and device time of each step from `torch.profiler`.
+
 The last line is all of it as one JSON object.
 
 Run from the repo root on a machine with a card:
     python3 tools/profile_torch_dynamic.py [--path siso|mimo|ul|window|window_mimo|window_ul|
-                                                   loopback|loopback_ul|loopback_mimo]
+                                                   loopback|loopback_ul|loopback_mimo|ctrl_dl|ctrl_ul]
 """
 
 from __future__ import annotations
@@ -346,11 +358,48 @@ def profile_loopback(report, path: str):
               f"x{e['count_per_window']:g}  {e['name']}")
 
 
+def profile_ctrl(report, path: str):
+    """One control loopback window of `chip_smoke.py` phase 19 (ctrl_dl) or
+    20 (ctrl_ul): checked, timed, split into fenced host spans, and each
+    step's kernels and device time."""
+    kind = path.removeprefix("ctrl_")
+    cell = Cell(nof_prb=100, nof_ports=1, id=301)
+    gen, fe = chip_smoke.ctrl_engines(kind, cell, chip_smoke.W_CTRL)
+    if kind == "dl":
+        win = chip_smoke.ctrl_dl_window(cell, chip_smoke.CTRL_CFI, chip_smoke.W_CTRL, np.random.default_rng(19))
+        steps = chip_smoke.ctrl_dl_steps(cell, win, gen, fe, *chip_smoke.LOOP_CHANNELS["enb_dl"])
+    else:
+        win = chip_smoke.ctrl_ul_window(cell, chip_smoke.W_CTRL, np.random.default_rng(20))
+        steps = chip_smoke.ctrl_ul_steps(cell, win, gen, fe, *chip_smoke.LOOP_CHANNELS["ue_ul"])
+    dev = fe.device
+    s, _ = chip_smoke.run_steps(steps, dev)
+    info = (chip_smoke.check_ctrl_dl(path, cell, win, fe, s) if kind == "dl" else
+            chip_smoke.check_ctrl_ul(path, cell, win, s))
+    recv = steps[1:]
+    entry = chip_smoke.time_window(path, lambda: chip_smoke.run_steps(recv, dev, {"rx": s["rx"]}, fence=False),
+                                   chip_smoke.W_CTRL)
+    chip_smoke.print_times(path, entry)
+    spans = chip_smoke.median_spans(steps, dev, {}, n=5)
+    state, per_step = {"rx": s["rx"]}, {}
+    for name, fn in recv:
+        n_k, ms = chip_smoke.profile_kernels(lambda: fn(state))
+        per_step[name] = {"kernels": n_k, "device_ms": ms}
+    entry.update(info, fenced_spans_ms=spans, fenced_ms=sum(spans.values()), kernels_by_step=per_step)
+    report["ctrl"] = entry
+    print(f"  fenced: {sum(spans.values()):.3f} ms per window with the generator; spans (ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in spans.items()))
+    print("  kernels and device ms by step: "
+          + ", ".join(f"{k} {v['kernels']} / {v['device_ms']:.3f}" for k, v in per_step.items()))
+    for e in entry["top_kernels"]:
+        print(f"    {e['device_ms_per_window']:.4f} ms  {100 * e['share_of_device_time']:5.2f}%  "
+              f"x{e['count_per_window']:g}  {e['name']}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--path", default="siso", choices=(
         "siso", "mimo", "ul", "window", "window_mimo", "window_ul",
-        "loopback", "loopback_ul", "loopback_mimo"))
+        "loopback", "loopback_ul", "loopback_mimo", "ctrl_dl", "ctrl_ul"))
     path = parser.parse_args().path
     if not torch.cuda.is_available():
         print("profile_torch_dynamic: torch.cuda.is_available() is false", file=sys.stderr)
@@ -361,6 +410,10 @@ def main() -> int:
     print(card)
     rng = np.random.default_rng(1)
     report = {"card": card, "torch": torch.__version__, "path": path, "grants": {}}
+    if path.startswith("ctrl"):
+        profile_ctrl(report, path)
+        print(json.dumps(report))
+        return 0
     if path.startswith("loopback"):
         profile_loopback(report, path)
         print(json.dumps(report))
