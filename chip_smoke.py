@@ -132,7 +132,32 @@ Phases (each prints its own lines; any failure exits non-zero):
      (W = 4, 100 PRB, CFI 2) decoded on the card: the reference's control
      REs, band edges and PRB powers within 2e-5 of the largest magnitude,
      its found DCIs, PHICH decisions, PUCCH format-1 and format-2 bits
-     (metrics within 1e-3), CRC flags, iteration counts and TB bits.
+     (metrics within 1e-3), CRC flags, iteration counts and TB bits;
+  22. the golden vectors on the card (`tests/vectors/`, the four checks of
+     `tests/test_golden_vectors.py`): the MIB of signal.1.92M.dat (2 ports,
+     SFN offset 0, sfn 28, 50 PRB, the payload); on signal.1.92M.amar.dat
+     `cell_search` (PCI 1, sf 0, psr > 10), CFI 3 in all ten subframes with
+     the correlation margin, and the SI-RNTI SIBs of subframes 5 and 2;
+  23. the stored received frame `testdata/ue_dl_frame_100prb.npz` (100 PRB,
+     cell 301, CFI 2, a C-RNTI 1A grant per subframe; CFO, timing offset and
+     noise; int8 I/Q): `cell_search`, `mib_search`, then `UeSync` fed one
+     subframe a push and every popped subframe through
+     `ue_dl_decode_subframe`, against the reference's results
+     (`check_ue_dl_frame`);
+  24. the 20 MHz link: `EnbApp` (100 PRB, cell 301, MCS 26, CFI 2, a full
+     buffer of 1400-byte SDUs) → h 0.9·e^{0.3j}, CFO 0.12, 12345 samples of
+     timing offset, AWGN 0.01 → `UeApp` (CFI from the PCFICH), one subframe
+     a push over 5 frames (`link_run`): every decoded TB CRC-clean, the SDUs
+     an unbroken run in order over every TTI from the first complete frame
+     in TRACK, `UeSync` never leaving TRACK; FIND ms, ms per TRACK subframe
+     (host and CUDA events, warm medians) and the real-time factor,
+     `EnbApp.run_tti` ms, the sync step and the fenced spans of one subframe
+     (`ue_dl_steps`: OFDM + chest, PCFICH, blind search host part, Viterbi,
+     collect, PDSCH), kernels and busy share, the Viterbi's calls and
+     kernels, MAP launches;
+  25. (after 22-24) the static kernel against `map_pass_plain` at every
+     (B, K) that phases 22-24 launched it at (`turbo_cuda.SHAPES`), with ms,
+     bound and share of bound.
 Every path is driven with the launch counts set to 0 just before and read
 just after.  Prints one JSON line of kernel results, then as its last line
 {"ok": true, "device": {...}}.  TF32 stays off: the channel-estimate
@@ -146,6 +171,7 @@ import re
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -1805,6 +1831,436 @@ def phase_stored_ctrl(dev) -> tuple[int, int]:
     return launches
 
 
+# --- phases 22-25: the DL receive chain from air samples -----------------------
+
+VECTORS = Path(__file__).resolve().parent / "tests" / "vectors"
+FIXTURE_FRAME = TESTDATA / "ue_dl_frame_100prb.npz"
+SI_RNTI = 0xFFFF
+# the MIB payload of signal.1.92M.dat (the reference's pbch_file_test.c:235)
+GOLDEN_MIB = np.array([0, 1, 1, 0, 1, 0, 0, 0, 0, 0, 0, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+                      np.uint8)
+# phase 24's 20 MHz link: the eNB app at MCS 26 and CFI 2, full buffer of
+# 1400-byte SDUs; the channel h, CFO (subcarriers), timing offset (samples
+# at 2048 points, scaled to the cell's FFT) and AWGN amplitude
+LINK = dict(cell_id=301, mcs=26, cfi=2, h=0.9 * np.exp(0.3j), cfo=0.12, offset_2048=12345,
+            amp=0.01, sdu_bytes=1400, seed=24)
+FRAME_CFO_ATOL = FRAME_PSR_RTOL = 1e-4
+
+
+def golden_checks(device) -> dict:
+    """Phase 22: the four decodes of `tests/test_golden_vectors.py` through
+    the port on `device`: the MIB of signal.1.92M.dat (2 ports, SFN offset 0,
+    sfn 28, 50 PRB, the payload), then on signal.1.92M.amar.dat the cell
+    search (PCI 1, sf 0, psr > 10), CFI 3 in all ten subframes with the
+    correlation margin, and the SI-RNTI SIBs of subframes 5 (144 bits,
+    604004...) and 2 (256 bits, 00800c...)."""
+    from srsran_tpu_torch.phy.common import Cell
+    from srsran_tpu_torch.phy.ue.ue_dl import UeDlResult, equalizer, front_end
+    from srsran_tpu_torch.phy.phch.pcfich import pcfich_decode, pcfich_re_indices
+    from srsran_tpu_torch.phy.ue.ue_dl import ue_dl_decode_subframe
+    from srsran_tpu_torch.phy.ue.ue_sync import cell_search, mib_search
+
+    load = lambda name: np.fromfile(VECTORS / name, np.complex64)  # noqa: E731
+    mib, nports, sfn_off = mib_search(load("signal.1.92M.dat"), Cell(nof_prb=6, id=150), 0,
+                                      device=device)
+    check((nports, sfn_off, mib.nof_prb, mib.sfn) == (2, 0, 50, 28)
+          and np.array_equal(mib.pack(), GOLDEN_MIB), f"golden MIB {mib} ports {nports} off {sfn_off}")
+    x = torch.from_numpy(load("signal.1.92M.amar.dat")).to(device)
+    cs = cell_search(x, 6, device=device)
+    check(cs is not None and (cs.cell_id, cs.sf_idx) == (1, 0) and cs.psr > 10, f"golden cell search {cs}")
+    cell = Cell(nof_prb=6, nof_ports=1, id=1)
+    idx = torch.from_numpy(pcfich_re_indices(cell).astype(np.int64)).to(device)
+    margins, sibs = [], {}
+    for sf in range(10):
+        sf_x = x[sf * 1920 : (sf + 1) * 1920][None]
+        grid, ce, noise = front_end(cell, sf_x, sf, UeDlResult())
+        cfi, corr = pcfich_decode(equalizer(grid, ce, noise, 1)(idx), cell, sf)
+        c = corr.cpu().numpy()
+        check(int(cfi) == 3 and c[2] > 2 * abs(c[0]) and c[2] > 2 * abs(c[1]), f"golden CFI sf {sf}: {c}")
+        margins.append(float(c[2] / max(abs(c[0]), abs(c[1]))))
+        for tb, ok in ue_dl_decode_subframe(cell, sf_x, sf, SI_RNTI, known_cfi=3, device=device).tbs:
+            if ok:
+                sibs[sf] = np.packbits(tb).tobytes()
+    check(sorted(sibs) == [2, 5] and len(sibs[5]) * 8 == 144 and sibs[5].hex().startswith("604004")
+          and len(sibs[2]) * 8 == 256 and sibs[2].hex().startswith("00800c"),
+          f"golden SIBs {({k: v.hex()[:6] for k, v in sibs.items()})}")
+    return dict(psr=cs.psr, cfo=cs.cfo, min_cfi_margin=min(margins), sib5=sibs[5].hex()[:12],
+                sib2=sibs[2].hex()[:12])
+
+
+def frame_samples(q: np.ndarray, scale) -> np.ndarray:
+    """complex64 samples of stored int8 I/Q pairs (n, 2) and their scale."""
+    ri = q.astype(np.float32) * np.float32(scale)
+    return (ri[:, 0] + 1j * ri[:, 1]).astype(np.complex64)
+
+
+def check_ue_dl_frame(fx, device) -> dict:
+    """Phase 23's checks of a received frame (`tools/make_torch_fixture.py`
+    `ue_dl_frame_stimulus`) on `device`: `cell_search` over the first 7
+    subframes (cell, offset, subframe, frame type identical; cfo within 1e-4,
+    psr within 1e-4 relative), `mib_search` (the MIB, port count and frame
+    offset), then a `UeSync` fed one subframe a push and every popped
+    subframe through `ue_dl_decode_subframe`: indices, CFI, found DCIs, TB
+    bits and CRC identical, snr_db within 1e-3 dB."""
+    from srsran_tpu_torch.phy.common import Cell
+    from srsran_tpu_torch.phy.ue.ue_dl import ue_dl_decode_subframe
+    from srsran_tpu_torch.phy.ue.ue_sync import UeSync, cell_search, mib_search
+
+    nof_prb, rnti = int(fx["nof_prb"]), int(fx["rnti"])
+    sf_len = Cell(nof_prb=nof_prb).sf_len
+    x = torch.from_numpy(frame_samples(fx["q"], fx["scale"])).to(device)
+    cs = cell_search(x[: 7 * sf_len], nof_prb, device=device)
+    check(cs is not None and [cs.cell_id, cs.peak_offset, cs.sf_idx, cs.frame_type == "tdd"]
+          == fx["ref_cs"].tolist(), f"frame: cell search {cs}, reference {fx['ref_cs'].tolist()}")
+    check(abs(cs.cfo - float(fx["ref_cfo"])) <= FRAME_CFO_ATOL
+          and abs(cs.psr - float(fx["ref_psr"])) <= FRAME_PSR_RTOL * float(fx["ref_psr"]),
+          f"frame: cfo {cs.cfo} psr {cs.psr}, reference {float(fx['ref_cfo'])} {float(fx['ref_psr'])}")
+    m, nports, frame_off = mib_search(x, Cell(nof_prb=nof_prb, nof_ports=1, id=cs.cell_id),
+                                      int(fx["ref_sf0"]), cs.cfo, device=device)
+    check([m.nof_prb, m.phich_length, m.phich_resources, m.sfn, nports, frame_off]
+          == fx["ref_mib"].tolist(), f"frame: MIB {m} ports {nports} offset {frame_off}")
+    sync = UeSync(nof_prb=nof_prb, device=device)
+    got_sf, max_snr_err, k, i = [], 0.0, 0, 0
+    tbs = int(fx["tbs"])
+    for p in range(0, x.shape[0], sf_len):
+        sync.push(x[p : p + sf_len])
+        while (out := sync.pop_subframe()) is not None:
+            sf, idx = out
+            res = ue_dl_decode_subframe(sync.cell, sf[None], idx, rnti,
+                                        max_iterations=int(fx["max_iterations"]), device=device)
+            check(i < len(fx["ref_sf"]) and idx == int(fx["ref_sf"][i]), f"frame: popped sf {idx} at {i}")
+            check(res.cfi == int(fx["ref_cfi"][i]), f"frame: sf {idx}: CFI {res.cfi}")
+            n = int(fx["ref_n_dci"][i])
+            want = [(fx["ref_dci_bits"][k + j].tolist(), int(fx["ref_dci_agg"][k + j]),
+                     int(fx["ref_dci_cce"][k + j])) for j in range(n)]
+            check([(b.tolist(), a, c) for b, a, c in res.dcis] == want, f"frame: sf {idx}: DCIs differ")
+            k += n
+            tb, ok = res.tbs[0]
+            check(ok == bool(fx["ref_crc_ok"][i]) and np.array_equal(
+                tb, np.unpackbits(fx["ref_tb_packed"][i], count=tbs)), f"frame: sf {idx}: TB differs")
+            max_snr_err = max(max_snr_err, abs(res.snr_db - float(fx["ref_snr_db"][i])))
+            check(max_snr_err <= SNR_ATOL_DB, f"frame: sf {idx}: snr_db {res.snr_db}")
+            got_sf.append(idx)
+            i += 1
+    check(i == len(fx["ref_sf"]) and sync.state == UeSync.TRACK, f"frame: {i} subframes, {sync.state}")
+    return dict(cell=cs.cell_id, cfo=cs.cfo, psr=cs.psr, subframes=got_sf, max_snr_err_db=max_snr_err)
+
+
+def link_channel(x: torch.Tensor, n0: int, sz: int, gen: torch.Generator) -> torch.Tensor:
+    """h·x rotated by LINK's CFO from absolute sample n0, plus AWGN (float64
+    phase, complex64 out)."""
+    n = torch.arange(n0, n0 + x.shape[0], device=x.device, dtype=torch.float64)
+    rot = torch.polar(torch.ones_like(n), (2 * np.pi * LINK["cfo"] / sz) * n)
+    noise = torch.randn(2, x.shape[0], generator=gen, device=x.device) * LINK["amp"]
+    y = x.to(torch.complex128) * rot * complex(LINK["h"])
+    return (y + torch.complex(noise[0], noise[1]).to(torch.complex128)).to(torch.complex64)
+
+
+def link_run(device, nof_prb: int = 100, n_frames: int = 5, on_track_pop=None) -> dict:
+    """Phase 24's link: `EnbApp` (cell 301, MCS 26, CFI 2) with a full buffer
+    of seeded 1400-byte SDUs → `link_channel` → `UeApp` (CFI from the
+    PCFICH), one subframe of samples a push, 10·n_frames + 1 TTIs.  Checks:
+    every TB the UE decodes passes its CRC; the SDUs read out are an unbroken
+    run of the sent ones, in order, covering every TTI from the first
+    complete frame after the UE reached TRACK to the last but one; UeSync
+    never leaves TRACK.  `on_track_pop(push, sf, sf_idx)`, when given, sees
+    each subframe UeSync pops in TRACK.  Returns the run's record: per push
+    the host ms (synchronised) and CUDA-event ms of `UeApp.process`, per TTI
+    the ms of `EnbApp.run_tti`, the TTI of the switch to TRACK."""
+    from srsran_tpu_torch.apps.enb import EnbApp
+    from srsran_tpu_torch.apps.ue import UeApp
+    from srsran_tpu_torch.phy.common import Cell
+    from srsran_tpu_torch.phy.phch.ra import dl_tbs
+    from srsran_tpu_torch.phy.ue.ue_sync import UeSync
+
+    cuda = torch.device(device).type == "cuda"
+    cell = Cell(nof_prb=nof_prb, nof_ports=1, id=LINK["cell_id"])
+    enb = EnbApp(cell, mcs=LINK["mcs"], cfi=LINK["cfi"], device=device)
+    ue = UeApp(nof_prb=nof_prb, cfi=None, device=device)
+    if on_track_pop is not None:
+        pop = ue.sync.pop_subframe
+
+        def recorded():
+            out = pop()
+            if out is not None and ue.sync.state == UeSync.TRACK:
+                on_track_pop(len(rec["ue_ms"]), *out)
+            return out
+
+        ue.sync.pop_subframe = recorded
+    rng = np.random.default_rng(LINK["seed"])
+    gen = torch.Generator(device=device).manual_seed(LINK["seed"])
+    fill = dl_tbs(LINK["mcs"], nof_prb) // 8 // (LINK["sdu_bytes"] + 3) + 1
+    sz, sf_len = cell.symbol_sz, cell.sf_len
+    offset = LINK["offset_2048"] * sz // 2048
+    sent, sdu_tti = [], []
+    carry = torch.zeros(0, dtype=torch.complex64, device=device)
+    rec = dict(ue_ms=[], ue_event_ms=[], enb_ms=[], state=[], push_tti=[], track_tti=None,
+               left_track=False, first_chunks=[])
+    for tti in range(10 * n_frames + 1):
+        while len(enb.tx_queue) < fill:
+            sdu = rng.integers(0, 256, LINK["sdu_bytes"], dtype=np.uint8).tobytes()
+            enb.write_sdu(sdu)
+            sent.append(sdu)
+            sdu_tti.append(None)
+        queued = len(enb.tx_queue)
+        sync(device)
+        t0 = time.perf_counter()
+        x = enb.run_tti()
+        sync(device)
+        rec["enb_ms"].append((time.perf_counter() - t0) * 1e3)
+        first = len(sent) - queued
+        for j in range(first, len(sent) - len(enb.tx_queue)):
+            sdu_tti[j] = tti
+        carry = torch.cat([carry, link_channel(x, tti * sf_len, sz, gen)])
+        if tti == 0:
+            carry = carry[offset:]
+        while carry.shape[0] >= sf_len:
+            chunk, carry = carry[:sf_len], carry[sf_len:]
+            if len(rec["first_chunks"]) < 7:
+                rec["first_chunks"].append(chunk)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if cuda else None
+            sync(device)
+            t0 = time.perf_counter()
+            if ev:
+                ev[0].record()
+            ue.push_samples(chunk)
+            ue.process()
+            if ev:
+                ev[1].record()
+            sync(device)
+            rec["ue_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["ue_event_ms"].append(ev[0].elapsed_time(ev[1]) if ev else None)
+            rec["push_tti"].append(tti)
+            rec["state"].append(ue.sync.state)
+            if ue.sync.state == UeSync.TRACK and rec["track_tti"] is None:
+                rec["track_tti"] = tti
+            rec["left_track"] |= rec["track_tti"] is not None and ue.sync.state != UeSync.TRACK
+    got = []
+    while (s := ue.read_sdu()) is not None:
+        got.append(s)
+    m = ue.get_metrics()
+    check(rec["track_tti"] is not None and not rec["left_track"], f"link: UeSync states {rec['state']}")
+    check(m["rx_tbs"] > 0 and m["rx_tbs_ok"] == m["rx_tbs"], f"link: UE metrics {m}")
+    check(bool(got) and got[0] in sent, "link: no SDU came through")
+    k = sent.index(got[0])
+    check(got == sent[k : k + len(got)], "link: the SDUs read out are not an unbroken run of the sent ones")
+    first_frame = (rec["track_tti"] // 10 + 1) * 10
+    covered = {sdu_tti[j] for j in range(k, k + len(got))}
+    need = set(range(first_frame, 10 * n_frames - 1))
+    check(need <= covered, f"link: TTIs {sorted(need - covered)} not delivered")
+    bits = 8 * sum(len(s) for s in got)
+    rec.update(cell=cell, ue=ue, enb=enb, sdus=len(got), sdu_bits=bits, tbs_ok=m["rx_tbs_ok"],
+               first_frame=first_frame, ttis=sorted(covered))
+    return rec
+
+
+def ue_dl_steps(cell, rnti: int, device):
+    """One TRACK subframe's receive chain as ordered (span, fn(state)) steps,
+    the stages `ue_dl_decode_subframe` composes: OFDM + channel estimate +
+    measurements (one read), the PCFICH, the blind search's host part (the
+    PDCCH REs' LLRs read back, de-rate-matched per candidate, each DCI
+    length), its Viterbi (one call per length on the device, bits read), the
+    collect (CRC-RNTI check, format order), the PDSCH (grant, decode).  The
+    state holds "sf" (1, sf_len) and "sf_idx"."""
+    from srsran_tpu_torch.phy.fec.conv import viterbi_decode
+    from srsran_tpu_torch.phy.phch.pdcch import blind_collect, blind_hypotheses
+    from srsran_tpu_torch.phy.ue import ue_dl
+
+    def ofdm_chest(s):
+        s["res"] = ue_dl.UeDlResult()
+        s["grid"], s["ce"], s["noise"] = ue_dl.front_end(cell, s["sf"], s["sf_idx"], s["res"])
+        s["eq"] = ue_dl.equalizer(s["grid"], s["ce"], s["noise"], 1)
+
+    def pcfich(s):
+        s["res"].cfi = ue_dl.decode_cfi(cell, s["sf_idx"], s["eq"], device)
+
+    def blind_host(s):
+        sym = ue_dl.pdcch_symbols(cell, s["sf_idx"], s["res"].cfi, s["eq"], device)
+        s["hyps"] = [(fmt, n, *blind_hypotheses(sym, cell, s["sf_idx"], s["res"].cfi, rnti, n))
+                     for fmt, n in ue_dl.dci_searches(cell, rnti, 2)]
+
+    def viterbi(s):
+        s["bits"] = [viterbi_decode(torch.from_numpy(b).to(device), n + 16).cpu().numpy()
+                     for _f, n, _c, b in s["hyps"]]
+
+    def collect(s):
+        s["found"] = ue_dl.sort_found([(f, *hit) for (f, n, c, _b), bits in zip(s["hyps"], s["bits"])
+                                       for hit in blind_collect(c, bits, rnti, n)])
+        s["res"].dcis = [(b, a, c) for _f, b, a, c in s["found"]]
+
+    def pdsch(s):
+        for fmt, bits, _agg, cce in s["found"]:
+            if ue_dl._decode_grant(s["res"], fmt, bits, cce, s["grid"], s["ce"], s["noise"], cell,
+                                   s["sf_idx"], s["res"].cfi, rnti, 1, 5, None, s["eq"], None, s["sf"]):
+                break
+
+    return [("ofdm+chest", ofdm_chest), ("pcfich", pcfich), ("blind search host", blind_host),
+            ("viterbi", viterbi), ("collect", collect), ("pdsch", pdsch)]
+
+
+def event_spans(steps, device, state, n: int = 3) -> tuple[dict, dict]:
+    """Median fenced host ms and CUDA-event ms of each step over n runs."""
+    host, event = {k: [] for k, _ in steps}, {k: [] for k, _ in steps}
+    for _ in range(n):
+        s = dict(state)
+        for name, fn in steps:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            sync(device)
+            t0 = time.perf_counter()
+            ev[0].record()
+            fn(s)
+            ev[1].record()
+            sync(device)
+            host[name].append((time.perf_counter() - t0) * 1e3)
+            event[name].append(ev[0].elapsed_time(ev[1]))
+    med = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
+    return {k: med(v) for k, v in host.items()}, {k: med(v) for k, v in event.items()}
+
+
+def phase_golden(dev) -> tuple[int, int]:
+    """Phase 22.  Returns the (static, dynamic-K) launches."""
+    reset_launches()
+    info = golden_checks(dev)
+    launches = read_launches()
+    check(launches[0] > 0 and launches[1] == 0, f"golden vectors: map launches {launches}")
+    print(f"golden vectors: MIB 2 ports sfn 28 50 PRB; cell search PCI 1 sf 0 psr {info['psr']:.3f} "
+          f"cfo {info['cfo']:.5f}; CFI 3 in all ten subframes (margin >= {info['min_cfi_margin']:.2f}x); "
+          f"SIBs sf 5 {info['sib5']}... sf 2 {info['sib2']}...; {launches[0]} map launches")
+    return launches
+
+
+def phase_stored_frame(dev) -> tuple[int, int]:
+    """Phase 23.  Returns the (static, dynamic-K) launches."""
+    fx = np.load(FIXTURE_FRAME)
+    reset_launches()
+    info = check_ue_dl_frame(fx, dev)
+    launches = read_launches()
+    check(launches[0] > 0 and launches[1] == 0, f"stored frame: map launches {launches}")
+    print(f"stored frame: {int(fx['nof_prb'])} PRB, cell {info['cell']} cfo {info['cfo']:.5f} psr "
+          f"{info['psr']:.3f}, MIB {fx['ref_mib'].tolist()}, subframes {info['subframes']}: the "
+          f"reference's cell search, MIB, indices, CFIs, DCIs, TBs and CRCs, snr_db within "
+          f"{info['max_snr_err_db']:.2g} dB; {launches[0]} map launches")
+    return launches
+
+
+def phase_link(dev, n_frames: int = 5) -> tuple[tuple[int, int], dict, Counter]:
+    """Phase 24: the 20 MHz link, timed.  Returns ((static, dynamic-K)
+    launches, times dict, the link's launches by kernel shape)."""
+    from srsran_tpu_torch.phy.fec import turbo_cuda
+    from srsran_tpu_torch.phy.ue.ue_dl import ue_dl_decode_subframe
+    from srsran_tpu_torch.phy.ue.ue_sync import UeSync, cell_search
+
+    kept = {}
+
+    def on_pop(push, sf, sf_idx):
+        kept["sf"], kept["sf_idx"] = sf.clone(), sf_idx
+        if sf_idx in (0, 5):
+            kept["pss"], kept["pss_idx"] = sf.clone(), sf_idx
+
+    reset_launches()
+    before = Counter(turbo_cuda.SHAPES)
+    rec = link_run(dev, 100, n_frames, on_track_pop=on_pop)
+    launches = read_launches()
+    shapes = Counter(turbo_cuda.SHAPES)
+    shapes.subtract(before)
+    check(launches[0] > 0, f"link: map launches {launches}")
+    mark("phase 24: the link ran; its spans, kernels and times")
+    cell, ue = rec["cell"], rec["ue"]
+    # warm pushes: TRACK, after two frames of it
+    warm = [i for i, t in enumerate(rec["push_tti"]) if t >= rec["track_tti"] + 20]
+    med = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
+    ue_ms, ue_ev = med([rec["ue_ms"][i] for i in warm]), med([rec["ue_event_ms"][i] for i in warm])
+    enb_ms = med(rec["enb_ms"][2:])
+    # FIND: the cell search over the UE's first 7 subframes of samples
+    find_in = torch.cat(rec["first_chunks"])
+    find_ms = wall_ms(lambda: cell_search(find_in, 100, device=dev), 1)
+    # the sync step alone: a UeSync in TRACK popping a PSS subframe
+
+    def sync_step():
+        us = UeSync(nof_prb=100, device=dev)
+        us.state, us.cell, us.sf_idx, us.cfo = UeSync.TRACK, cell, kept["pss_idx"], ue.sync.cfo
+        us.buf = kept["pss"]
+        us.pop_subframe()
+
+    sync_step()
+    host_sync = med([wall_ms(sync_step, 1) for _ in range(5)])
+    ev_sync = med([cuda_ms(sync_step, 1) for _ in range(5)])
+    state = {"sf": kept["sf"][None], "sf_idx": kept["sf_idx"]}
+    steps = ue_dl_steps(cell, ue.rnti, dev)
+    s, _ = run_steps(steps, dev, dict(state))
+    ref = ue_dl_decode_subframe(cell, state["sf"], state["sf_idx"], ue.rnti, device=dev)
+    check(s["res"].cfi == ref.cfi and len(s["res"].dcis) == len(ref.dcis)
+          and all(np.array_equal(a[0], b[0]) and a[1:] == b[1:] for a, b in zip(s["res"].dcis, ref.dcis))
+          and [ok for _, ok in s["res"].tbs] == [ok for _, ok in ref.tbs] == [True]
+          and np.array_equal(s["res"].tbs[0][0], ref.tbs[0][0]),
+          "link: the steps do not give ue_dl_decode_subframe's result")
+    host_spans, ev_spans = event_spans(steps, dev, state)
+    one = lambda: ue_dl_decode_subframe(cell, state["sf"], state["sf_idx"], ue.rnti, device=dev)  # noqa: E731
+    one()
+    before = turbo_cuda.LAUNCHES
+    one()
+    map_per_sf = turbo_cuda.LAUNCHES - before
+    kernels, dev_ms = profile_kernels(one)
+    st = run_steps(steps[:3], dev, dict(state))[0]
+    vit_kernels, vit_ms = profile_kernels(lambda: steps[3][1](st))
+    sf_host = med([wall_ms(one, 1) for _ in range(5)])
+    n_hyp = [len(c) for _f, _n, c, _b in st["hyps"]]
+    rtf = 1.0 / ue_ms
+    mbps = rec["sdu_bits"] / (len(rec["ttis"]) * 1e-3) / 1e6
+    times = dict(find_ms=find_ms, ue_ms_per_sf=ue_ms, ue_event_ms_per_sf=ue_ev, rtf=rtf,
+                 enb_run_tti_ms=enb_ms, sync_step_ms=host_sync, sync_step_event_ms=ev_sync,
+                 spans_host_ms=host_spans, spans_event_ms=ev_spans, decode_host_ms=sf_host,
+                 kernels_per_sf=kernels, device_ms_per_sf=dev_ms, busy=dev_ms / sf_host,
+                 viterbi_calls_per_sf=len(n_hyp), hypotheses=n_hyp, viterbi_kernels_per_sf=vit_kernels,
+                 viterbi_device_ms_per_sf=vit_ms, map_launches_per_sf=map_per_sf,
+                 sdus=rec["sdus"], tbs_ok=rec["tbs_ok"], link_mbps=mbps, track_tti=rec["track_tti"],
+                 warm_pushes=len(warm))
+    print(f"link: 100 PRB MCS 26 CFI 2, h 0.9e^0.3j, CFO {LINK['cfo']}, offset {LINK['offset_2048']}, "
+          f"noise {LINK['amp']}, {n_frames} frames: TRACK from TTI {rec['track_tti']}, {rec['tbs_ok']} "
+          f"TBs all CRC-clean, {rec['sdus']} SDUs in order covering TTIs {rec['ttis'][0]}-"
+          f"{rec['ttis'][-1]} ({mbps:.1f} Mbps of SDUs), UeSync stayed in TRACK; {launches[0]} map "
+          f"launches")
+    print(f"link: FIND {find_ms:.2f} ms; per TRACK subframe (median of {len(warm)} warm pushes) "
+          f"{ue_ms:.2f} ms host, {ue_ev:.2f} ms CUDA events, real-time factor {rtf:.4f}x; "
+          f"EnbApp.run_tti {enb_ms:.2f} ms")
+    print(f"link: sync step {host_sync:.3f} ms host / {ev_sync:.3f} ms events; spans (fenced, host / "
+          f"events, ms): " + ", ".join(f"{k} {host_spans[k]:.3f} / {ev_spans[k]:.3f}" for k in host_spans))
+    print(f"link: one decode {sf_host:.2f} ms host, {kernels} kernels, {dev_ms:.3f} ms of device "
+          f"time (busy {dev_ms / sf_host:.1%}); Viterbi {len(n_hyp)} calls ({n_hyp} hypotheses), "
+          f"{vit_kernels} kernels, {vit_ms:.3f} ms of device time; {map_per_sf} map launches")
+    return launches, times, +shapes
+
+
+def phase_static_shapes(dev, shapes) -> tuple[float, list]:
+    """Phase 25: the static kernel against `map_pass_plain` at every (B, nw,
+    lw, T) that phases 22-24 launched it at.  Returns (max_abs_err, [dict
+    per shape])."""
+    from srsran_tpu_torch.phy.fec import turbo_cuda
+    from srsran_tpu_torch.phy.fec.turbo import map_pass_plain
+
+    max_err, rows = 0.0, []
+    for (b, nw, lw, T, _dyn), n in sorted(shapes.items(), key=lambda kv: (kv[0][1] * kv[0][2], kv[0][0])):
+        k = nw * lw
+        lx, lz, beta_k = map_inputs(k, b, seed=k + b, device=dev)
+        got = turbo_cuda.map_pass(lx, lz, beta_k, nw, lw, T)
+        ref = map_pass_plain(lx, lz, beta_k, k, layout=(nw, lw, T))
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        same = bool(torch.equal(got > 0, ref > 0))
+        check(bool(torch.isfinite(got).all()) and err <= MAP_ATOL and same,
+              f"static kernel disagrees with plain at B={b} K={k}: {err}, bits {same}")
+        ms = queued_ms(lambda: turbo_cuda.map_pass(lx, lz, beta_k, nw, lw, T), 50)
+        plain = cuda_ms(lambda: map_pass_plain(lx, lz, beta_k, k, layout=(nw, lw, T)), 3)
+        bound, by = map_bound(lx, lz, beta_k, (nw, lw, T))
+        max_err = max(max_err, err)
+        rows.append(dict(shape=[b, k], layout=[nw, lw, T], launches=n, ms=ms, plain_ms=plain,
+                         bound_ms=bound, bound_by=by, max_abs_err=err))
+        print(f"map B={b} K={k} (nw={nw} lw={lw} T={T}, {n} launches): max_abs_err {err:.3g}, hard bits "
+              f"identical; kernel {ms:.4f} ms, plain {plain:.3f} ms, bound {bound:.3g} ms by {by} "
+              f"({bound / ms:.2%} of it)")
+    return max_err, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2092,6 +2548,20 @@ def main() -> int:
         torch.cuda.empty_cache()
     mark("phase 21: the stored control windows")
     by_path["stored ctrl windows"] = phase_stored_ctrl(dev)
+    # phases 22-25: the DL receive chain from air samples
+    turbo_cuda.SHAPES.clear()
+    mark("phase 22: the golden vectors")
+    by_path["golden vectors"] = phase_golden(dev)
+    mark("phase 23: the stored received frame")
+    by_path["stored frame"] = phase_stored_frame(dev)
+    rx_shapes = Counter(turbo_cuda.SHAPES)
+    mark("phase 24: the 20 MHz link")
+    by_path["link EnbApp->UeApp"], windows["link EnbApp->UeApp"], link_shapes = phase_link(dev)
+    rx_shapes.update(link_shapes)
+    mark("phase 25: the static kernel at the receive chain's shapes")
+    max_err_rx, rx_rows = phase_static_shapes(dev, {k: v for k, v in rx_shapes.items() if not k[4]})
+    max_err = max(max_err, max_err_rx)
+    torch.cuda.empty_cache()
     mark("phase 12: the dynamic-K kernel at the windows' shapes")
     max_err_win, win_shapes = phase_window_kernel(dev)
     max_err_dyn = max(max_err_dyn, max_err_win)
@@ -2105,7 +2575,7 @@ def main() -> int:
              max_abs_err=max_err, ms=kern_ms, plain_ms=plain_ms,
              bound_ms=bound_ms, bound_by=bound_by, shape=list(lx.shape),
              other_shapes=[dict(shape=list(lx_u.shape), ms=ul_ms, plain_ms=ul_plain_ms,
-                                bound_ms=ul_bound_ms, bound_by=ul_bound_by)]),
+                                bound_ms=ul_bound_ms, bound_by=ul_bound_by)] + rx_rows),
         dict(common, name="map_window_dyn", replaces="srsran_tpu/phy/fec/turbo_pallas.py:232",
              launches=sum(v[1] for v in by_path.values()),
              launches_by_path={k: v[1] for k, v in by_path.items() if v[1]},

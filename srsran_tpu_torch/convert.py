@@ -2,7 +2,7 @@
 
 `from_reference(obj)` reads the dataclass fields of a `srsran_tpu` `Cell`,
 `DlGrant`, `DlGrant2`, `UlGrant`, `ChestDlConfig`, `OfdmConfig`, `TbCoding`,
-`DlSched`, `Mib`, `PucchConfig` or `UciCfg` and builds the port's class of
+`DlSched`, `Mib`, `PucchConfig`, `UciCfg` or `Agc` and builds the port's class of
 the same name, so that both packages decode one configuration.  A
 `DlSched`'s grants are converted too, and its DCI bits become numpy
 arrays.
@@ -22,6 +22,7 @@ import enum
 import numpy as np
 import torch
 
+from .phy.agc import Agc
 from .phy.chest.chest_dl import ChestDlConfig
 from .phy.common import CP, Cell
 from .phy.enb.enb_dl import DlSched
@@ -35,7 +36,7 @@ from .phy.phch.sch import TbCoding
 
 _CLASSES = {c.__name__: c for c in (
     Cell, DlGrant, DlGrant2, UlGrant, ChestDlConfig, OfdmConfig, TbCoding, Mib, PucchConfig,
-    UciCfg)}
+    UciCfg, Agc)}
 _ENUMS = {e.__name__: e for e in (CP, Mod)}
 
 

@@ -68,6 +68,19 @@ def cp_len_ext(sym_sz: int) -> int:
     return cp_len(sym_sz, CP_EXT_LEN)
 
 
+def slot_len(sym_sz: int) -> int:
+    return sym_sz * 15 // 2
+
+
+def sf_len(sym_sz: int) -> int:
+    return sym_sz * 15
+
+
+def srate(nof_prb: int, use_standard_rates: bool = True) -> float:
+    """Sample rate in Hz (15 kHz subcarrier spacing)."""
+    return symbol_sz(nof_prb, use_standard_rates) * 15000.0
+
+
 @dataclasses.dataclass(frozen=True)
 class Cell:
     """Static LTE cell definition (hashable: a key for cached tables)."""
@@ -115,4 +128,12 @@ class Cell:
     @property
     def sf_len(self) -> int:
         """Time-domain samples in one 1 ms subframe."""
-        return self.symbol_sz * 15
+        return sf_len(self.symbol_sz)
+
+    @property
+    def slot_len(self) -> int:
+        return slot_len(self.symbol_sz)
+
+    @property
+    def srate(self) -> float:
+        return self.symbol_sz * 15000.0

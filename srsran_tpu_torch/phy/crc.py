@@ -64,6 +64,13 @@ def crc_compute_np(bits: np.ndarray, poly: int) -> np.ndarray:
     return ((bits.astype(np.uint32) @ m.astype(np.uint32)) & 1).astype(np.uint8)
 
 
+def crc_check_np(bits_with_crc: np.ndarray, poly: int) -> bool:
+    """Host: True iff the trailing CRC matches."""
+    order = crc_order(poly)
+    msg, crc = bits_with_crc[:-order], bits_with_crc[-order:]
+    return bool(np.array_equal(crc_compute_np(msg, poly), crc.astype(np.uint8)))
+
+
 def crc_table(poly: int, length: int, device) -> torch.Tensor:
     """`crc_matrix_np` as a float32 tensor on `device` (cached)."""
     return table(crc_matrix_np, poly, length, device=torch.device(device), dtype=torch.float32)

@@ -1,13 +1,31 @@
-"""eNB downlink subframe schedule.
+"""eNB downlink subframe: the schedule and the facade that renders it.
 
-Counterpart of `DlSched` of `srsran_tpu/phy/enb/enb_dl.py`, the schedule that
-`pipeline_ctrl.enb_ctrl_overlay` renders.  The facade that renders a whole
-subframe on the host (`enb_dl_subframe`) is not ported yet.
+Counterpart of `srsran_tpu/phy/enb/enb_dl.py` (`lib/src/phy/enb/enb_dl.c`,
+API enb_dl.h:99-122).  `enb_dl_subframe` renders PSS/SSS, PBCH, PCFICH,
+PHICH, PDCCH, PDSCH and CRS into a resource grid on the host with the
+port's writers, then OFDM-modulates it on the device.  `DlSched` is also
+what `pipeline_ctrl.enb_ctrl_overlay` renders.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+import numpy as np
+import torch
+
+from ...device import resolve
+from ..chest.refsignal_dl import put_crs_np
+from ..common import Cell
+from ..mimo import precode_diversity2
+from ..ofdm import OfdmConfig, ofdm_tx_sf
+from ..phch.pbch import Mib, pbch_encode_np, pbch_re_indices
+from ..phch.pcfich import pcfich_put_np
+from ..phch.pdcch import pdcch_put_np
+from ..phch.pdsch import DlGrant2, pdsch_encode2_np, pdsch_encode_np
+from ..phch.phich import phich_put_np
+from ..sync.pss import put_pss_grid
+from ..sync.sss import put_sss_grid
 
 
 @dataclasses.dataclass
@@ -21,3 +39,48 @@ class DlSched:
     grants: list = dataclasses.field(default_factory=list)
     # list of (group, n_seq, ack)
     phich: list = dataclasses.field(default_factory=list)
+
+
+def enb_dl_subframe(cell: Cell, sf_idx: int, sched: DlSched, mib: Mib | None = None,
+                    sfn: int = 0, tdd=None, *, device=None) -> tuple[np.ndarray, torch.Tensor]:
+    """Render one FDD DL subframe.  Returns (grid (nports, nsymb, nre)
+    complex64 numpy, samples (nports, sf_len) complex64 on `device`, None
+    being the card)."""
+    if tdd is not None:
+        raise NotImplementedError("TDD subframes are not ported yet (ROADMAP Slice 10: "
+                                  "pdsch_re_indices has no TDD arguments)")
+    dev = resolve(device)
+    nof_ports = max(cell.nof_ports, 1)
+    grid = np.zeros((nof_ports, cell.nsymb_per_sf, cell.nof_re_per_symbol), np.complex64)
+    if sf_idx in (0, 5):
+        for p in range(nof_ports):
+            put_pss_grid(grid[p], cell.n_id_2, cell.nof_prb, cell.nsymb_per_slot - 1)
+            put_sss_grid(grid[p], cell.n_id_1, cell.n_id_2, sf_idx, cell.nof_prb,
+                         cell.nsymb_per_slot - 2)
+    if sf_idx == 0 and mib is not None:
+        syms = pbch_encode_np(dataclasses.replace(mib, sfn=sfn), cell, nof_ports)[sfn % 4]
+        idx = pbch_re_indices(cell)
+        if nof_ports >= 2:
+            # SFBC across the first two ports (TS 36.211 §6.6.3)
+            ports = precode_diversity2(syms.astype(np.complex64))
+            for p in range(2):
+                grid[p].reshape(-1)[idx] = ports[p]
+        else:
+            grid[0].reshape(-1)[idx] = syms
+
+    ctrl_grid = grid if nof_ports >= 2 else grid[0]
+    pcfich_put_np(ctrl_grid, cell, sf_idx, sched.cfi)
+    for group, n_seq, ack in sched.phich:
+        phich_put_np(ctrl_grid, cell, sf_idx, group, n_seq, ack)
+    for dci_bits, rnti, agg, cce in sched.dcis:
+        pdcch_put_np(ctrl_grid, cell, sf_idx, sched.cfi, dci_bits, rnti, agg, cce)
+    for grant, tb in sched.grants:
+        if isinstance(grant, DlGrant2):
+            # two codewords (TM3/TM4); tb = (tb1, tb2)
+            pg = pdsch_encode2_np(cell, sf_idx, sched.cfi, grant, tb[0], tb[1])
+        else:
+            pg = pdsch_encode_np(cell, sf_idx, sched.cfi, grant, tb)
+        grid[: pg.shape[0]] += pg
+    put_crs_np(grid, cell, sf_idx)
+    samples = ofdm_tx_sf(OfdmConfig.from_cell(cell, normalize=True), torch.from_numpy(grid).to(dev))
+    return grid, samples

@@ -93,13 +93,20 @@ def turbo_rate_match_tx(d: np.ndarray, e: int, rv: int = 0, n_filler: int = 0) -
     return d.reshape(d.shape[:-2] + (-1,))[..., turbo_rm_indices(k, e, rv, n_filler)]
 
 
-def turbo_rate_match_rx(llr_e: torch.Tensor, k: int, rv: int = 0,
-                        n_filler: int = 0) -> torch.Tensor:
-    """LLRs (..., e) → d-stream LLRs (..., 3, K+4), summing repetitions."""
+def turbo_rate_match_rx(llr_e: torch.Tensor, k: int, rv: int = 0, n_filler: int = 0, *,
+                        softbuffer=None) -> torch.Tensor:
+    """LLRs (..., e) → d-stream LLRs (..., 3, K+4), summing repetitions.
+
+    With `softbuffer` (..., 3, K+4) the LLRs are added to a copy of it (HARQ
+    combining, the reference's `softbuffer=`); the caller's buffer is left as
+    it was."""
     e = llr_e.shape[-1]
     idx = table(turbo_rm_indices, k, e, rv, n_filler, device=llr_e.device, dtype=torch.int64)
-    flat = torch.zeros(llr_e.shape[:-1] + (3 * (k + 4),), dtype=llr_e.dtype,
-                       device=llr_e.device)
+    if softbuffer is None:
+        flat = torch.zeros(llr_e.shape[:-1] + (3 * (k + 4),), dtype=llr_e.dtype,
+                           device=llr_e.device)
+    else:
+        flat = softbuffer.reshape(softbuffer.shape[:-2] + (-1,)).clone()
     flat.index_add_(-1, idx, llr_e)
     return flat.reshape(llr_e.shape[:-1] + (3, k + 4))
 

@@ -19,6 +19,7 @@ changed source is rebuilt and an unchanged one is reused.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -48,6 +49,9 @@ MAX_LANES = 128  # lanes of a block that holds several codeblocks
 # and those of the dynamic-K mode (`k_vec` given) alone
 LAUNCHES = 0
 LAUNCHES_DYN = 0
+# launches by shape (B, nw, lw, T, dynamic-K mode) since the record was last
+# cleared: the shapes a path gave the kernel
+SHAPES: collections.Counter = collections.Counter()
 
 _lib = None
 _lock = threading.Lock()
@@ -179,4 +183,5 @@ def map_pass(lx: torch.Tensor, lz: torch.Tensor, beta_k: torch.Tensor, nw: int, 
         raise RuntimeError(f"map_window kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
     LAUNCHES_DYN += k_vec is not None
+    SHAPES[(b, nw, lw, T, k_vec is not None)] += 1
     return out

@@ -123,29 +123,40 @@ def _blind_signs(rnti: int, sf_idx: int, cell_id: int, nbits: int):
     return gold_sequence_signs(pdcch_cinit(rnti, sf_idx, cell_id), nbits)
 
 
+def blind_hypotheses(sym_eq: torch.Tensor, cell: Cell, sf_idx: int, cfi: int, rnti: int,
+                     dci_len: int, ue_specific: bool = True):
+    """The blind search's host part: the LLRs of sym_eq (n_cce·36,) come to
+    the host once, descrambled; each candidate of `rnti` (the common search
+    space included) is de-rate-matched.  Returns ([(agg_level, cce_start)],
+    d-stream LLRs (H, 3, dci_len + 16) float32)."""
+    n = nof_cce(cell, sf_idx, cfi)
+    llr_all = demod_soft(Mod.QPSK, sym_eq).cpu().numpy()
+    llr_all = llr_all * _blind_signs(rnti, sf_idx, cell.id, CCE_BITS * n)[: len(llr_all)]
+    d = dci_len + 16
+    cands, streams = [], []
+    for lvl, starts in _blind_candidates(rnti, sf_idx, n, ue_specific):
+        for st in starts:
+            cands.append((lvl, st))
+            streams.append(conv_rate_match_rx_np(llr_all[st * CCE_BITS : (st + lvl) * CCE_BITS], d))
+    return cands, (np.stack(streams) if streams else np.zeros((0, 3, d), np.float32))
+
+
+def blind_collect(cands, bits: np.ndarray, rnti: int, dci_len: int):
+    """[(dci_bits, agg_level, cce_start)] of the decoded hypotheses (H, d)
+    whose CRC, masked with `rnti`, checks."""
+    mask = _rnti_mask(rnti)
+    return [(b[:dci_len], lvl, st) for (lvl, st), b in zip(cands, bits)
+            if np.array_equal(b[dci_len:] ^ mask, crc_compute_np(b[:dci_len], LTE_CRC16))]
+
+
 def pdcch_blind_search(sym_eq: torch.Tensor, cell: Cell, sf_idx: int, cfi: int, rnti: int,
                        dci_len: int, ue_specific: bool = True):
     """Blind-decode every candidate of `rnti` (the common search space
     included): sym_eq (n_cce·36,) equalized PDCCH symbols in transmit order,
     on any device.  The Viterbi runs on that device.  Returns [(dci_bits,
     agg_level, cce_start)] of the candidates that pass the CRC-RNTI check."""
-    n = nof_cce(cell, sf_idx, cfi)
-    cands = _blind_candidates(rnti, sf_idx, n, ue_specific)
-    llr_all = demod_soft(Mod.QPSK, sym_eq).cpu().numpy()
-    llr_all = llr_all * _blind_signs(rnti, sf_idx, cell.id, CCE_BITS * n)[: len(llr_all)]
-    d = dci_len + 16
-    hyps = []  # (lvl, start, d-stream LLRs)
-    for lvl, starts in cands:
-        for st in starts:
-            e = llr_all[st * CCE_BITS : (st + lvl) * CCE_BITS]
-            hyps.append((lvl, st, conv_rate_match_rx_np(e, d)))
-    if not hyps:
+    cands, batch = blind_hypotheses(sym_eq, cell, sf_idx, cfi, rnti, dci_len, ue_specific)
+    if not cands:
         return []
-    batch = torch.from_numpy(np.stack([h[2] for h in hyps])).to(sym_eq.device)
-    bits = viterbi_decode(batch, d).cpu().numpy()  # (H, d)
-    mask = _rnti_mask(rnti)
-    found = []
-    for (lvl, st, _), b in zip(hyps, bits):
-        if np.array_equal(b[dci_len:] ^ mask, crc_compute_np(b[:dci_len], LTE_CRC16)):
-            found.append((b[:dci_len], lvl, st))
-    return found
+    bits = viterbi_decode(torch.from_numpy(batch).to(sym_eq.device), dci_len + 16).cpu().numpy()
+    return blind_collect(cands, bits, rnti, dci_len)

@@ -1,10 +1,14 @@
-"""PDSCH grant, RE indices, scrambling c_init and host encode — host side.
+"""PDSCH: grants, RE mapping, scrambling, host encode and the decode of
+the UE facade.
 
-Copies of `DlGrant`, `DlGrant2`, `pdsch_re_indices` (FDD, full subframe),
+Counterpart of `srsran_tpu/phy/phch/pdsch.py` (FDD, full subframe).  Host
+copies: `DlGrant`, `DlGrant2`, `pdsch_re_indices`, `pdsch_nof_re`,
 `pdsch_cinit`, `pdsch_encode_np` and `pdsch_encode2_np` (every transmit
-scheme) from `srsran_tpu/phy/phch/pdsch.py`.  RE mapping is a host-built
-flat index table per (cell, sf, cfi, PRB set); on the device the receive
-side is one gather with that table.
+scheme).  RE mapping is a host-built flat index table per (cell, sf, cfi,
+PRB set); on the device the receive side is one gather with that table.
+`pdsch_decode` and `pdsch_decode2` (pdsch.c:785-1007: RE extract →
+predecode → layer demap → soft demod with CSI weights → descramble →
+`dlsch_decode`) run on the device of the received grid.
 """
 
 from __future__ import annotations
@@ -13,20 +17,29 @@ import dataclasses
 from functools import lru_cache
 
 import numpy as np
+import torch
 
+from ...device import sized_table, table
 from ..common import Cell
 from ..mimo import (
+    layerdemap,
     layermap,
     precode_cdd2,
     precode_diversity2,
     precode_diversity4,
     precode_spatialmux,
     precode_spatialmux4,
+    predecode_cdd2,
+    predecode_diversity2,
+    predecode_diversity4,
+    predecode_single_mrc,
+    predecode_spatialmux4,
+    predecode_zf_mmse,
 )
-from ..modem import Mod, modulate_np
-from ..scrambling import scramble_bits
-from ..sequence import gold_sequence
-from .sch import TbCoding, dlsch_encode_np
+from ..modem import Mod, demod_soft, modulate_np
+from ..scrambling import scramble_bits, scramble_soft
+from ..sequence import gold_sequence, gold_sequence_signs
+from .sch import TbCoding, dlsch_decode, dlsch_encode_np
 
 MOD_QM = {Mod.QPSK: 2, Mod.QAM16: 4, Mod.QAM64: 6, Mod.QAM256: 8}
 
@@ -96,6 +109,68 @@ def pdsch_re_indices(cell: Cell, sf_idx: int, cfi: int, prb: tuple[int, ...]) ->
 def pdsch_cinit(rnti: int, sf_idx: int, cell_id: int, q: int = 0) -> int:
     """TS 36.211 §6.3.1 PDSCH scrambling c_init."""
     return (rnti << 14) + (q << 13) + (sf_idx << 9) + cell_id
+
+
+def pdsch_nof_re(cell: Cell, sf_idx: int, cfi: int, prb: tuple[int, ...]) -> int:
+    return len(pdsch_re_indices(cell, sf_idx, cfi, prb))
+
+
+# descrambling signs per (c_init, length): one entry per RNTI, subframe and
+# grant size in use
+_signs_table = sized_table(64)
+
+
+def _descramble(llr: torch.Tensor, rnti: int, sf_idx: int, cell_id: int, q: int = 0):
+    signs = _signs_table(gold_sequence_signs, pdsch_cinit(rnti, sf_idx, cell_id, q),
+                         llr.shape[-1], device=llr.device)
+    return scramble_soft(llr, signs)
+
+
+def _extract(rx_grid: torch.Tensor, ce: torch.Tensor, cell: Cell, sf_idx: int, cfi: int, prb):
+    """(y (nrx, M), h (nrx, nports, M)) at the grant's PDSCH REs."""
+    idx = table(pdsch_re_indices, cell, sf_idx, cfi, tuple(prb), device=rx_grid.device,
+                dtype=torch.int64)
+    y = rx_grid.reshape(rx_grid.shape[0], -1)[:, idx]
+    h = ce.reshape(ce.shape[0], ce.shape[1], -1)[:, :, idx]
+    return y, h, idx.numel()
+
+
+def _soft_bits(mod: Mod, qm: int, sym: torch.Tensor, csi: torch.Tensor) -> torch.Tensor:
+    """CSI-weighted LLRs of one codeword's symbols."""
+    return demod_soft(mod, sym) * torch.repeat_interleave(csi.to(torch.float32), qm, dim=-1)
+
+
+def pdsch_decode(rx_grid: torch.Tensor, ce: torch.Tensor, noise_est, cell: Cell, sf_idx: int,
+                 cfi: int, grant: DlGrant, max_iterations: int = 5, softbuffers=None,
+                 tdd: bool = False, last_symbol: int | None = None):
+    """Decode one TB on the device of `rx_grid`.
+
+    rx_grid: (nrx, nsymb, nre) complex64; ce: (nrx, nports, nsymb, nre).
+    Returns (tb_bits (tbs,) uint8 numpy, crc_ok bool, softbuffers)."""
+    if tdd or last_symbol is not None:
+        raise NotImplementedError("TDD PDSCH is not ported yet (ROADMAP Slice 10)")
+    y, h, n_re = _extract(rx_grid, ce, cell, sf_idx, cfi, grant.prb)
+    nof_layers = 1
+    if grant.tx_scheme == "port0":
+        sym, csi = predecode_single_mrc(y, h[:, 0], noise_est)
+    elif grant.tx_scheme == "diversity":
+        sym, csi = predecode_diversity2(y, h)
+    elif grant.tx_scheme == "diversity4":
+        sym, csi = predecode_diversity4(y, h)
+    elif grant.tx_scheme in ("cdd", "spatialmux"):
+        if grant.tx_scheme == "cdd":
+            x, csi = predecode_cdd2(y, h, noise_est)
+            nof_layers = 2
+        else:
+            x, csi = predecode_zf_mmse(y, h, grant.nof_layers, noise_est, pmi=grant.pmi)
+            nof_layers = grant.nof_layers
+        sym, csi = layerdemap(x, 1)[0], layerdemap(csi, 1)[0]
+    else:
+        raise NotImplementedError(grant.tx_scheme)
+    llr = _descramble(_soft_bits(grant.mod, grant.qm, sym, csi), grant.rnti, sf_idx, cell.id)
+    coding = TbCoding(tbs=grant.tbs, g=n_re * grant.qm * nof_layers, qm=grant.qm, rv=grant.rv,
+                      nof_layers=nof_layers)
+    return dlsch_decode(llr, coding, max_iterations, softbuffers)
 
 
 def pdsch_encode_np(cell: Cell, sf_idx: int, cfi: int, grant: DlGrant,
@@ -182,3 +257,30 @@ def pdsch_encode2_np(cell: Cell, sf_idx: int, cfi: int, grant: DlGrant2,
     grid = np.zeros((ports.shape[0], cell.nsymb_per_sf, cell.nof_re_per_symbol), np.complex64)
     grid.reshape(ports.shape[0], -1)[:, idx] = ports
     return grid
+
+
+def pdsch_decode2(rx_grid: torch.Tensor, ce: torch.Tensor, noise_est, cell: Cell, sf_idx: int,
+                  cfi: int, grant: DlGrant2, max_iterations: int = 5, softbuffers=(None, None)):
+    """Two-codeword decode on the device of `rx_grid`: MMSE predecode, then
+    per codeword layer demap, CSI-weighted soft demod, descramble and
+    `dlsch_decode`.  Returns [(tb1, ok1, sb1), (tb2, ok2, sb2)]."""
+    y, h, n_re = _extract(rx_grid, ce, cell, sf_idx, cfi, grant.prb)
+    nl = grant.nof_layers if grant.tx_scheme == "spatialmux4" else 2
+    nl_cw = (nl // 2, nl - nl // 2)
+    if grant.tx_scheme == "cdd":
+        x, csi = predecode_cdd2(y, h, noise_est)
+    elif grant.tx_scheme == "spatialmux4":
+        x, csi = predecode_spatialmux4(y, h, nl, grant.pmi, noise_est)
+    elif grant.tx_scheme == "spatialmux":
+        x, csi = predecode_zf_mmse(y, h, 2, noise_est, pmi=grant.pmi)
+    else:
+        raise NotImplementedError(grant.tx_scheme)
+    sym_cws, csi_cws = layerdemap(x, 2), layerdemap(csi, 2)
+    out = []
+    for q, (mod, tbs, rv, qm) in enumerate(((grant.mod1, grant.tbs1, grant.rv1, grant.qm1),
+                                            (grant.mod2, grant.tbs2, grant.rv2, grant.qm2))):
+        llr = _descramble(_soft_bits(mod, qm, sym_cws[q], csi_cws[q]), grant.rnti, sf_idx,
+                          cell.id, q)
+        coding = TbCoding(tbs=tbs, g=n_re * qm * nl_cw[q], qm=qm, rv=rv, nof_layers=nl_cw[q])
+        out.append(dlsch_decode(llr, coding, max_iterations, softbuffers[q]))
+    return out

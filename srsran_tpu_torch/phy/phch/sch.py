@@ -1,11 +1,12 @@
 """DL-SCH transport-block decode (and host encode), TS 36.212 §5.3.2.
 
-Counterpart of the device decode in `srsran_tpu/phy/phch/sch.py`:
-per-codeblock de-rate-match with filler bits pinned to a strong 0,
-one batched turbo decode per distinct (K, CRC polynomial), CB CRC24B
-(when C > 1), reassembly and the TB CRC24A.  A leading batch axis of
-subframes is written out: every codeblock of every subframe in a
-(K, poly) group decodes in one `turbo_decode`.
+Counterpart of `srsran_tpu/phy/phch/sch.py`: per-codeblock de-rate-match
+with filler bits pinned to a strong 0, one batched turbo decode per
+distinct codeblock layout, CB CRC24B (when C > 1), reassembly and the TB
+CRC24A.  `dlsch_decode_multi_device` writes out a leading batch axis of
+subframes: every codeblock of every subframe in a (K, poly) group decodes
+in one `turbo_decode`.  `dlsch_decode` is the per-TB, host-orchestrated
+decode of the facades, with HARQ softbuffers.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 from ..common import LTE_CRC24A, LTE_CRC24B
-from ..crc import crc_attach_np, crc_compute, crc_table
+from ..crc import crc_attach_np, crc_check_np, crc_compute, crc_table
 from ..fec.cbsegm import CbSegm, cbsegm
 from ..fec.rate_match import turbo_rate_match_rx, turbo_rate_match_tx
 from ..fec.turbo import turbo_decode, turbo_encode_np
@@ -126,3 +127,47 @@ def dlsch_decode_multi_device(llrs, cfgs, max_iterations: int = 5):
 def dlsch_decode_device(llr: torch.Tensor, cfg: TbCoding, max_iterations: int = 5):
     """Decode one codeword: LLRs (B, g) → (tb_bits (B, tbs) uint8, ok (B,) bool)."""
     return dlsch_decode_multi_device([llr], [cfg], max_iterations)[0]
+
+
+def dlsch_decode(llr: torch.Tensor, cfg: TbCoding, max_iterations: int = 5, softbuffers=None):
+    """Decode one TB from its codeword LLRs (g,) float32 (positive ⇒ bit 1),
+    on their device.
+
+    Codeblocks are grouped by (K, E, F); each group is de-rate-matched into
+    its HARQ softbuffers (when given) and turbo-decoded in one batch.  The CRC
+    checks and desegmentation run on the host.  `softbuffers`: None, or one
+    (3, K+4) tensor (or None) per codeblock, as an earlier call returned
+    them.  Returns (tb_bits (tbs,) uint8 numpy, crc_ok bool, softbuffers)."""
+    s = cfg.segm
+    es = cfg.e_sizes()
+    offsets = np.concatenate([[0], np.cumsum(es)]).astype(int)
+    assert offsets[-1] == cfg.g
+    groups: dict[tuple[int, int, int], list[int]] = {}
+    for i, k in enumerate(s.cb_sizes):
+        groups.setdefault((k, es[i], s.F if i == 0 else 0), []).append(i)
+
+    new_softbuffers = [None] * s.C
+    decoded = [None] * s.C
+    ok = [False] * s.C
+    crc_poly = LTE_CRC24B if s.C > 1 else LTE_CRC24A
+    for (k, e, f), idxs in groups.items():
+        batch = torch.stack([llr[offsets[i] : offsets[i] + e] for i in idxs])
+        sb = None
+        if softbuffers is not None and softbuffers[idxs[0]] is not None:
+            sb = torch.stack([softbuffers[i] for i in idxs])
+        d_llr = turbo_rate_match_rx(batch, k, cfg.rv, softbuffer=sb, n_filler=f)
+        if f:
+            d_llr[:, 0, :f] = float(FILLER_LLR)
+        bits, _post, _n_it = turbo_decode(d_llr, k, max_iterations,
+                                          crc_table=crc_table(crc_poly, k, llr.device))
+        bits = bits.cpu().numpy()
+        for j, i in enumerate(idxs):
+            new_softbuffers[i] = d_llr[j]
+            decoded[i] = bits[j]
+            ok[i] = crc_check_np(bits[j], crc_poly)
+
+    crc_len = 24 if s.C > 1 else 0
+    b = np.concatenate([decoded[i][(s.F if i == 0 else 0) : k - crc_len]
+                        for i, k in enumerate(s.cb_sizes)])
+    tb_ok = all(ok) and crc_check_np(b, LTE_CRC24A)
+    return b[:-24].astype(np.uint8), bool(tb_ok), new_softbuffers

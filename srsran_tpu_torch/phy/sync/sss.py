@@ -1,8 +1,10 @@
-"""SSS generation, TS 36.211 §6.11.2 (host side).
+"""SSS generation and detection, TS 36.211 §6.11.2.
 
-Copy of the transmit half of `srsran_tpu/phy/sync/sss.py`: the three
+Counterpart of `srsran_tpu/phy/sync/sss.py`.  Host side: the three
 length-31 m-sequences, the (m0, m1) pair of an N_id_1, the ±1 sequence of
-subframe 0 or 5 and its placement in a subframe grid.
+subframe 0 or 5, its placement in a subframe grid, and the (2, 168, 62)
+matrix of every N_id_1 hypothesis.  Device side: detection as one product
+of the received symbol with that matrix, then the argmax (`sss_detect`).
 """
 
 from __future__ import annotations
@@ -10,6 +12,9 @@ from __future__ import annotations
 from functools import lru_cache
 
 import numpy as np
+import torch
+
+from ...device import table
 
 
 def _mseq(poly_taps, init) -> np.ndarray:
@@ -66,3 +71,30 @@ def put_sss_grid(grid: np.ndarray, n_id_1: int, n_id_2: int, sf_idx: int, nof_pr
     k0 = nof_prb * 12 // 2 - 31
     grid[symbol, k0 : k0 + 62] = sss_sequence_np(n_id_1, n_id_2, sf_idx)
     return grid
+
+
+@lru_cache(maxsize=8)
+def sss_hypothesis_matrix(n_id_2: int) -> np.ndarray:
+    """(2, 168, 62): all N_id_1 sequences for subframes 0 and 5."""
+    out = np.zeros((2, 168, 62), np.float32)
+    for sf_i, sf in enumerate((0, 5)):
+        for nid1 in range(168):
+            out[sf_i, nid1] = sss_sequence_np(nid1, n_id_2, sf)
+    return out
+
+
+def sss_detect(sss_re: torch.Tensor, n_id_2: int, ce: torch.Tensor | None = None):
+    """Detect N_id_1 and the frame half from the 62 SSS subcarriers.
+
+    sss_re: (..., 62) complex64, channel-compensated if `ce` is None, else
+    raw with `ce` (..., 62) the estimate from the adjacent PSS symbol.
+    Returns (n_id_1 (...,), sf_is_5 (...,) bool, metric (...,)) on the
+    device of `sss_re`: the peak |correlation| over its mean."""
+    if ce is not None:
+        sss_re = sss_re * torch.conj(ce) / (torch.abs(ce) ** 2 + 1e-9)
+    h = table(sss_hypothesis_matrix, int(n_id_2), device=sss_re.device, dtype=torch.complex64)
+    metric = torch.abs(torch.einsum("...k,snk->...sn", sss_re, h))
+    flat = metric.reshape(metric.shape[:-2] + (-1,))
+    arg = torch.argmax(flat, dim=-1)
+    peak = torch.gather(flat, -1, arg[..., None])[..., 0]
+    return arg % 168, (arg // 168).to(torch.bool), peak / (torch.mean(flat, dim=-1) + 1e-12)

@@ -366,3 +366,32 @@ def test_port_decodes_ctrl_window_fixture_like_reference(kind):
     np.testing.assert_array_equal(samples[:, 0], load_tool().window_samples(fx["q"], fx["scale"])[:, 0])
     line = smoke.check_stored_ctrl(kind, fx, smoke.stored_ctrl_decode(kind, "cpu"))
     assert line.startswith(f"stored ctrl {kind}: W=4")
+
+
+# --- the stored received frame (chip_smoke.py phase 23) ---------------------------
+
+
+def test_ue_dl_frame_fixture_stays_small():
+    assert (TESTDATA / "ue_dl_frame_100prb.npz").stat().st_size < 2**20
+
+
+def test_ue_dl_frame_fixture_is_current():
+    """Rendering the capture again gives the stored int8 pairs (at most 1 in
+    10,000 a step away: the reference's IFFT rounds in float32), scale, sent
+    TBs and configuration."""
+    tool = load_tool()
+    fx = np.load(tool.OUT_FRAME)
+    c, q, scale, sent = tool.ue_dl_frame_capture()
+    assert np.count_nonzero(q != fx["q"]) <= q.size // 10_000
+    assert np.abs(q.astype(int) - fx["q"]).max() <= 1
+    assert abs(float(scale) - float(fx["scale"])) <= 1e-6 * float(scale)
+    np.testing.assert_array_equal(tool.pack_rows(sent), fx["sent_packed"])
+    for k, v in c.items():
+        assert fx[k].tolist() == v, k
+
+
+def test_port_decodes_ue_dl_frame_like_reference():
+    """chip_smoke.py phase 23's checks of the stored frame, on the CPU."""
+    fx = np.load(TESTDATA / "ue_dl_frame_100prb.npz")
+    info = load_smoke().check_ue_dl_frame(fx, "cpu")
+    assert info["subframes"] == fx["ref_sf"].tolist() and len(info["subframes"]) >= 7

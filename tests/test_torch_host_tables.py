@@ -60,6 +60,12 @@ def cells(**kw):
 
 
 def test_common_numerology():
+    for prb in (6, 15, 25, 50, 75, 100):
+        for std in (True, False):
+            n = r_common.symbol_sz(prb, std)
+            assert t_common.slot_len(n) == r_common.slot_len(n)
+            assert t_common.sf_len(n) == r_common.sf_len(n)
+            assert t_common.srate(prb, std) == r_common.srate(prb, std)
     for name in ("NRE", "MAX_PRB", "CP_NORM_0_LEN", "CP_NORM_LEN", "CP_EXT_LEN",
                  "LTE_CRC24A", "LTE_CRC24B", "LTE_CRC16", "LTE_CRC8"):
         assert getattr(t_common, name) == getattr(r_common, name), name
@@ -448,3 +454,57 @@ def test_from_reference_takes_the_control_plane_classes():
         got = from_reference(ref)
         assert type(got).__name__ == type(ref).__name__ and type(got) is not type(ref)
         assert dataclasses.asdict(got) == dataclasses.asdict(ref)
+
+
+def test_cell_slot_len_and_srate():
+    for kw in CELLS + [dict(nof_prb=25, id=1, use_standard_rates=False)]:
+        ref, cell = cells(**kw)
+        assert (cell.sf_len, cell.slot_len, cell.srate) == (ref.sf_len, ref.slot_len, ref.srate)
+
+
+def test_pss_replicas_and_sss_hypotheses():
+    """`pss_time_np` at every FFT size of the numerology and the (2, 168, 62)
+    SSS hypothesis matrix of every N_id_2, bit for bit."""
+    for sz in (128, 256, 384, 512, 768, 1024, 1536, 2048):
+        for n_id_2 in range(3):
+            got = t_pss.pss_time_np(n_id_2, sz)
+            assert got.dtype == np.complex64
+            np.testing.assert_array_equal(got, r_pss.pss_time_np(n_id_2, sz))
+    for n_id_2 in range(3):
+        got = t_sss.sss_hypothesis_matrix(n_id_2)
+        assert got.dtype == np.float32 and got.shape == (2, 168, 62)
+        np.testing.assert_array_equal(got, r_sss.sss_hypothesis_matrix(n_id_2))
+
+
+def test_mac_pdu_tables_and_pcap_header(tmp_path):
+    """`mac_pdu`'s LCID and CE tables, and `MacPcap`'s global header and
+    per-packet context, byte for byte."""
+    import srsran_tpu.runtime.pcap as r_pcap
+    import srsran_tpu.stack.mac_pdu as r_mac
+    import srsran_tpu_torch.runtime.pcap as t_pcap
+    import srsran_tpu_torch.stack.mac_pdu as t_mac
+
+    for name in ("LCID_PADDING", "LCID_DTCH", "LCID_SCELL_ACT", "DL_CE_SIZES", "UL_CE_SIZES"):
+        assert getattr(t_mac, name) == getattr(r_mac, name), name
+    for name in ("MAC_LTE_DLT", "FDD_RADIO", "DIRECTION_UPLINK", "DIRECTION_DOWNLINK", "NO_RNTI",
+                 "P_RNTI", "RA_RNTI", "C_RNTI", "SI_RNTI"):
+        assert getattr(t_pcap, name) == getattr(r_pcap, name), name
+    files = []
+    for mod in (t_pcap, r_pcap):
+        path = tmp_path / f"{mod.__name__}.pcap"
+        with mod.MacPcap(str(path), ue_id=3) as pcap:
+            pcap.write_pdu(b"\x01\x02\x03", 0x46, sfn=17, sf_idx=4, crc_ok=False, cc_idx=1)
+        files.append(path.read_bytes())
+    assert files[0][:24] == files[1][:24]
+    # a packet: 16 bytes of record header (its time differs), then context and PDU
+    assert files[0][24 + 8 : 24 + 16] == files[1][24 + 8 : 24 + 16]
+    assert files[0][24 + 16 :] == files[1][24 + 16 :]
+
+
+def test_from_reference_takes_agc():
+    from srsran_tpu.phy.agc import Agc as RAgc
+    from srsran_tpu_torch.phy.agc import Agc as TAgc
+
+    ref = RAgc(target=0.2, max_gain_db=60.0, gain_db=12.5, state="HOLD", hold_cnt=3)
+    got = from_reference(ref)
+    assert type(got) is TAgc and dataclasses.asdict(got) == dataclasses.asdict(ref)

@@ -22,6 +22,10 @@ def test_import_leaves_jax_out():
         "import srsran_tpu_torch.phy.phch.pcfich, srsran_tpu_torch.phy.phch.phich\n"
         "import srsran_tpu_torch.phy.phch.pucch, srsran_tpu_torch.phy.phch.uci\n"
         "import srsran_tpu_torch.phy.phch.dci, srsran_tpu_torch.phy.phch.regs\n"
+        "import srsran_tpu_torch.phy.sync.cfo, srsran_tpu_torch.phy.agc\n"
+        "import srsran_tpu_torch.phy.ue.ue_sync, srsran_tpu_torch.phy.ue.ue_dl\n"
+        "import srsran_tpu_torch.phy.ue.intra_measure, srsran_tpu_torch.stack.mac_pdu\n"
+        "import srsran_tpu_torch.runtime.pcap, srsran_tpu_torch.apps.enb, srsran_tpu_torch.apps.ue\n"
         "import importlib.util as u\n"
         "spec = u.spec_from_file_location('prof', 'tools/profile_torch_dynamic.py')\n"
         "spec.loader.exec_module(u.module_from_spec(spec))\n"
@@ -42,7 +46,9 @@ def test_every_module_of_the_port_imports_without_jax():
     assert "srsran_tpu_torch.phy.sync.pss" in mods and "srsran_tpu_torch.phy.sync.sss" in mods
     for m in ("pipeline_ctrl", "phy.fec.conv", "phy.enb.enb_dl", "phy.phch.regs", "phy.phch.dci",
               "phy.phch.pcfich", "phy.phch.phich", "phy.phch.pdcch", "phy.phch.pbch",
-              "phy.phch.uci_data", "phy.phch.uci", "phy.phch.pucch"):
+              "phy.phch.uci_data", "phy.phch.uci", "phy.phch.pucch", "phy.sync.cfo", "phy.agc",
+              "phy.ue.ue_sync", "phy.ue.ue_dl", "phy.ue.intra_measure", "stack.mac_pdu",
+              "runtime.pcap", "apps.enb", "apps.ue"):
         assert f"srsran_tpu_torch.{m}" in mods, m
     code = (
         "import sys, importlib\n"

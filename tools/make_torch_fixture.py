@@ -67,10 +67,26 @@ format-2 report on n_pucch 40 (`ue_ul_encode`); stored are the samples, the
 reference's band edges and PRB powers (`realize_pucch`), its format-1 batch
 and format-2 decodes and the TBs of its data pass.
 
+The received-frame fixture (`ue_dl_frame_100prb.npz`) is an air capture of
+the DL receive chain: `FRAME_CONFIG`'s 100 PRB cell 301 (1 port, CFI 2)
+renders 16 subframes through the reference's `enb_dl_subframe` (MIB, one
+C-RNTI `Dci1A` grant of MCS 12 on all 100 PRB per subframe); the capture
+starts 3 subframes and 12345 samples in, behind h = 0.9·e^{0.3j}, a CFO of
+0.12 subcarriers and AWGN of amplitude 0.01.  It is stored as int8 I/Q
+pairs with one scale (complex64 would take 3 MB); both packages decode
+`frame_samples(q, scale)`.  Beside it the reference's results:
+`cell_search` over the first 7 subframes (what `UeSync`'s FIND sees),
+`mib_search` at the subframe 0 it implies, and the subframes a `UeSync`
+pops when fed one subframe of samples a push, each through
+`ue_dl_decode_subframe` (CFI from the PCFICH): indices, CFI, found DCIs,
+TB bits, CRC and snr_db.  `ue_dl_frame_stimulus(nof_prb, n_sf)` makes the
+same at another width (the CPU tests use 25 PRB).
+
 Run from the repo root:  JAX_PLATFORMS=cpu python tools/make_torch_fixture.py
 (`main`, `main_dynamic`, `main_mimo`, `main_ul`, `main_ul_dynamic` each
 write one file, `main_windows` the three decode windows, `main_gen_windows`
-the three generate windows, `main_ctrl_windows` the two control windows.)
+the three generate windows, `main_ctrl_windows` the two control windows,
+`main_ue_dl_frame` the received frame.)
 """
 
 from __future__ import annotations
@@ -715,6 +731,113 @@ def main_ctrl_windows():
         print(f"wrote {out}: {summary}, crc_ok {ok}, iterations {[r[2] for r in res]}, TB equal {equal}")
 
 
+FRAME_CONFIG = dict(nof_prb=100, cell_id=301, cfi=2, rnti=0x46, mcs=12, n_sf=16, skip_sf=3,
+                    offset_2048=12345, cfo=0.12, h_abs=0.9, h_phase=0.3, amp=0.01,
+                    max_iterations=5, seed=20261023)
+OUT_FRAME = TESTDATA / "ue_dl_frame_100prb.npz"
+
+
+def frame_samples(q: np.ndarray, scale) -> np.ndarray:
+    """complex64 samples of stored int8 I/Q pairs (n, 2) and their scale."""
+    ri = q.astype(np.float32) * np.float32(scale)
+    return (ri[:, 0] + 1j * ri[:, 1]).astype(np.complex64)
+
+
+def ue_dl_frame_capture(nof_prb: int = 100, n_sf: int = 16):
+    """`FRAME_CONFIG`'s capture at `nof_prb` and `n_sf` rendered subframes:
+    (configuration, int8 I/Q pairs (n, 2), scale, sent TBs)."""
+    from srsran_tpu.phy.common import Cell
+    from srsran_tpu.phy.enb.enb_dl import DlSched, enb_dl_subframe
+    from srsran_tpu.phy.phch.dci import Dci1A
+    from srsran_tpu.phy.phch.pbch import Mib
+    from srsran_tpu.phy.phch.pdcch import nof_cce, search_space_candidates
+    from srsran_tpu.phy.phch.pdsch import DlGrant
+    from srsran_tpu.phy.phch.ra import dl_mcs_to_mod, dl_tbs, riv_encode
+
+    c = dict(FRAME_CONFIG, nof_prb=nof_prb, n_sf=n_sf)
+    cell = Cell(nof_prb=nof_prb, nof_ports=1, id=c["cell_id"])
+    rng = np.random.default_rng(c["seed"])
+    mib = Mib(nof_prb=nof_prb)
+    tx, sent = [], []
+    for t in range(n_sf):
+        sf_idx = t % 10
+        tbs = dl_tbs(c["mcs"], nof_prb)
+        tb = rng.integers(0, 2, tbs).astype(np.uint8)
+        grant = DlGrant(prb=tuple(range(nof_prb)), mod=dl_mcs_to_mod(c["mcs"]), tbs=tbs,
+                        rnti=c["rnti"])
+        dci = Dci1A(riv=riv_encode(nof_prb, 0, nof_prb), mcs=c["mcs"], harq_pid=t % 8, ndi=t % 2)
+        cands = search_space_candidates(c["rnti"], sf_idx, nof_cce(cell, sf_idx, c["cfi"]))
+        sched = DlSched(cfi=c["cfi"], dcis=[(dci.pack(nof_prb), c["rnti"], 4, cands[4][0])],
+                        grants=[(grant, tb)])
+        tx.append(np.asarray(enb_dl_subframe(cell, sf_idx, sched, mib=mib, sfn=t // 10)[1][0]))
+        sent.append(tb)
+    start = c["skip_sf"] * cell.sf_len + c["offset_2048"] * cell.symbol_sz // 2048
+    x = np.concatenate(tx)[start:]
+    n = np.arange(len(x))
+    h = c["h_abs"] * np.exp(1j * c["h_phase"])
+    x = x * h * np.exp(2j * np.pi * c["cfo"] * n / cell.symbol_sz)
+    x = x + c["amp"] * (rng.standard_normal(len(x)) + 1j * rng.standard_normal(len(x)))
+    scale = np.float32(np.abs(np.stack([x.real, x.imag])).max() / 127.0)
+    q = np.stack([np.round(x.real / scale), np.round(x.imag / scale)], -1).astype(np.int8)
+    return c, q, scale, sent
+
+
+def ue_dl_frame_stimulus(nof_prb: int = 100, n_sf: int = 16) -> dict:
+    """`ue_dl_frame_capture` and the reference's results on it (see the
+    module docstring)."""
+    from srsran_tpu.phy.common import Cell
+    from srsran_tpu.phy.ue.ue_dl import ue_dl_decode_subframe
+    from srsran_tpu.phy.ue.ue_sync import UeSync, cell_search, mib_search
+
+    c, q, scale, sent = ue_dl_frame_capture(nof_prb, n_sf)
+    cell = Cell(nof_prb=nof_prb, nof_ports=1, id=c["cell_id"])
+    samples = frame_samples(q, scale)
+
+    cs = cell_search(samples[: 7 * cell.sf_len], nof_prb)
+    pss_sf = cs.peak_offset - (cell.sf_len // 2 - cell.symbol_sz)
+    sf0 = pss_sf + (5 * cell.sf_len if cs.sf_idx == 5 else 0)
+    mib_res = mib_search(samples, Cell(nof_prb=nof_prb, nof_ports=1, id=cs.cell_id), sf0, cs.cfo)
+    m, nports, frame_off = mib_res
+    sync = UeSync(nof_prb=nof_prb)
+    out = dict(sf=[], cfi=[], n_dci=[], dci_bits=[], dci_agg=[], dci_cce=[], tb=[], crc=[], snr=[])
+    for p in range(0, len(samples), cell.sf_len):
+        sync.push(samples[p : p + cell.sf_len])
+        while (got := sync.pop_subframe()) is not None:
+            sf, idx = got
+            res = ue_dl_decode_subframe(sync.cell, sf[None], idx, c["rnti"],
+                                        max_iterations=c["max_iterations"])
+            out["sf"].append(idx)
+            out["cfi"].append(res.cfi)
+            out["n_dci"].append(len(res.dcis))
+            for bits, agg, cce in res.dcis:
+                out["dci_bits"].append(np.asarray(bits, np.uint8))
+                out["dci_agg"].append(agg)
+                out["dci_cce"].append(cce)
+            tb, ok = res.tbs[0] if res.tbs else (np.zeros(0, np.uint8), False)
+            out["tb"].append(np.asarray(tb, np.uint8))
+            out["crc"].append(bool(ok))
+            out["snr"].append(res.snr_db)
+    assert sync.state == UeSync.TRACK and all(out["crc"]), out["crc"]
+    return dict(
+        q=q, scale=scale, sent_packed=pack_rows(sent), tbs=np.int64(sent[0].size),
+        ref_cs=np.asarray([cs.cell_id, cs.peak_offset, cs.sf_idx, cs.frame_type == "tdd"]),
+        ref_cfo=np.float64(cs.cfo), ref_psr=np.float64(cs.psr), ref_sf0=np.int64(sf0),
+        ref_mib=np.asarray([m.nof_prb, m.phich_length, m.phich_resources, m.sfn, nports, frame_off]),
+        ref_sf=np.asarray(out["sf"]), ref_cfi=np.asarray(out["cfi"]), ref_n_dci=np.asarray(out["n_dci"]),
+        ref_dci_bits=np.asarray(out["dci_bits"], np.uint8), ref_dci_agg=np.asarray(out["dci_agg"]),
+        ref_dci_cce=np.asarray(out["dci_cce"]), ref_tb_packed=pack_rows(out["tb"]),
+        ref_crc_ok=np.asarray(out["crc"]), ref_snr_db=np.asarray(out["snr"], np.float64),
+        **{k: np.asarray(v) for k, v in c.items()})
+
+
+def main_ue_dl_frame():
+    fx = ue_dl_frame_stimulus()
+    np.savez(OUT_FRAME, **fx)
+    print(f"wrote {OUT_FRAME}: cell search {fx['ref_cs'].tolist()} cfo {float(fx['ref_cfo']):.5f}, "
+          f"MIB {fx['ref_mib'].tolist()}, subframes {fx['ref_sf'].tolist()}, "
+          f"crc {fx['ref_crc_ok'].tolist()}")
+
+
 def main():
     import jax
 
@@ -749,3 +872,4 @@ if __name__ == "__main__":
     main_windows()
     main_gen_windows()
     main_ctrl_windows()
+    main_ue_dl_frame()

@@ -4,8 +4,8 @@
 `--path siso` (the default), `mimo` or `ul` picks the pair of paths;
 `--path window`, `window_mimo` or `window_ul` profiles one windowed engine
 instead, `--path loopback`, `loopback_ul` or `loopback_mimo` one loopback
-window, `--path ctrl_dl` or `ctrl_ul` one control loopback window (see the
-end of this text).
+window, `--path ctrl_dl` or `ctrl_ul` one control loopback window, `--path
+ue_dl` one TRACK subframe of the 20 MHz link (see the end of this text).
 
 First the static entry point at full width, with the inputs of `chip_smoke.py`:
 `ue_dl_subframe` at 100 PRB, MCS 26, B=128 subframes a call (siso);
@@ -64,11 +64,20 @@ window's steps (`chip_smoke.ctrl_dl_steps` / `ctrl_ul_steps`: front end,
 blind search host part, Viterbi, collect, data, results; medians of 5), and
 the kernels and device time of each step from `torch.profiler`.
 
+The ue_dl path runs `chip_smoke.py` phase 24's link (`EnbApp` → channel →
+`UeApp`, 100 PRB, MCS 26, CFI 2) for three frames with its checks, keeps a
+TRACK subframe, and splits its receive chain into the fenced steps of
+`chip_smoke.ue_dl_steps` (OFDM + chest, PCFICH, blind search host part,
+Viterbi, collect, PDSCH; medians of 5, host ms and CUDA-event ms), then
+from `torch.profiler` the kernels and device ms of each step and the
+kernels by name of the whole `ue_dl_decode_subframe`.
+
 The last line is all of it as one JSON object.
 
 Run from the repo root on a machine with a card:
     python3 tools/profile_torch_dynamic.py [--path siso|mimo|ul|window|window_mimo|window_ul|
-                                                   loopback|loopback_ul|loopback_mimo|ctrl_dl|ctrl_ul]
+                                                   loopback|loopback_ul|loopback_mimo|ctrl_dl|ctrl_ul|
+                                                   ue_dl]
 """
 
 from __future__ import annotations
@@ -395,11 +404,61 @@ def profile_ctrl(report, path: str):
               f"x{e['count_per_window']:g}  {e['name']}")
 
 
+def profile_ue_dl(report):
+    """One TRACK subframe of `chip_smoke.py` phase 24's link: fenced steps,
+    each step's kernels and device time, the kernels by name."""
+    from srsran_tpu_torch.phy.ue.ue_dl import ue_dl_decode_subframe
+
+    kept = {}
+
+    def on_pop(push, sf, sf_idx):
+        kept["sf"], kept["sf_idx"] = sf.clone(), sf_idx
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rec = chip_smoke.link_run(dev, 100, 3, on_track_pop=on_pop)
+    cell, rnti = rec["cell"], rec["ue"].rnti
+    state = {"sf": kept["sf"][None], "sf_idx": kept["sf_idx"]}
+    steps = chip_smoke.ue_dl_steps(cell, rnti, dev)
+    chip_smoke.run_steps(steps, dev, dict(state))
+    host, event = chip_smoke.event_spans(steps, dev, state, n=5)
+    per_step, st = {}, dict(state)
+    for name, fn in steps:
+        n_k, ms = chip_smoke.profile_kernels(lambda: fn(st))
+        per_step[name] = {"kernels": n_k, "device_ms": ms}
+
+    def one():
+        ue_dl_decode_subframe(cell, state["sf"], state["sf_idx"], rnti, device=dev)
+
+    one()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        wall = chip_smoke.wall_ms(one, N_STATIC)
+    kernels = device_kernels(prof)
+    busy = sum(e.device_time_total for e in kernels) / 1e3 / N_STATIC
+    top = sorted(kernels, key=lambda e: -e.device_time_total)[:12]
+    report["ue_dl"] = {
+        "sf_idx": kept["sf_idx"], "link_sdus": rec["sdus"], "link_tbs_ok": rec["tbs_ok"],
+        "fenced_spans_host_ms": host, "fenced_spans_event_ms": event, "fenced_ms": sum(host.values()),
+        "kernels_by_step": per_step, "ms_per_sf_under_profiler": wall, "device_busy_ms_per_sf": busy,
+        "kernels_per_sf": sum(e.count for e in kernels) / N_STATIC,
+        "top_kernels": [{"name": e.key[:60], "count_per_sf": e.count / N_STATIC,
+                         "device_ms_per_sf": e.device_time_total / 1e3 / N_STATIC} for e in top]}
+    print(f"ue_dl: link of 3 frames, {rec['tbs_ok']} TBs CRC-clean, {rec['sdus']} SDUs; one TRACK "
+          f"subframe (sf {kept['sf_idx']}): fenced {sum(host.values()):.3f} ms; spans (host / events, "
+          "ms): " + ", ".join(f"{k} {host[k]:.3f} / {event[k]:.3f}" for k in host))
+    print("  kernels and device ms by step: "
+          + ", ".join(f"{k} {v['kernels']} / {v['device_ms']:.3f}" for k, v in per_step.items()))
+    print(f"  profiler: {report['ue_dl']['kernels_per_sf']:.0f} kernels per subframe, device busy "
+          f"{busy:.3f} ms of {wall:.3f} ms ({100 * busy / wall:.1f}%)")
+    for e in report["ue_dl"]["top_kernels"]:
+        print(f"    {e['device_ms_per_sf']:.4f} ms  x{e['count_per_sf']:g}  {e['name']}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--path", default="siso", choices=(
         "siso", "mimo", "ul", "window", "window_mimo", "window_ul",
-        "loopback", "loopback_ul", "loopback_mimo", "ctrl_dl", "ctrl_ul"))
+        "loopback", "loopback_ul", "loopback_mimo", "ctrl_dl", "ctrl_ul", "ue_dl"))
     path = parser.parse_args().path
     if not torch.cuda.is_available():
         print("profile_torch_dynamic: torch.cuda.is_available() is false", file=sys.stderr)
@@ -410,6 +469,10 @@ def main() -> int:
     print(card)
     rng = np.random.default_rng(1)
     report = {"card": card, "torch": torch.__version__, "path": path, "grants": {}}
+    if path == "ue_dl":
+        profile_ue_dl(report)
+        print(json.dumps(report))
+        return 0
     if path.startswith("ctrl"):
         profile_ctrl(report, path)
         print(json.dumps(report))
