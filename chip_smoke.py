@@ -155,9 +155,28 @@ Phases (each prints its own lines; any failure exits non-zero):
      (`ue_dl_steps`: OFDM + chest, PCFICH, blind search host part, Viterbi,
      collect, PDSCH), kernels and busy share, the Viterbi's calls and
      kernels, MAP launches;
-  25. (after 22-24) the static kernel against `map_pass_plain` at every
-     (B, K) that phases 22-24 launched it at (`turbo_cuda.SHAPES`), with ms,
-     bound and share of bound.
+  25. (after 22-24 and 26-27) the static kernel against `map_pass_plain`
+     at every (B, K) that phases 22-24 and 26-27 launched it at
+     (`turbo_cuda.SHAPES`), with ms, bound and share of bound;
+  26. the stored UL subframes `testdata/enb_ul_100prb.npz` (100 PRB, cell
+     301, int8 I/Q; `check_enb_ul`): a plain PUSCH subframe and an SRS
+     subframe (shortened PUSCH with ACK, RI and the 30-bit subband CQI; the
+     SRS over PRB 2..97) through `enb_ul_decode_pusch` and `srs_estimate`,
+     PUCCH formats 1a/2/3 through `enb_ul_decode_pucch`, a PRACH subframe
+     through `prach_detect`, and `refsignal_dl_sync_run` on phase 23's
+     stored frame under its PCI and a wrong one, against the reference's
+     results;
+  27. the 20 MHz UL link (`ul_link_run`, 4 frames): UE A's PUSCH (MCS 20
+     on PRB 2..97, PRB 8..97 in the PRACH subframe) with UCI every TTI and
+     the SRS on subframe 3, UEs B/C/D on PUCCH formats 1a (SR on subframe
+     7), 2 and 3, UE E's preamble 17 on subframe 1, each UE through its own
+     EPA `Channel`, delay and gain, summed with AWGN on the card; the eNB
+     runs `enb_ul_receive` (`enb_ul_fft`, PUCCH, PRACH, SRS,
+     `enb_ul_decode_pusch` with the expected UCI) per subframe, and every
+     TB, UCI value, PUCCH bit, the preamble and the SRS SNR are gated; ms
+     per UL subframe (host and CUDA events, warm medians), the real-time
+     factor, the fenced spans of `enb_ul_steps` with kernels and device ms,
+     `ue_ul_encode` ms per UE, MAP launches and the busy share.
 Every path is driven with the launch counts set to 0 just before and read
 just after.  Prints one JSON line of kernel results, then as its last line
 {"ok": true, "device": {...}}.  TF32 stays off: the channel-estimate
@@ -409,7 +428,7 @@ def load_ul(dev):
     cell = Cell(nof_prb=int(fx["nof_prb"]), nof_ports=1, id=int(fx["cell_id"]))
     grant = ul_grant(int(fx["mcs"]), int(fx["prb_start"]), int(fx["nof_prb_alloc"]), int(fx["rnti"]))
     tb = np.unpackbits(fx["tb_packed"], count=grant.tbs)
-    tx = ue_ul_encode(cell, int(fx["sf_idx"]), pusch=(grant, tb))
+    tx = ue_ul_encode(cell, int(fx["sf_idx"]), pusch=(grant, tb), device=dev).cpu().numpy()
     rng = np.random.default_rng(int(fx["seed"]) + 2)
     rx = awgn(rng, np.tile(tx[None, None, :], (B, 1, 1)), float(fx["noise_amp"]))
     rx[:2] = fx["rx"]
@@ -592,7 +611,8 @@ def phase_dynamic_ul(dev) -> tuple[int, int]:
         sf_idx, mcs, l = int(rng.integers(0, 10)), int(rng.integers(0, 24)), int(rng.choice(ls))
         g = ul_grant(mcs, int(rng.integers(1, nof_prb - l)), l, 0x46)
         tb_sent = rng.integers(0, 2, g.tbs).astype(np.uint8)
-        rx = awgn(rng, ue_ul_encode(cell, sf_idx, pusch=(g, tb_sent))[None], 0.04)
+        rx = awgn(rng, ue_ul_encode(cell, sf_idx, pusch=(g, tb_sent), device=dev).cpu().numpy()[None],
+                  0.04)
         decode_and_check(f"ul mix {i} (sf {sf_idx}, MCS {mcs}, PRB {g.prb_start}+{l}, tbs {g.tbs})",
                          enb, sf_idx, g, tb_sent, rx)
         built_at.append(enb.total_compiles)
@@ -608,9 +628,11 @@ def phase_dynamic_ul(dev) -> tuple[int, int]:
     tb_harq = rng.integers(0, 2, g0.tbs).astype(np.uint8)
     soft, _ = decode_and_check(
         "ul HARQ rv 0", enb, 2, g0, tb_harq,
-        awgn(rng, ue_ul_encode(cell, 2, pusch=(g0, tb_harq))[None], 0.33), want_ok=False)
+        awgn(rng, ue_ul_encode(cell, 2, pusch=(g0, tb_harq), device=dev).cpu().numpy()[None], 0.33),
+        want_ok=False)
     decode_and_check("ul HARQ rv 2", enb, 3, g2, tb_harq,
-                     awgn(rng, ue_ul_encode(cell, 3, pusch=(g2, tb_harq))[None], 0.33), soft=soft)
+                     awgn(rng, ue_ul_encode(cell, 3, pusch=(g2, tb_harq), device=dev).cpu().numpy()[None],
+                          0.33), soft=soft)
     print("dynamic ul: HARQ rv 0 fails alone, rv 2 combines and decodes")
 
     # (c) stored grants with the reference's results
@@ -632,7 +654,8 @@ def phase_dynamic_ul(dev) -> tuple[int, int]:
     # (d) ms per TTI of the headline grant (PRB 1..96, MCS 20)
     gh = ul_grant(20, 1, 96, 0x46)
     tb_h = rng.integers(0, 2, gh.tbs).astype(np.uint8)
-    rx_h = torch.from_numpy(awgn(rng, ue_ul_encode(cell, 2, pusch=(gh, tb_h))[None], 0.09)).to(dev)
+    rx_h = torch.from_numpy(awgn(rng, ue_ul_encode(cell, 2, pusch=(gh, tb_h), device=dev).cpu().numpy()[None],
+                                 0.09)).to(dev)
     _, n_it_h = decode_and_check("ul headline grant", enb, 2, gh, tb_h, rx_h)
     dev_ms = cuda_ms(lambda: enb.decode(rx_h, 2, gh), 10)
     host_ms = wall_ms(lambda: enb.decode(rx_h, 2, gh), 10)
@@ -865,7 +888,7 @@ def ul_window_mix(cell, rng, n: int):
         if g.tbs == 0:
             continue
         tb = rng.integers(0, 2, g.tbs).astype(np.uint8)
-        mix.append((ue_ul_encode(cell, sf_idx, pusch=(g, tb))[None, :], sf_idx, g, tb))
+        mix.append((ue_ul_encode(cell, sf_idx, pusch=(g, tb)).cpu().numpy()[None, :], sf_idx, g, tb))
     return mix
 
 
@@ -2231,6 +2254,528 @@ def phase_link(dev, n_frames: int = 5) -> tuple[tuple[int, int], dict, Counter]:
     return launches, times, +shapes
 
 
+# --- phases 26-27: the eNB UL receive chain -------------------------------------
+
+FIXTURE_ENB_UL = TESTDATA / "enb_ul_100prb.npz"
+UL_METRIC_RTOL = 1e-4  # PUCCH, PRACH and SRS-SNR metrics, relative
+SRS_CE_ATOL = 2e-5  # of the SRS estimate's largest magnitude
+RS_DB_ATOL = 1e-3  # refsignal rsrp and rssi [dB]
+RS_CFO_ATOL_HZ = 1.0
+RS_PSR_RTOL = 1e-4
+# phase 27's 20 MHz UL link: UE A's PUSCH (MCS 20, PRB 2..97; PRB 8..97 in
+# the PRACH subframe) with UCI every TTI and the SRS on subframe 3; UE B's
+# format-1a ACK (its SR resource on subframe 7), UE C's format-2 CQI every
+# `cqi_period` TTIs, UE D's format-3 ACKs, UE E's preamble on subframe 1.
+# Each UE: EPA at 5 Hz from its own seed, its gain and its delay (samples at
+# 2048 points, scaled to the cell's FFT), which all but E pre-compensate by
+# timing advance.  Formats 1, 2 and 3 sit in PRB pairs m = 0, 1 and 2.
+UL_LINK = dict(cell_id=301, mcs=20, prb_start=2, prach_prb_start=8, rntis=(0x46, 0x47, 0x48, 0x49),
+               n_ack=2, n_sr=15, n_cqi=20, n_f3=36, f3_bits=4, cqi_period=5, srs_sf=3, sr_sf=7,
+               prach_sf=1, preamble=17, prach_freq_offset=2, gains=(1.0, 0.8, 0.7, 0.9, 1.0),
+               delays_2048=(30, 12, 57, 21, 48), doppler_hz=5.0, amp=0.01, seed=27)
+UL_UES = ("A", "B", "C", "D", "E")
+PUCCH_DTX = 0.25  # format-1 detection threshold of the reference's eNB
+
+
+def host(v) -> np.ndarray:
+    return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+def sync_samples(fx) -> np.ndarray:
+    """The stored received frame with the CFO its cell search measured taken
+    out (float64 phase), as `tools/make_torch_fixture.py` gives it to the
+    reference."""
+    from srsran_tpu_torch.phy.common import symbol_sz
+
+    x = frame_samples(fx["q"], fx["scale"])
+    n = np.arange(len(x))
+    return (x * np.exp(-2j * np.pi * float(fx["ref_cfo"]) * n / symbol_sz(int(fx["nof_prb"])))
+            ).astype(np.complex64)
+
+
+def check_enb_ul(fx, device) -> dict:
+    """Phase 26's checks of the stored UL subframes on `device`: the plain
+    and the SRS subframe's PUSCH (TB bits, CRC, UCI identical, snr_db within
+    1e-3 dB), the SRS estimate (ce within 2e-5 of its largest magnitude, snr
+    within 1e-4 relative), the three PUCCH formats (bits identical, metrics
+    within 1e-4 relative), PRACH (detections and delays identical, metrics
+    within 1e-4 relative), and `refsignal_dl_sync_run` on the stored
+    received frame under its PCI and a wrong one (found, false_alarm and
+    peak_index identical, rsrp and rssi within 1e-3 dB, cfo within 1 Hz,
+    psr within 1e-4 relative)."""
+    from srsran_tpu_torch.phy.chest.srs import srs_estimate
+    from srsran_tpu_torch.phy.common import Cell
+    from srsran_tpu_torch.phy.enb.enb_ul import enb_ul_decode_pucch, enb_ul_decode_pusch, enb_ul_fft
+    from srsran_tpu_torch.phy.phch.prach import PrachConfig, prach_cp_len, prach_detect, prach_nfft
+    from srsran_tpu_torch.phy.phch.pucch import PucchConfig
+    from srsran_tpu_torch.phy.phch.pusch import UciCfg
+    from srsran_tpu_torch.phy.sync.refsignal_dl_sync import refsignal_dl_sync_run
+
+    cell = Cell(nof_prb=int(fx["nof_prb"]), nof_ports=1, id=int(fx["cell_id"]))
+    x = [torch.from_numpy(frame_samples(fx["q"][i], fx["scale"][i])).to(device) for i in range(4)]
+    grids = [enb_ul_fft(cell, s[None], device=device) for s in x]
+    w, mi = int(fx["w"]), int(fx["max_iterations"])
+    grant = ul_grant(int(fx["mcs"]), int(fx["prb_start"]), w, int(fx["rnti"]))
+    check(grant.tbs == int(fx["tbs"]), f"stored UL: tbs {grant.tbs}")
+    uci_exp = UciCfg(cqi_bits=(0,) * len(fx["sent_cqi"]), ack=(0,), ri=(0,))
+    outs = [enb_ul_decode_pusch(cell, int(fx["sf_plain"]), grids[0], grant, mi, device=device),
+            enb_ul_decode_pusch(cell, int(fx["sf_srs"]), grids[1], grant, mi, uci=uci_exp,
+                                shortened=True, device=device)]
+    snr_err = 0.0
+    for i, out in enumerate(outs):
+        tb, ok, _sb, snr_db = out[:4]
+        check(ok == bool(fx["ref_crc_ok"][i]) and np.array_equal(
+            tb, np.unpackbits(fx["ref_tb_packed"][i], count=grant.tbs)), f"stored UL: PUSCH {i} differs")
+        snr_err = max(snr_err, abs(snr_db - float(fx["ref_snr_db"][i])))
+    check(snr_err <= SNR_ATOL_DB, f"stored UL: snr_db off by {snr_err} dB")
+    ref_uci = dict(cqi_bits=tuple(fx["ref_uci_cqi"].tolist()), ack=tuple(fx["ref_uci_ack"].tolist()),
+                   ri=tuple(fx["ref_uci_ri"].tolist()))
+    check(outs[1][4] == ref_uci and ref_uci["cqi_bits"] == tuple(fx["sent_cqi"].tolist()),
+          f"stored UL: UCI {outs[1][4]}, reference {ref_uci}")
+    ce, snr = (host(v) for v in srs_estimate(grids[1], cell, int(fx["prb_start"]), w, device=device))
+    ce_err = float(np.abs(ce - fx["ref_srs_ce"]).max() / np.abs(fx["ref_srs_ce"]).max())
+    check(ce_err <= SRS_CE_ATOL and np.allclose(snr, fx["ref_srs_snr"], rtol=UL_METRIC_RTOL, atol=0),
+          f"stored UL: SRS ce off by {ce_err}, snr {snr} vs {fx['ref_srs_snr']}")
+    metrics = []
+    for i, (n, fmt, nb) in enumerate(zip(fx["n_pucch"].tolist(), "123", fx["pucch_bits"].tolist())):
+        bits, m = enb_ul_decode_pucch(cell, int(fx["sf_pucch"]), grids[2], PucchConfig(n_pucch=n), fmt,
+                                      nb, rnti=int(fx["rnti_f3"]) if fmt == "3" else 0, device=device)
+        m = float(host(m))
+        check(np.array_equal(host(bits), np.unpackbits(fx["ref_pucch_packed"][i], count=nb))
+              and abs(m - fx["ref_pucch_metric"][i]) <= UL_METRIC_RTOL * abs(fx["ref_pucch_metric"][i]),
+              f"stored UL: PUCCH format {fmt}: bits {host(bits)}, metric {m}")
+        metrics.append(m)
+    cp, nfft = prach_cp_len(cell), prach_nfft(cell)
+    pm, pd, pdet = (host(v) for v in prach_detect(
+        cell, PrachConfig(freq_offset=int(fx["prach_freq_offset"])), x[3][cp : cp + nfft], device=device))
+    check(np.array_equal(pdet, fx["ref_prach_det"]) and np.array_equal(pd, fx["ref_prach_delay"])
+          and np.allclose(pm, fx["ref_prach_metric"], rtol=UL_METRIC_RTOL, atol=0),
+          f"stored UL: PRACH differs ({np.nonzero(pdet)[0].tolist()})")
+    frame = np.load(FIXTURE_FRAME)
+    xs = torch.from_numpy(sync_samples(frame)).to(device)
+    rs = []
+    for pci, ref in zip((int(frame["cell_id"]), int(fx["wrong_pci"])), fx["ref_rs"]):
+        r = refsignal_dl_sync_run(xs, Cell(nof_prb=int(frame["nof_prb"]), nof_ports=1, id=pci),
+                                  device=device)
+        check([r.found, r.false_alarm, r.peak_index] == [bool(ref[0]), bool(ref[1]), int(ref[2])],
+              f"stored UL: refsignal PCI {pci}: {r}")
+        check(abs(r.psr - ref[6]) <= RS_PSR_RTOL * ref[6] and abs(r.rsrp_dbfs - ref[3]) <= RS_DB_ATOL
+              and abs(r.rssi_dbfs - ref[4]) <= RS_DB_ATOL and abs(r.cfo_hz - ref[5]) <= RS_CFO_ATOL_HZ,
+              f"stored UL: refsignal PCI {pci}: {r}, reference {ref.tolist()}")
+        rs.append(r)
+    return dict(snr_db=[o[3] for o in outs], max_snr_err_db=snr_err, uci=outs[1][4], srs_ce_err=ce_err,
+                srs_snr=float(snr[0]), pucch_metrics=metrics,
+                prach=(np.nonzero(pdet)[0].tolist(), int(pd[int(fx["preamble"])])), refsignal=rs)
+
+
+def ul_link_widths(nof_prb: int) -> tuple[int, int]:
+    """UE A's PUSCH widths: from PRB 2, and from PRB 8 in the PRACH subframe,
+    each the widest that leaves the two band-edge PUCCH PRBs of each side
+    free and factors into 2, 3 and 5."""
+    from srsran_tpu_torch.phy.dft_precoding import valid_nof_prb
+
+    return tuple(max(n for n in range(1, nof_prb - 1 - s) if valid_nof_prb(n))
+                 for s in (UL_LINK["prb_start"], UL_LINK["prach_prb_start"]))
+
+
+def ul_tti_plan(cell, tti: int, rng, grants) -> dict:
+    """What each UE sends in one TTI.  UE A: its TB and UCI on PUSCH — an ACK
+    of 1 or 2 bits (two bits are bundled: the UCI-on-PUSCH encoder carries
+    the first one, repeated), RI every 4th TTI, the 4-bit wideband CQI on
+    even TTIs and the higher-layer subband report (4 + 2N bits, conv-coded)
+    on odd ones; the SRS on `srs_sf`.  UE B: an ACK bit on its format-1
+    resource, on the SR resource in `sr_sf`.  UE C: 4 CQI bits every
+    `cqi_period` TTIs.  UE D: `f3_bits` ACK bits.  UE E: the preamble on
+    `prach_sf`."""
+    from srsran_tpu_torch.phy.phch.pusch import UciCfg
+    from srsran_tpu_torch.phy.phch.uci import cqi_hl_nof_subbands, cqi_hl_subband_pack
+
+    L, sf = UL_LINK, tti % 10
+    grant = grants[int(sf == L["prach_sf"])]
+    ack = int(rng.integers(0, 2))
+    if tti % 2 == 0:
+        cqi = tuple(int(b) for b in rng.integers(0, 2, 4))
+    else:
+        nsub = cqi_hl_nof_subbands(cell.nof_prb)
+        cqi = tuple(int(b) for b in cqi_hl_subband_pack(int(rng.integers(0, 16)),
+                                                          rng.integers(0, 4, nsub)))
+    uci = UciCfg(cqi_bits=cqi, ack=(ack,) * (1 + tti % 2),
+                 ri=(int(rng.integers(0, 2)),) if tti % 4 == 0 else ())
+    return dict(
+        tti=tti, sf=sf, grant=grant, tb=rng.integers(0, 2, grant.tbs).astype(np.uint8), uci=uci,
+        srs=(grants[0].prb_start, grants[0].nof_prb) if sf == L["srs_sf"] else None,
+        ack_b=int(rng.integers(0, 2)), n_b=L["n_sr"] if sf == L["sr_sf"] else L["n_ack"],
+        cqi_c=rng.integers(0, 2, 4).astype(np.uint8) if tti % L["cqi_period"] == 0 else None,
+        f3=rng.integers(0, 2, L["f3_bits"]).astype(np.uint8), prach=sf == L["prach_sf"])
+
+
+def ul_link_delays(cell) -> list[int]:
+    return [d * cell.symbol_sz // 2048 for d in UL_LINK["delays_2048"]]
+
+
+def prach_subframe(cell, p: torch.Tensor) -> torch.Tensor:
+    """A preamble (CP + sequence) at the start of an otherwise empty subframe."""
+    return torch.cat([p, p.new_zeros(cell.sf_len - p.shape[0])])
+
+
+def ue_ul_tx(cell, plan: dict, device) -> tuple[list, dict]:
+    """Each UE's (sf_len,) transmission of one TTI, rendered by the port on
+    `device` (None where a UE is silent), and the ms each took."""
+    from srsran_tpu_torch.phy.phch.prach import PrachConfig
+    from srsran_tpu_torch.phy.phch.pucch import PucchConfig
+    from srsran_tpu_torch.phy.ue.ue_ul import ue_prach_send, ue_ul_encode
+
+    L, sf = UL_LINK, plan["sf"]
+    d = ul_link_delays(cell)
+    calls = {
+        "A": lambda: ue_ul_encode(cell, sf, pusch=(plan["grant"], plan["tb"]), uci=plan["uci"],
+                                  srs=plan["srs"], ta_samples=d[0], device=device),
+        "B": lambda: ue_ul_encode(cell, sf, pucch1=(PucchConfig(n_pucch=plan["n_b"]), [plan["ack_b"]]),
+                                  ta_samples=d[1], device=device),
+        "C": (None if plan["cqi_c"] is None else lambda: ue_ul_encode(
+            cell, sf, pucch2=(PucchConfig(n_pucch=L["n_cqi"]), plan["cqi_c"]), ta_samples=d[2],
+            device=device)),
+        "D": lambda: ue_ul_encode(cell, sf, pucch3=(PucchConfig(n_pucch=L["n_f3"]), plan["f3"],
+                                                    L["rntis"][3]), ta_samples=d[3], device=device),
+        "E": (None if not plan["prach"] else lambda: prach_subframe(
+            cell, ue_prach_send(cell, PrachConfig(freq_offset=L["prach_freq_offset"]), L["preamble"],
+                                device=device))),
+    }
+    out, ms = [], {}
+    for ue in UL_UES:
+        if calls[ue] is None:
+            out.append(None)
+            continue
+        sync(device)
+        t0 = time.perf_counter()
+        out.append(calls[ue]())
+        sync(device)
+        ms[ue] = (time.perf_counter() - t0) * 1e3
+    return out, ms
+
+
+class UlAir:
+    """The UL air on `device`: each UE through its own `Channel` (EPA at
+    `doppler_hz`, seeded per UE), its propagation delay as a stream (the
+    delayed tail runs into the next subframe) and its gain; the sum plus
+    seeded AWGN of amplitude `amp`."""
+
+    def __init__(self, cell, device):
+        from srsran_tpu_torch.phy.channel.channel import Channel, ChannelConfig
+        from srsran_tpu_torch.phy.channel.fading import FadingConfig
+
+        L = UL_LINK
+        self.cell, self.device = cell, device
+        self.chans = [Channel(ChannelConfig(
+            fading=FadingConfig("epa", L["doppler_hz"], cell.srate, L["seed"] + i), srate=cell.srate,
+            seed=L["seed"] + i), device=device) for i in range(len(UL_UES))]
+        self.tails = [torch.zeros(d, dtype=torch.complex64, device=device) for d in ul_link_delays(cell)]
+        self.gen = torch.Generator(device=device).manual_seed(L["seed"])
+
+    def __call__(self, txs) -> torch.Tensor:
+        n = self.cell.sf_len
+        y = torch.zeros(n, dtype=torch.complex64, device=self.device)
+        for i, x in enumerate(txs):
+            if x is None:
+                x = torch.zeros(n, dtype=torch.complex64, device=self.device)
+            buf = torch.cat([self.tails[i], self.chans[i].run(x)])
+            self.tails[i] = buf[n:]
+            y = y + UL_LINK["gains"][i] * buf[:n]
+        noise = torch.randn(2, n, generator=self.gen, device=self.device) * UL_LINK["amp"]
+        return y + torch.complex(noise[0], noise[1])
+
+
+def ul_expected_uci(plan: dict):
+    """The UCI sizes the eNB expects in this TTI (its values are not known)."""
+    from srsran_tpu_torch.phy.phch.pusch import UciCfg
+
+    u = plan["uci"]
+    return UciCfg(cqi_bits=(0,) * len(u.cqi_bits), ack=(0,) * len(u.ack), ri=(0,) * len(u.ri))
+
+
+def ul_pucch(cell, plan: dict, grid, device) -> dict:
+    """The PUCCH decodes of one subframe, read to the host: {ue: (bits, metric)}."""
+    from srsran_tpu_torch.phy.enb.enb_ul import enb_ul_decode_pucch
+    from srsran_tpu_torch.phy.phch.pucch import PucchConfig
+
+    L, sf = UL_LINK, plan["sf"]
+    todo = [("B", plan["n_b"], "1", 1, 0), ("D", L["n_f3"], "3", L["f3_bits"], L["rntis"][3])]
+    if plan["cqi_c"] is not None:
+        todo.append(("C", L["n_cqi"], "2", 4, 0))
+    out = {}
+    for ue, n, fmt, nb, rnti in todo:
+        bits, m = enb_ul_decode_pucch(cell, sf, grid, PucchConfig(n_pucch=n), fmt, nb, rnti=rnti,
+                                      device=device)
+        out[ue] = (host(bits).astype(np.uint8), float(host(m)))
+    return out
+
+
+def ul_prach(cell, rx, device):
+    """(detected preambles, their delays in ZC samples, their metrics)."""
+    from srsran_tpu_torch.phy.phch.prach import PrachConfig, prach_cp_len, prach_detect, prach_nfft
+
+    cp = prach_cp_len(cell)
+    metric, delay, det = prach_detect(cell, PrachConfig(freq_offset=UL_LINK["prach_freq_offset"]),
+                                      rx[cp : cp + prach_nfft(cell)], device=device)
+    idx = torch.nonzero(det).reshape(-1)
+    return tuple(host(v).tolist() for v in (idx, delay[idx], metric[idx]))
+
+
+def ul_srs_snr_db(cell, plan: dict, grid, device) -> float:
+    from srsran_tpu_torch.phy.chest.srs import srs_estimate
+
+    _ce, snr = srs_estimate(grid, cell, *plan["srs"], device=device)
+    return float(10 * np.log10(float(host(snr)[0]) + 1e-12))
+
+
+def enb_ul_receive(cell, plan: dict, rx, device) -> dict:
+    """The eNB's UL subframe as `EnbStack._process_ul` runs it: `enb_ul_fft`,
+    the PUCCH decodes, PRACH on its subframe, the SRS on its subframe, then
+    `enb_ul_decode_pusch` with the expected UCI (shortened on the SRS
+    subframe).  Results on the host."""
+    from srsran_tpu_torch.phy.enb.enb_ul import enb_ul_decode_pusch, enb_ul_fft
+
+    grid = enb_ul_fft(cell, rx[None], device=device)
+    res = dict(pucch=ul_pucch(cell, plan, grid, device))
+    if plan["prach"]:
+        res["prach"] = ul_prach(cell, rx, device)
+    if plan["srs"] is not None:
+        res["srs_snr_db"] = ul_srs_snr_db(cell, plan, grid, device)
+    res["tb"], res["ok"], _sb, res["snr_db"], res["uci"] = enb_ul_decode_pusch(
+        cell, plan["sf"], grid, plan["grant"], uci=ul_expected_uci(plan),
+        shortened=plan["srs"] is not None, device=device)
+    return res
+
+
+def enb_ul_steps(cell, plan: dict, device):
+    """`enb_ul_receive` as ordered (span, fn(state)) steps, with
+    `enb_ul_decode_pusch` split into its stages: the channel estimate, the
+    PUSCH front end (`pusch_llr`), the UCI (`pusch_uci`: RI/ACK, and the RM
+    or Viterbi CQI decode), `dlsch_decode`.  The state holds "rx"."""
+    from srsran_tpu_torch.phy.chest.chest_ul import chest_ul
+    from srsran_tpu_torch.phy.enb.enb_ul import enb_ul_fft
+    from srsran_tpu_torch.phy.phch.pusch import pusch_llr, pusch_uci
+    from srsran_tpu_torch.phy.phch.sch import dlsch_decode
+
+    g, short = plan["grant"], plan["srs"] is not None
+
+    def fft(s):
+        s["grid"] = enb_ul_fft(cell, s["rx"][None], device=device)
+
+    def pucch(s):
+        s["pucch"] = ul_pucch(cell, plan, s["grid"], device)
+
+    def prach(s):
+        if plan["prach"]:
+            s["prach"] = ul_prach(cell, s["rx"], device)
+
+    def srs(s):
+        if short:
+            s["srs_snr_db"] = ul_srs_snr_db(cell, plan, s["grid"], device)
+
+    def chest(s):
+        s["ce"], noise = chest_ul(s["grid"], cell, g.prb_start, g.nof_prb)
+        s["noise"] = torch.mean(noise)
+
+    def front(s):
+        s["llr"] = pusch_llr(s["grid"], s["ce"], s["noise"], cell, plan["sf"], g, short)
+
+    def uci(s):
+        s["data"], s["coding"], s["uci"] = pusch_uci(s["llr"], cell, g, ul_expected_uci(plan), short)
+
+    def dlsch(s):
+        s["tb"], s["ok"], _sb = dlsch_decode(s["data"], s["coding"])
+
+    return [("fft", fft), ("pucch", pucch), ("prach", prach), ("srs", srs), ("chest_ul", chest),
+            ("pusch front end", front), ("uci", uci), ("dlsch_decode", dlsch)]
+
+
+def ul_link_run(device, nof_prb: int = 100, n_frames: int = 4, keep=()) -> dict:
+    """Phase 27's link: per TTI the UEs render their subframe through the
+    port (`ue_ul_encode`, `ue_prach_send`), `UlAir` sums them, the eNB runs
+    `enb_ul_receive`.  Gates: every PUSCH TB CRC-clean and equal to the sent
+    one (a lost TB is printed with its TTI; at most one in 40 may be lost);
+    every ACK, RI and CQI equal to the sent ones (the subband report passes
+    its CRC8); every PUCCH bit equal to the sent one (format 1 above the
+    DTX threshold); on each PRACH occasion preamble 17, its delay within ±1
+    of the sent one in ZC samples, and no other preamble but its sidelobe in
+    the last sample of preamble 18's zone, at a tenth of its metric or less
+    (printed and recorded); the SRS SNR above 10 dB.
+    `keep`: the TTIs whose (plan, samples) the record keeps.  Returns the
+    run's record: per TTI the eNB's host ms (synchronised) and CUDA-event
+    ms, per UE the ms of its transmit calls."""
+    from srsran_tpu_torch.phy.common import Cell
+    from srsran_tpu_torch.phy.phch.prach import PrachConfig, prach_nfft
+
+    L = UL_LINK
+    cuda = torch.device(device).type == "cuda"
+    cell = Cell(nof_prb=nof_prb, nof_ports=1, id=L["cell_id"])
+    w, w_prach = ul_link_widths(nof_prb)
+    grants = (ul_grant(L["mcs"], L["prb_start"], w, L["rntis"][0]),
+              ul_grant(L["mcs"], L["prach_prb_start"], w_prach, L["rntis"][0]))
+    rng = np.random.default_rng(L["seed"])
+    air = UlAir(cell, device)
+    want_delay = ul_link_delays(cell)[4] * 839 / prach_nfft(cell)
+    n_cs = PrachConfig(freq_offset=L["prach_freq_offset"]).n_cs
+    rec = dict(cell=cell, grants=grants, enb_ms=[], enb_event_ms=[], enc_ms={u: [] for u in UL_UES},
+               lost=[], tbs_ok=0, prach=[], prach_delay=[], prach_sidelobe=[], srs_snr_db=[],
+               snr_db=[], kept={})
+    for tti in range(10 * n_frames):
+        plan = ul_tti_plan(cell, tti, rng, grants)
+        txs, ms = ue_ul_tx(cell, plan, device)
+        for ue, v in ms.items():
+            rec["enc_ms"][ue].append(v)
+        rx = air(txs)
+        if tti in keep:
+            rec["kept"][tti] = (plan, rx.clone())
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if cuda else None
+        sync(device)
+        t0 = time.perf_counter()
+        if ev:
+            ev[0].record()
+        res = enb_ul_receive(cell, plan, rx, device)
+        if ev:
+            ev[1].record()
+        sync(device)
+        rec["enb_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["enb_event_ms"].append(ev[0].elapsed_time(ev[1]) if ev else None)
+        rec["snr_db"].append(res["snr_db"])
+        if res["ok"] and np.array_equal(res["tb"], plan["tb"]):
+            rec["tbs_ok"] += 1
+        else:
+            rec["lost"].append(tti)
+            print(f"ul link: TTI {tti} (sf {plan['sf']}): PUSCH TB lost (crc_ok {res['ok']}, snr_db "
+                  f"{res['snr_db']:.2f})")
+        u = plan["uci"]
+        want = dict(cqi_bits=u.cqi_bits, ack=u.ack, ri=u.ri)
+        check(res["uci"] == want, f"ul link: TTI {tti}: UCI {res['uci']}, sent {want}")
+        sent = {"B": [plan["ack_b"]], "D": plan["f3"].tolist()}
+        if plan["cqi_c"] is not None:
+            sent["C"] = plan["cqi_c"].tolist()
+        check(sorted(res["pucch"]) == sorted(sent) and all(
+            res["pucch"][ue][0].tolist() == bits for ue, bits in sent.items())
+            and res["pucch"]["B"][1] > PUCCH_DTX,
+            f"ul link: TTI {tti}: PUCCH {res['pucch']}, sent {sent}")
+        if plan["prach"]:
+            found, delays, metrics = res["prach"]
+            got = dict(zip(found, zip(delays, metrics)))
+            # the one other detection the detector can make of this preamble:
+            # its sidelobe one ZC sample before its zone, which is the last
+            # sample of the next preamble's zone (printed, not hidden)
+            side = got.pop(L["preamble"] + 1, None)
+            if side is not None:
+                rec["prach_sidelobe"].append((tti, side))
+                print(f"ul link: TTI {tti}: PRACH also detected preamble {L['preamble'] + 1} at the "
+                      f"last sample of its zone (delay {side[0]}, metric {side[1]:.1f} beside "
+                      f"{got.get(L['preamble'], (0, 0.0))[1]:.1f}): preamble {L['preamble']}'s "
+                      f"sidelobe")
+            ok = (list(got) == [L["preamble"]] and abs(got[L["preamble"]][0] - want_delay) <= 1
+                  and (side is None or (side[0] == n_cs - 1 and side[1] < got[L["preamble"]][1] / 10)))
+            rec["prach"].append(ok)
+            rec["prach_delay"].append(delays)
+            check(ok, f"ul link: TTI {tti}: PRACH found {found} delays {delays} metrics {metrics}, sent "
+                      f"{L['preamble']} at {want_delay:.2f} ZC samples")
+        if plan["srs"] is not None:
+            rec["srs_snr_db"].append(res["srs_snr_db"])
+            check(res["srs_snr_db"] > 10, f"ul link: TTI {tti}: SRS snr {res['srs_snr_db']:.2f} dB")
+    n = 10 * n_frames
+    check(len(rec["lost"]) <= max(1, n // 40), f"ul link: TBs lost in TTIs {rec['lost']}")
+    return rec
+
+
+def phase_stored_ul(dev) -> tuple[int, int]:
+    """Phase 26.  Returns the (static, dynamic-K) launches."""
+    fx = np.load(FIXTURE_ENB_UL)
+    reset_launches()
+    info = check_enb_ul(fx, dev)
+    launches = read_launches()
+    check(launches[0] > 0 and launches[1] == 0, f"stored UL: map launches {launches}")
+    rs = info["refsignal"]
+    print(f"stored UL: {int(fx['nof_prb'])} PRB cell {int(fx['cell_id'])}: PUSCH MCS {int(fx['mcs'])} on "
+          f"{int(fx['w'])} PRB plain and shortened with UCI {info['uci']}: the reference's TBs, CRCs "
+          f"and UCI, snr_db {[round(v, 3) for v in info['snr_db']]} within "
+          f"{info['max_snr_err_db']:.2g} dB; SRS ce within {info['srs_ce_err']:.2g}, snr "
+          f"{info['srs_snr']:.1f}; PUCCH 1a/2/3 bits, metrics {[round(m, 4) for m in info['pucch_metrics']]}; "
+          f"PRACH {info['prach']}; refsignal found {rs[0].found} peak {rs[0].peak_index} cfo "
+          f"{rs[0].cfo_hz:.2f} Hz psr {rs[0].psr:.2f}, wrong PCI found {rs[1].found} false alarm "
+          f"{rs[1].false_alarm}; {launches[0]} map launches")
+    return launches
+
+
+def phase_ul_link(dev, n_frames: int = 4) -> tuple[tuple[int, int], dict, Counter]:
+    """Phase 27: the 20 MHz UL link, timed.  Returns ((static, dynamic-K)
+    launches, times dict, the link's launches by kernel shape)."""
+    from srsran_tpu_torch.phy.fec import turbo_cuda
+
+    # spans: the second frame's PRACH subframe, an even (RM CQI) TTI, the
+    # SRS subframe and an odd (Viterbi CQI) one
+    kinds = {11: "prach sf (viterbi cqi)", 12: "rm cqi", 13: "srs sf (viterbi cqi)", 15: "viterbi cqi"}
+    reset_launches()
+    before = Counter(turbo_cuda.SHAPES)
+    rec = ul_link_run(dev, 100, n_frames, keep=tuple(kinds))
+    launches = read_launches()
+    shapes = Counter(turbo_cuda.SHAPES)
+    shapes.subtract(before)
+    check(launches[0] > 0, f"ul link: map launches {launches}")
+    mark("phase 27: the UL link ran; its spans, kernels and times")
+    cell = rec["cell"]
+    med = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
+    warm = range(10, len(rec["enb_ms"]))
+    enb_ms, enb_ev = med([rec["enb_ms"][i] for i in warm]), med([rec["enb_event_ms"][i] for i in warm])
+    enc = {ue: med(v[len(v) // 4:]) for ue, v in rec["enc_ms"].items()}
+    per_kind = {}
+    for tti, kind in kinds.items():
+        plan, rx = rec["kept"][tti]
+        state = {"rx": rx}
+        steps = enb_ul_steps(cell, plan, dev)
+        s, _ = run_steps(steps, dev, dict(state))
+        ref = enb_ul_receive(cell, plan, rx, dev)
+        check(s["ok"] == ref["ok"] and np.array_equal(s["tb"], ref["tb"]) and s["uci"] == ref["uci"]
+              and all(s["pucch"][k][0].tolist() == ref["pucch"][k][0].tolist() for k in ref["pucch"]),
+              f"ul link: the steps do not give enb_ul_receive's result in TTI {tti}")
+        host_spans, ev_spans = event_spans(steps, dev, state)
+        kern = {}
+        st = dict(state)
+        for name, fn in steps:
+            kern[name] = profile_kernels(lambda: fn(st))
+        one = lambda: enb_ul_receive(cell, plan, rx, dev)  # noqa: E731
+        one()
+        b0 = turbo_cuda.LAUNCHES
+        one()
+        n_map = turbo_cuda.LAUNCHES - b0
+        kernels, dev_ms = profile_kernels(one)
+        host_ms = med([wall_ms(one, 1) for _ in range(5)])
+        per_kind[kind] = dict(host_ms=host_ms, kernels=kernels, device_ms=dev_ms, busy=dev_ms / host_ms,
+                              map_launches=n_map, spans_host_ms=host_spans, spans_event_ms=ev_spans,
+                              spans_kernels={k: v[0] for k, v in kern.items()},
+                              spans_device_ms={k: v[1] for k, v in kern.items()})
+        print(f"ul link: {kind} (TTI {tti}): {host_ms:.2f} ms host, {kernels} kernels, {dev_ms:.3f} ms "
+              f"of device time (busy {dev_ms / host_ms:.1%}), {n_map} map launches; spans (fenced: host "
+              f"/ events ms, kernels, device ms): " + ", ".join(
+                  f"{k} {host_spans[k]:.3f} / {ev_spans[k]:.3f}, {kern[k][0]}, {kern[k][1]:.3f}"
+                  for k in host_spans))
+    spans = {"uci rm": per_kind["rm cqi"]["spans_host_ms"]["uci"],
+             "uci viterbi": per_kind["viterbi cqi"]["spans_host_ms"]["uci"]}
+    n = len(rec["enb_ms"])
+    times = dict(enb_ms_per_sf=enb_ms, enb_event_ms_per_sf=enb_ev, rtf=1.0 / enb_ms,
+                 enb_ms_max=max(rec["enb_ms"][i] for i in warm), ue_ul_encode_ms=enc, kinds=per_kind,
+                 uci_spans_ms=spans, tbs_ok=rec["tbs_ok"], ttis=n, lost=rec["lost"],
+                 prach_delay=rec["prach_delay"], srs_snr_db=rec["srs_snr_db"],
+                 snr_db_range=[min(rec["snr_db"]), max(rec["snr_db"])], map_launches=launches[0],
+                 widths=[g.nof_prb for g in rec["grants"]], tbs=[g.tbs for g in rec["grants"]])
+    print(f"ul link: 100 PRB, UE A PUSCH MCS 20 on {times['widths']} PRB (tbs {times['tbs']}) with UCI "
+          f"every TTI, SRS sf 3, UEs B/C/D on PUCCH 1a/2/3, UE E's preamble 17 on sf 1, EPA 5 Hz, noise "
+          f"{UL_LINK['amp']}, {n} TTIs: {rec['tbs_ok']}/{n} TBs CRC-clean and equal (lost: {rec['lost']}), "
+          f"every UCI and PUCCH bit right, PRACH delays {rec['prach_delay']}, SRS snr "
+          f"{[round(v, 1) for v in rec['srs_snr_db']]} dB, PUSCH snr_db {times['snr_db_range'][0]:.1f}-"
+          f"{times['snr_db_range'][1]:.1f}; {launches[0]} map launches")
+    print(f"ul link: per UL subframe (median of {len(warm)} after the first frame) {enb_ms:.2f} ms host, "
+          f"{enb_ev:.2f} ms CUDA events, real-time factor {1.0 / enb_ms:.4f}x, slowest "
+          f"{times['enb_ms_max']:.2f} ms; ue_ul_encode ms per UE per TTI "
+          + ", ".join(f"{ue} {v:.2f}" for ue, v in enc.items()))
+    return launches, times, +shapes
+
+
 def phase_static_shapes(dev, shapes) -> tuple[float, list]:
     """Phase 25: the static kernel against `map_pass_plain` at every (B, nw,
     lw, T) that phases 22-24 launched it at.  Returns (max_abs_err, [dict
@@ -2558,7 +3103,18 @@ def main() -> int:
     mark("phase 24: the 20 MHz link")
     by_path["link EnbApp->UeApp"], windows["link EnbApp->UeApp"], link_shapes = phase_link(dev)
     rx_shapes.update(link_shapes)
-    mark("phase 25: the static kernel at the receive chain's shapes")
+    # phases 26-27: the eNB UL receive chain
+    mark("phase 26: the stored UL subframes")
+    before = Counter(turbo_cuda.SHAPES)
+    by_path["stored UL subframes"] = phase_stored_ul(dev)
+    stored_ul_shapes = Counter(turbo_cuda.SHAPES)
+    stored_ul_shapes.subtract(before)
+    rx_shapes.update(+stored_ul_shapes)
+    mark("phase 27: the 20 MHz UL link")
+    by_path["UL link"], windows["UL link"], ul_link_shapes = phase_ul_link(dev)
+    rx_shapes.update(ul_link_shapes)
+    torch.cuda.empty_cache()
+    mark("phase 25: the static kernel at the receive chains' shapes")
     max_err_rx, rx_rows = phase_static_shapes(dev, {k: v for k, v in rx_shapes.items() if not k[4]})
     max_err = max(max_err, max_err_rx)
     torch.cuda.empty_cache()

@@ -2,8 +2,10 @@
 
 `from_reference(obj)` reads the dataclass fields of a `srsran_tpu` `Cell`,
 `DlGrant`, `DlGrant2`, `UlGrant`, `ChestDlConfig`, `OfdmConfig`, `TbCoding`,
-`DlSched`, `Mib`, `PucchConfig`, `UciCfg` or `Agc` and builds the port's class of
-the same name, so that both packages decode one configuration.  A
+`DlSched`, `Mib`, `PucchConfig`, `UciCfg`, `Agc`, `PrachConfig`, `FadingConfig`,
+`RlfConfig`, `DelayConfig`, `HstConfig` or `ChannelConfig` and builds the port's
+class of the same name (a nested configuration too), so that both packages
+decode one configuration.  A
 `DlSched`'s grants are converted too, and its DCI bits become numpy
 arrays.
 It goes by the class name and the fields (duck typing), so this package
@@ -23,6 +25,8 @@ import numpy as np
 import torch
 
 from .phy.agc import Agc
+from .phy.channel.channel import ChannelConfig, DelayConfig, HstConfig
+from .phy.channel.fading import FadingConfig, RlfConfig
 from .phy.chest.chest_dl import ChestDlConfig
 from .phy.common import CP, Cell
 from .phy.enb.enb_dl import DlSched
@@ -30,19 +34,22 @@ from .phy.modem import Mod
 from .phy.ofdm import OfdmConfig
 from .phy.phch.pbch import Mib
 from .phy.phch.pdsch import DlGrant, DlGrant2
+from .phy.phch.prach import PrachConfig
 from .phy.phch.pucch import PucchConfig
 from .phy.phch.pusch import UciCfg, UlGrant
 from .phy.phch.sch import TbCoding
 
 _CLASSES = {c.__name__: c for c in (
     Cell, DlGrant, DlGrant2, UlGrant, ChestDlConfig, OfdmConfig, TbCoding, Mib, PucchConfig,
-    UciCfg, Agc)}
+    UciCfg, Agc, PrachConfig, FadingConfig, RlfConfig, DelayConfig, HstConfig, ChannelConfig)}
 _ENUMS = {e.__name__: e for e in (CP, Mod)}
 
 
 def _value(v):
     if isinstance(v, enum.Enum):
         return _ENUMS[type(v).__name__](v.value)
+    if dataclasses.is_dataclass(v) and type(v).__name__ in _CLASSES:
+        return from_reference(v)
     return v
 
 

@@ -24,6 +24,13 @@ def resolve(device) -> torch.device:
     return torch.empty(0, device=dev).device
 
 
+def as_samples(samples, device: torch.device) -> torch.Tensor:
+    """Samples or a grid (numpy or a tensor) as a complex64 tensor on `device`."""
+    if isinstance(samples, torch.Tensor):
+        return samples.to(device=device, dtype=torch.complex64)
+    return torch.from_numpy(np.require(samples, np.complex64, ["C", "W"])).to(device)
+
+
 def _table(fn, *args, device: torch.device, dtype: torch.dtype | None = None):
     """`fn(*args)` — a host table (numpy array, or tuple of them) — as
     tensors on `device`, built and copied once per (fn, args, device, dtype).

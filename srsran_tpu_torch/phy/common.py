@@ -137,3 +137,10 @@ class Cell:
     @property
     def srate(self) -> float:
         return self.symbol_sz * 15000.0
+
+    def cp_lengths_slot(self) -> tuple[int, ...]:
+        """Per-symbol CP lengths within one slot."""
+        n = self.symbol_sz
+        if self.cp == CP.NORM:
+            return tuple(cp_len_norm(i, n) for i in range(CP_NORM_NSYMB))
+        return tuple(cp_len_ext(n) for _ in range(CP_EXT_NSYMB))

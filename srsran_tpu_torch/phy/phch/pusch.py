@@ -9,8 +9,13 @@ channel interleaver → scrambling → modulation → DFT precoding → mapping 
 the allocated PRBs (every symbol but the DMRS symbol of each slot) → DMRS.
 UCI coding: RM(32,O) cyclically extended for CQI up to 11 bits, CRC8 + the
 tail-biting conv code above; RI/ACK as Qm-wise repetition; Q' dimensioning
-per §5.2.2.6 with the TS 36.213 §8.6.3 beta tables.  The receive side with
-UCI (`pusch_decode(uci=)`) is not ported.
+per §5.2.2.6 with the TS 36.213 §8.6.3 beta tables.
+
+`pusch_decode` is the eNB's receive side on the device of the grid:
+`pusch_llr` (MRC, IDFT, soft demod, per-symbol CSI weights, descrambling),
+then the de-interleaving gather and `dlsch_decode`; with UCI, `pusch_uci`
+takes the RI and ACK decisions and decodes the CQI first, reading back only
+what they need.
 """
 
 from __future__ import annotations
@@ -19,20 +24,23 @@ import dataclasses
 from functools import lru_cache
 
 import numpy as np
+import torch
 
+from ...device import as_samples, resolve, table
 from ..chest.refsignal_ul import dmrs_symbol_in_slot, pusch_dmrs
 from ..common import LTE_CRC8, Cell
 from ..crc import crc_compute_np
-from ..dft_precoding import _dft_matrix
+from ..dft_precoding import _dft_matrix, dft_predecode
 from ..fec.cbsegm import cbsegm
-from ..fec.conv import convcoder_encode_np
-from ..fec.rate_match import conv_rm_indices
-from ..modem import Mod, modulate_np
+from ..fec.conv import convcoder_encode_np, viterbi_decode
+from ..fec.rate_match import conv_rate_match_rx_np, conv_rm_indices
+from ..mimo import predecode_single_mrc
+from ..modem import Mod, demod_soft, modulate_np
 from ..scrambling import scramble_bits
-from ..sequence import gold_sequence
+from ..sequence import gold_sequence, gold_sequence_signs
 from .pdsch import MOD_QM
-from .sch import TbCoding, dlsch_encode_np
-from .uci import rm_encode
+from .sch import TbCoding, dlsch_decode, dlsch_encode_np
+from .uci import rm_decode, rm_encode
 
 
 @dataclasses.dataclass(frozen=True)
@@ -212,3 +220,93 @@ def pusch_encode_np(cell: Cell, sf_idx: int, grant: UlGrant, tb_bits: np.ndarray
         grid[slot * cell.nsymb_per_slot + l_dmrs, k0 : k0 + m_sc] = pusch_dmrs(
             cell, grant.nof_prb, 0, slot)
     return grid
+
+
+def _fold_index(n: int) -> np.ndarray:
+    """Where each of n RM-coded CQI bits folds in the 32-bit codeword."""
+    return np.arange(n) % 32
+
+
+def _decode_cqi(gl: torch.Tensor, o: int) -> tuple:
+    """The CQI payload from its coded LLRs: folded mod 32 and RM(32,O)
+    decoded up to 11 bits; above, de-rate-matched on the host, one
+    tail-biting Viterbi on the device (d = o + 8) and the CRC8 check — ()
+    where it fails."""
+    if o > 11:
+        d = o + 8
+        dllr = conv_rate_match_rx_np(gl.cpu().numpy(), d)
+        cb = viterbi_decode(torch.from_numpy(dllr[None]).to(gl.device), d)[0].cpu().numpy()
+        if np.array_equal(cb[o:], crc_compute_np(cb[:o], LTE_CRC8)):
+            return tuple(int(b) for b in cb[:o])
+        return ()
+    fold = table(_fold_index, gl.shape[-1], device=gl.device, dtype=torch.int64)
+    folded = torch.zeros(32, dtype=torch.float32, device=gl.device).index_add_(0, fold, gl)
+    bits, _metric = rm_decode(folded, o)
+    return tuple(int(b) for b in bits.cpu().tolist())
+
+
+def pusch_llr(rx_grid: torch.Tensor, ce: torch.Tensor, noise_est, cell: Cell, sf_idx: int,
+              grant: UlGrant, shortened: bool = False) -> torch.Tensor:
+    """The PUSCH's descrambled codeword LLRs (g,) on the device of the grid:
+    MRC of the (nrx, nsymb, nre) grid with the (nrx, nsymb, 12*nof_prb)
+    estimate, IDFT, soft demod, per-symbol CSI weights, descrambling."""
+    m_sc = 12 * grant.nof_prb
+    k0 = grant.prb_start * 12
+    data_syms = pusch_symbols_data(cell, shortened)
+    nsym = len(data_syms)
+    y = rx_grid[..., data_syms, k0 : k0 + m_sc]  # (nrx, nsym, m_sc)
+    h = ce[..., data_syms, :]
+    xf, csi = predecode_single_mrc(y.reshape(y.shape[0], -1), h.reshape(h.shape[0], -1), noise_est)
+    llr = demod_soft(grant.mod, dft_predecode(xf.reshape(nsym, m_sc)).reshape(-1))
+    # the CSI of an SC-FDMA symbol is its mean over the allocation
+    csi_t = torch.mean(csi.reshape(nsym, m_sc), dim=-1)
+    llr = llr * torch.repeat_interleave(csi_t, m_sc * grant.qm)
+    return llr * table(gold_sequence_signs, pusch_cinit(grant.rnti, sf_idx, cell.id), llr.shape[-1],
+                       device=llr.device)
+
+
+def pusch_uci(llr: torch.Tensor, cell: Cell, grant: UlGrant, uci: UciCfg,
+              shortened: bool = False) -> tuple[torch.Tensor, TbCoding, dict]:
+    """Demultiplex UCI from the codeword LLRs of `pusch_llr`: RI and ACK by
+    the sign of the sum over their positions (one read), ACK positions
+    punctured to 0, the data gather, the CQI decode.  Returns (the data's
+    LLRs, their TbCoding, the UCI dict {"cqi_bits", "ack", "ri"})."""
+    dev = llr.device
+    nsym = len(pusch_symbols_data(cell, shortened))
+    write_pos, n_cqi_bits, ri_pos, ack_pos, g_data = table(
+        _uci_layout, grant.tbs, llr.shape[-1], grant.qm, nsym, grant.nof_prb, len(uci.cqi_bits),
+        len(uci.ack), len(uci.ri), uci.i_offset_cqi, uci.i_offset_ack, uci.i_offset_ri,
+        device=dev, dtype=torch.int64)
+    n_cqi_bits = int(n_cqi_bits)
+    out = {"cqi_bits": (), "ack": (), "ri": ()}
+    sums = torch.stack([llr[pos].sum() for pos in (ri_pos, ack_pos)]).cpu().tolist()
+    if ri_pos.numel():
+        out["ri"] = tuple([int(sums[0] > 0)] * len(uci.ri))
+    if ack_pos.numel():
+        out["ack"] = tuple([int(sums[1] > 0)] * len(uci.ack))
+        llr = llr.index_fill(0, ack_pos, 0.0)  # punctured data → erasures
+    gl = llr[write_pos]
+    if n_cqi_bits:
+        out["cqi_bits"] = _decode_cqi(gl[:n_cqi_bits], len(uci.cqi_bits))
+    return gl[n_cqi_bits:], TbCoding(tbs=grant.tbs, g=int(g_data), qm=grant.qm, rv=grant.rv), out
+
+
+def pusch_decode(rx_grid, ce, noise_est, cell: Cell, sf_idx: int, grant: UlGrant,
+                 max_iterations: int = 5, softbuffers=None, uci: UciCfg | None = None,
+                 shortened: bool = False, *, device=None):
+    """eNB RX of one PUSCH on `device` (None: the card): (nrx, nsymb, nre)
+    grid and the (nrx, nsymb, 12*nof_prb) channel estimate over the
+    allocation (numpy or tensors) → (tb_bits, crc_ok, softbuffers), or
+    (tb_bits, crc_ok, softbuffers, uci_out) when `uci` gives the expected
+    UCI sizes and offsets (its values are ignored); uci_out is the dict
+    {"cqi_bits", "ack", "ri"} of decoded values."""
+    dev = resolve(device)
+    llr = pusch_llr(as_samples(rx_grid, dev), as_samples(ce, dev), noise_est, cell, sf_idx, grant,
+                    shortened)
+    if uci is None or not (uci.cqi_bits or uci.ack or uci.ri):
+        g = llr.shape[-1]
+        deint = table(_deinterleaver_indices, g, grant.qm, device=dev, dtype=torch.int64)
+        coding = TbCoding(tbs=grant.tbs, g=g, qm=grant.qm, rv=grant.rv)
+        return dlsch_decode(llr[deint], coding, max_iterations, softbuffers)
+    data, coding, out = pusch_uci(llr, cell, grant, uci, shortened)
+    return (*dlsch_decode(data, coding, max_iterations, softbuffers), out)

@@ -1,1 +1,1 @@
-"""Synchronisation signals (mirrors `srsran_tpu.phy.sync`; the transmit half so far)."""
+"""Synchronisation: PSS/SSS, CFO and the CRS cell validation (mirrors `srsran_tpu.phy.sync`)."""

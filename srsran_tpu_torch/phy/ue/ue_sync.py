@@ -17,7 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ...device import resolve, table
+from ...device import as_samples, resolve, table
 from ..agc import Agc
 from ..chest.chest_dl import chest_dl
 from ..common import Cell
@@ -37,13 +37,6 @@ class CellSearchResult:
     sf_idx: int  # 0 or 5 (the SSS subframe)
     psr: float  # peak-to-average detection metric
     frame_type: str = "fdd"  # "fdd" | "tdd" (frame structure 1 or 2)
-
-
-def as_samples(samples, device: torch.device) -> torch.Tensor:
-    """Samples (numpy or a tensor) as a complex64 tensor on `device`."""
-    if isinstance(samples, torch.Tensor):
-        return samples.to(device=device, dtype=torch.complex64)
-    return torch.from_numpy(np.ascontiguousarray(samples, np.complex64)).to(device)
 
 
 def apply_cfo(samples: torch.Tensor, cfo: float, symbol_sz: int, n0: int = 0) -> torch.Tensor:

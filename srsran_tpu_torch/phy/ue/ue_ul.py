@@ -1,11 +1,12 @@
-"""UE uplink transmit facade — PUSCH and PUCCH generation with timing advance
-and CFO.
+"""UE uplink transmit facade — PUSCH, PUCCH, SRS and PRACH generation with
+timing advance and CFO.
 
-Counterpart of `ue_ul_encode` of `srsran_tpu/phy/ue/ue_ul.py` for the
-`pusch`, `pucch1`, `pucch2`, `pucch3`, `uci`, `ta_samples` and `cfo`
-arguments: the host grid of `pusch_encode_np` (with UCI) and the PUCCH
-blocks at their band-edge PRBs, then `ofdm_tx_sf` with the +0.5 subcarrier
-shift.  The SRS argument and PRACH are not ported yet.
+Counterpart of `srsran_tpu/phy/ue/ue_ul.py`.  `ue_ul_encode` builds the
+grid on the host (`pusch_encode_np` with UCI, shortened on an SRS subframe;
+the SRS; the PUCCH blocks at their band-edge PRBs), then runs `ofdm_tx_sf`
+with the +0.5 subcarrier shift, the CFO rotation and the timing-advance roll
+on the device.  `ue_prach_send` moves the host preamble of
+`prach_generate_np` to the device.
 """
 
 from __future__ import annotations
@@ -13,8 +14,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...device import resolve
+from ..chest.srs import put_srs_np
 from ..common import Cell
 from ..ofdm import OfdmConfig, ofdm_tx_sf
+from ..phch.prach import PrachConfig, prach_generate_np
 from ..phch.pucch import (
     PucchConfig,
     _f1_covers,
@@ -40,18 +44,22 @@ def ue_ul_encode(cell: Cell, sf_idx: int, pusch: tuple[UlGrant, np.ndarray] | No
                  pucch2: tuple[PucchConfig, np.ndarray] | None = None,
                  ta_samples: int = 0, cfo: float = 0.0, uci: UciCfg | None = None,
                  srs: tuple[int, int] | None = None,
-                 pucch3: tuple[PucchConfig, np.ndarray, int] | None = None) -> np.ndarray:
+                 pucch3: tuple[PucchConfig, np.ndarray, int] | None = None, *,
+                 device=None) -> torch.Tensor:
     """Render one UL subframe → (sf_len,) complex64 samples (half-subcarrier
-    shifted).  `uci` rides the PUSCH; `pucch1` / `pucch2` are (config,
-    payload bits), `pucch3` (config, bits, rnti).  `ta_samples` advances the
-    transmission (positive = earlier); `cfo` is a frequency offset in
-    subcarriers."""
-    if srs is not None:
-        raise NotImplementedError("the SRS is not ported")
+    shifted) on `device` (None: the card).  `uci` rides the PUSCH; `srs` =
+    (prb_start, nof_prb) sounds the last SC-FDMA symbol, and a PUSCH in the
+    same subframe then takes the shortened format (TS 36.211 §5.5.3.3);
+    `pucch1` / `pucch2` are (config, payload bits), `pucch3` (config, bits,
+    rnti).  `ta_samples` advances the transmission (positive = earlier);
+    `cfo` is a frequency offset in subcarriers."""
+    dev = resolve(device)
     grid = np.zeros((cell.nsymb_per_sf, cell.nof_re_per_symbol), np.complex64)
     if pusch is not None:
         grant, tb = pusch
-        grid += pusch_encode_np(cell, sf_idx, grant, tb, uci=uci)
+        grid += pusch_encode_np(cell, sf_idx, grant, tb, uci=uci, shortened=srs is not None)
+    if srs is not None:
+        put_srs_np(grid, cell, srs[0], srs[1])
     if pucch3 is not None:
         cfg3, bits3, rnti3 = pucch3
         _put_pucch(grid, cell, sf_idx, cfg3, pucch_format3_encode_np(cell, cfg3, sf_idx, bits3, rnti3))
@@ -60,10 +68,22 @@ def ue_ul_encode(cell: Cell, sf_idx: int, pusch: tuple[UlGrant, np.ndarray] | No
             cfg, payload = item
             _put_pucch(grid, cell, sf_idx, cfg, enc(cell, cfg, sf_idx, payload))
     ofdm = OfdmConfig.from_cell(cell, normalize=True, freq_shift_f=0.5)
-    samples = ofdm_tx_sf(ofdm, torch.from_numpy(grid)).numpy()
+    samples = ofdm_tx_sf(ofdm, torch.from_numpy(grid).to(dev))
     if cfo:
-        n = np.arange(len(samples))
-        samples = samples * np.exp(-2j * np.pi * cfo * n / cell.symbol_sz)
+        # float64 phase and product, as the reference's numpy rotation
+        n = torch.arange(samples.shape[-1], device=dev, dtype=torch.float64)
+        rot = torch.polar(torch.ones_like(n), (-2.0 * np.pi * cfo) * n / cell.symbol_sz)
+        samples = (samples.to(torch.complex128) * rot).to(torch.complex64)
     if ta_samples:
-        samples = np.roll(samples, -ta_samples)
-    return samples.astype(np.complex64)
+        samples = torch.roll(samples, -ta_samples)
+    return samples
+
+
+def ue_prach_send(cell: Cell, cfg: PrachConfig, preamble_idx: int, ta_samples: int = 0, *,
+                  device=None) -> torch.Tensor:
+    """The preamble's (CP + sequence) complex64 samples, built on the host,
+    advanced by `ta_samples` on `device` (None: the card)."""
+    p = torch.from_numpy(prach_generate_np(cell, cfg, preamble_idx)).to(resolve(device))
+    if ta_samples:
+        p = torch.roll(p, -ta_samples)
+    return p

@@ -584,8 +584,11 @@ def test_ue_ul_encode_with_pucch_and_uci():
     for sf in (1, 6):
         for kw_r, kw_t in cases:
             want = r_ue_ul.ue_ul_encode(ref, sf, **kw_r)
-            got = t_ue_ul.ue_ul_encode(port, sf, **kw_t)
-            assert got.dtype == np.complex64 and got.shape == want.shape
-            np.testing.assert_allclose(got, want, rtol=0, atol=GRID_ATOL)
-    with pytest.raises(NotImplementedError):
-        t_ue_ul.ue_ul_encode(port, 0, pusch=(g_port, tb), srs=(0, 4))
+            got = t_ue_ul.ue_ul_encode(port, sf, **kw_t, device="cpu")
+            assert got.dtype == torch.complex64 and got.shape == want.shape
+            np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=GRID_ATOL)
+    # the SRS with a shortened PUSCH that carries UCI
+    want = r_ue_ul.ue_ul_encode(ref, 3, pusch=(g_ref, tb), uci=uci_r, srs=(0, 4))
+    got = t_ue_ul.ue_ul_encode(port, 3, pusch=(g_port, tb), uci=from_reference(uci_r), srs=(0, 4),
+                               device="cpu")
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=GRID_ATOL)

@@ -395,3 +395,37 @@ def test_port_decodes_ue_dl_frame_like_reference():
     fx = np.load(TESTDATA / "ue_dl_frame_100prb.npz")
     info = load_smoke().check_ue_dl_frame(fx, "cpu")
     assert info["subframes"] == fx["ref_sf"].tolist() and len(info["subframes"]) >= 7
+
+
+# --- the stored UL subframes (chip_smoke.py phase 26) ---------------------------
+
+
+def test_enb_ul_fixture_stays_small():
+    assert (TESTDATA / "enb_ul_100prb.npz").stat().st_size < 2**20
+
+
+def test_enb_ul_fixture_is_current():
+    """Rendering the four UL subframes again gives the stored int8 pairs (at
+    most 1 in 10,000 a step away), scales, sent bits and configuration."""
+    tool = load_tool()
+    fx = np.load(tool.OUT_ENB_UL)
+    c, q, scale, sent = tool.enb_ul_capture()
+    assert np.count_nonzero(q != fx["q"]) <= q.size // 10_000
+    assert np.abs(q.astype(int) - fx["q"]).max() <= 1
+    np.testing.assert_allclose(scale, fx["scale"], rtol=1e-6)
+    np.testing.assert_array_equal(tool.pack_rows(sent["tbs"]), fx["sent_packed"])
+    np.testing.assert_array_equal(sent["cqi"], fx["sent_cqi"])
+    np.testing.assert_array_equal(tool.pack_rows(sent["pucch"]), fx["sent_pucch"])
+    assert int(fx["w"]) == sent["w"] == 96
+    for k, v in c.items():
+        assert np.asarray(fx[k]).tolist() == list(v) if isinstance(v, tuple) else fx[k] == v, k
+
+
+def test_port_decodes_enb_ul_fixture_like_reference():
+    """chip_smoke.py phase 26's checks of the stored UL subframes and the
+    refsignal validation of the stored frame, on the CPU."""
+    fx = np.load(TESTDATA / "enb_ul_100prb.npz")
+    info = load_smoke().check_enb_ul(fx, "cpu")
+    assert info["uci"]["cqi_bits"] == tuple(fx["sent_cqi"].tolist()) and len(info["uci"]["cqi_bits"]) == 30
+    assert info["prach"] == ([int(fx["preamble"])], 2)
+    assert info["refsignal"][0].found and not info["refsignal"][1].found

@@ -85,6 +85,7 @@ def test_cell_properties(kw):
                  "n_id_1", "n_id_2"):
         assert getattr(port, prop) == getattr(ref, prop), prop
     assert int(port.cp) == int(ref.cp) and port.cp.nsymb == ref.cp.nsymb
+    assert port.cp_lengths_slot() == ref.cp_lengths_slot()
 
 
 @pytest.mark.parametrize("c_init", [0, 1, 301, 0x1234 << 14 | 2 << 9 | 301, (1 << 31) - 1])
@@ -508,3 +509,28 @@ def test_from_reference_takes_agc():
     ref = RAgc(target=0.2, max_gain_db=60.0, gain_db=12.5, state="HOLD", hold_cnt=3)
     got = from_reference(ref)
     assert type(got) is TAgc and dataclasses.asdict(got) == dataclasses.asdict(ref)
+
+
+def test_prach_tables_and_config():
+    """The PRACH tables (TS 36.211 Tables 5.7.2-2/-3/-4), the root spectra,
+    the preamble roots and shifts of every N_cs configuration and the bin
+    map of each cell width."""
+    import srsran_tpu.phy.phch.prach as r_prach
+    import srsran_tpu.phy.phch.prach_data as r_pd
+    import srsran_tpu_torch.phy.phch.prach as t_prach
+    import srsran_tpu_torch.phy.phch.prach_data as t_pd
+
+    for name in ("NCS_UNRESTRICTED", "NCS_RESTRICTED", "NCS_FORMAT4", "ZC_ROOT_ORDER"):
+        assert getattr(t_pd, name) == getattr(r_pd, name), name
+    for u in (1, 129, 419, 838):
+        np.testing.assert_array_equal(t_prach.zc_freq_np(u), r_prach.zc_freq_np(u))
+    for zcz in range(1, 16):
+        ref = r_prach.PrachConfig(root_seq_index=3 * zcz, zero_corr_zone=zcz, freq_offset=zcz)
+        cfg = from_reference(ref)
+        assert isinstance(cfg, t_prach.PrachConfig) and cfg.n_cs == ref.n_cs
+        assert t_prach._roots_and_shifts(cfg) == r_prach._roots_and_shifts(ref)
+        for kw in CELLS[:3]:
+            ref_cell, cell = cells(**kw)
+            if zcz + 6 <= cell.nof_prb:
+                np.testing.assert_array_equal(t_prach._freq_map(cell, cfg),
+                                              r_prach._freq_map(ref_cell, ref))

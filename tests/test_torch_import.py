@@ -26,6 +26,9 @@ def test_import_leaves_jax_out():
         "import srsran_tpu_torch.phy.ue.ue_sync, srsran_tpu_torch.phy.ue.ue_dl\n"
         "import srsran_tpu_torch.phy.ue.intra_measure, srsran_tpu_torch.stack.mac_pdu\n"
         "import srsran_tpu_torch.runtime.pcap, srsran_tpu_torch.apps.enb, srsran_tpu_torch.apps.ue\n"
+        "import srsran_tpu_torch.phy.enb.enb_ul, srsran_tpu_torch.phy.phch.prach\n"
+        "import srsran_tpu_torch.phy.chest.srs, srsran_tpu_torch.phy.channel.channel\n"
+        "import srsran_tpu_torch.phy.sync.refsignal_dl_sync\n"
         "import importlib.util as u\n"
         "spec = u.spec_from_file_location('prof', 'tools/profile_torch_dynamic.py')\n"
         "spec.loader.exec_module(u.module_from_spec(spec))\n"
@@ -48,7 +51,9 @@ def test_every_module_of_the_port_imports_without_jax():
               "phy.phch.pcfich", "phy.phch.phich", "phy.phch.pdcch", "phy.phch.pbch",
               "phy.phch.uci_data", "phy.phch.uci", "phy.phch.pucch", "phy.sync.cfo", "phy.agc",
               "phy.ue.ue_sync", "phy.ue.ue_dl", "phy.ue.intra_measure", "stack.mac_pdu",
-              "runtime.pcap", "apps.enb", "apps.ue"):
+              "runtime.pcap", "apps.enb", "apps.ue", "phy.enb.enb_ul", "phy.phch.prach",
+              "phy.phch.prach_data", "phy.chest.srs", "phy.channel.fading", "phy.channel.channel",
+              "phy.sync.refsignal_dl_sync"):
         assert f"srsran_tpu_torch.{m}" in mods, m
     code = (
         "import sys, importlib\n"

@@ -15,7 +15,9 @@ samples within 2e-6 of their largest magnitude plus the phase 2π·15·|Δcfo|
 that a difference of the two CFOs in their last float32 bits turns over one
 subframe (the CFO loop keeps such a difference; it is 0 where the CFOs are
 equal).  `measure_cells`: the PCIs identical, RSRP within 1e-3
-dB.
+dB.  `refsignal_dl_sync_run`: the replicas within 2e-6, found,
+false_alarm and peak_index identical, rsrp and rssi within 1e-3 dB, cfo
+within 1 Hz, psr within 1e-4 relative.
 """
 
 import numpy as np
@@ -331,3 +333,45 @@ def test_ue_sync_agc_levels():
         np.testing.assert_array_equal(got.buf.numpy(), ref.buf)
         rms = float(np.sqrt(np.mean(np.abs(ref.buf[-1920:]) ** 2)))
         assert 0.1 < rms < 0.6
+
+
+# --- refsignal_dl_sync: CRS cell validation ------------------------------------
+
+
+def crs_frames(cell, n_frames=2):
+    """The reference's CRS + PSS/SSS signature of n_frames frames."""
+    import srsran_tpu.phy.sync.refsignal_dl_sync as r_rs_sync
+
+    return np.concatenate([r_rs_sync._cell_sequences(cell)] * n_frames).reshape(-1)
+
+
+@pytest.mark.parametrize("nof_prb,pci,wrong", [(6, 123, None), (25, 301, None), (6, 123, 124),
+                                               (25, 301, 17)])
+def test_refsignal_dl_sync(nof_prb, pci, wrong):
+    """The capture of `tests/test_sync.py`'s refsignal test (two frames,
+    1501 samples in, 250 Hz of CFO, noise 0.05), validated under its own
+    PCI and rejected under a wrong one."""
+    import srsran_tpu.phy.sync.refsignal_dl_sync as r_rs_sync
+    import srsran_tpu_torch.phy.sync.refsignal_dl_sync as t_rs_sync
+
+    cell = Cell(nof_prb=nof_prb, nof_ports=1, id=pci)
+    tx = crs_frames(cell)
+    rng = np.random.default_rng(5)
+    rx = tx * np.exp(2j * np.pi * 250.0 * np.arange(len(tx)) / cell.srate)
+    rx = awgn(rng, np.concatenate([np.zeros(1501, np.complex64), rx]), 0.05)
+    test_cell = cell if wrong is None else Cell(nof_prb=nof_prb, nof_ports=1, id=wrong)
+    np.testing.assert_allclose(t_rs_sync._cell_sequences(from_reference(test_cell)),
+                               r_rs_sync._cell_sequences(test_cell), rtol=0, atol=2e-6)
+    ref = r_rs_sync.refsignal_dl_sync_run(rx, test_cell)
+    got = t_rs_sync.refsignal_dl_sync_run(rx, from_reference(test_cell), device=CPU)
+    assert (got.found, got.false_alarm, got.peak_index) == (ref.found, ref.false_alarm,
+                                                            ref.peak_index)
+    assert abs(got.psr - ref.psr) <= 1e-4 * ref.psr
+    if ref.peak_index >= 0:
+        assert abs(got.rsrp_dbfs - ref.rsrp_dbfs) <= 1e-3
+        assert abs(got.rssi_dbfs - ref.rssi_dbfs) <= 1e-3
+        assert abs(got.cfo_hz - ref.cfo_hz) <= 1.0
+    if wrong is None:
+        assert got.found and got.peak_index == 1501 and abs(got.cfo_hz - 250.0) < 40
+    else:
+        assert not got.found

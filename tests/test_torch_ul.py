@@ -146,16 +146,17 @@ def test_pusch_encode_and_ue_ul_encode_equal_reference(nprb, mcs):
     close(t_pusch.pusch_encode_np(t_cell, 4, t_grant, tb),
           r_pusch.pusch_encode_np(cell, 4, grant, tb))
     for kw in ({}, {"ta_samples": 5, "cfo": 0.02}):
-        got = t_ue_ul.ue_ul_encode(t_cell, 4, pusch=(t_grant, tb), **kw)
+        got = t_ue_ul.ue_ul_encode(t_cell, 4, pusch=(t_grant, tb), **kw, device="cpu")
         ref = np.asarray(r_ue_ul.ue_ul_encode(cell, 4, pusch=(grant, tb), **kw))
         close(got, ref)
-    assert not t_ue_ul.ue_ul_encode(t_cell, 4).any()
-    # UCI rides the PUSCH since the control plane was ported; the SRS is not
+    assert not t_ue_ul.ue_ul_encode(t_cell, 4, device="cpu").any()
+    # UCI rides the PUSCH since the control plane was ported, the SRS (with
+    # the shortened PUSCH) since the eNB UL chain was
     uci = r_pusch.UciCfg(cqi_bits=(1, 0, 1, 1), ack=(1,))
     close(t_pusch.pusch_encode_np(t_cell, 4, t_grant, tb, uci=from_reference(uci)),
           r_pusch.pusch_encode_np(cell, 4, grant, tb, uci=uci))
-    with pytest.raises(NotImplementedError):
-        t_ue_ul.ue_ul_encode(t_cell, 4, pusch=(t_grant, tb), srs=(0, 4))
+    close(t_ue_ul.ue_ul_encode(t_cell, 4, pusch=(t_grant, tb), srs=(0, 4), device="cpu"),
+          np.asarray(r_ue_ul.ue_ul_encode(cell, 4, pusch=(grant, tb), srs=(0, 4))))
 
 
 def test_chest_ul_matches_reference():

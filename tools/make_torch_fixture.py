@@ -82,11 +82,24 @@ pops when fed one subframe of samples a push, each through
 TB bits, CRC and snr_db.  `ue_dl_frame_stimulus(nof_prb, n_sf)` makes the
 same at another width (the CPU tests use 25 PRB).
 
+The UL-subframe fixture (`enb_ul_100prb.npz`) holds `ENB_UL_CONFIG`'s four
+subframes of the 100 PRB cell 301 (`enb_ul_capture`), rendered by the
+reference's `ue_ul_encode` behind a flat gain per UE and AWGN of amplitude
+0.05, stored as int8 I/Q with a scale each: a plain PUSCH (MCS 20 on PRB
+2..97); the SRS subframe (the PUSCH shortened, with ACK, RI and the 30-bit
+subband CQI, and the SRS over PRB 2..97); PUCCH formats 1a on the SR
+resource 15, 2 on the CQI resource 20 and 3 on n_pucch 36 (at the full
+stack's 26 it shares a PRB with format 2 and does not decode); preamble 17
+48 samples late.  Beside them the reference's results (TBs, CRC, snr_db,
+UCI, SRS ce and snr, PUCCH bits and metrics, PRACH metric/delay/detected)
+and `refsignal_dl_sync_run` on the received-frame fixture with its
+measured CFO taken out (`sync_samples`), under PCI 301 and the wrong 300.
+
 Run from the repo root:  JAX_PLATFORMS=cpu python tools/make_torch_fixture.py
 (`main`, `main_dynamic`, `main_mimo`, `main_ul`, `main_ul_dynamic` each
 write one file, `main_windows` the three decode windows, `main_gen_windows`
 the three generate windows, `main_ctrl_windows` the two control windows,
-`main_ue_dl_frame` the received frame.)
+`main_ue_dl_frame` the received frame, `main_enb_ul` the UL subframes.)
 """
 
 from __future__ import annotations
@@ -838,6 +851,137 @@ def main_ue_dl_frame():
           f"crc {fx['ref_crc_ok'].tolist()}")
 
 
+ENB_UL_CONFIG = dict(nof_prb=100, cell_id=301, rnti=0x46, mcs=20, prb_start=2, sf_plain=2,
+                     sf_srs=3, sf_pucch=7, sf_prach=1, n_pucch=(15, 20, 36), rnti_f3=0x49,
+                     pucch_bits=(1, 4, 4), preamble=17, prach_delay=48, prach_freq_offset=2,
+                     amp=0.05, max_iterations=5, wrong_pci=300, seed=20261024)
+# per UE (PUSCH, PUCCH formats 1a / 2 / 3): the flat channel of the stored subframes
+ENB_UL_GAINS = (0.9 * np.exp(0.4j), 0.8 * np.exp(-0.7j), 0.7 * np.exp(1.2j), 0.85 * np.exp(2.0j))
+OUT_ENB_UL = TESTDATA / "enb_ul_100prb.npz"
+
+
+def ul_width(nof_prb: int, prb_start: int) -> int:
+    """The widest PUSCH from `prb_start` that leaves the two band-edge PUCCH
+    PRBs of each side free and factors into 2, 3 and 5."""
+    from srsran_tpu.phy.dft_precoding import valid_nof_prb
+
+    return max(n for n in range(1, nof_prb - 1 - prb_start) if valid_nof_prb(n))
+
+
+def quantise(x: np.ndarray):
+    """int8 I/Q pairs (..., 2) and the one scale of complex samples."""
+    scale = np.float32(np.abs(np.stack([x.real, x.imag])).max() / 127.0)
+    return np.stack([np.round(x.real / scale), np.round(x.imag / scale)], -1).astype(np.int8), scale
+
+
+def sync_samples(fx) -> np.ndarray:
+    """The stored received frame with the CFO its cell search measured taken
+    out (float64 phase): what `refsignal_dl_sync_run` validates."""
+    from srsran_tpu.phy.common import symbol_sz
+
+    x = frame_samples(fx["q"], fx["scale"])
+    sz = symbol_sz(int(fx["nof_prb"]))
+    n = np.arange(len(x))
+    return (x * np.exp(-2j * np.pi * float(fx["ref_cfo"]) * n / sz)).astype(np.complex64)
+
+
+def enb_ul_capture():
+    """`ENB_UL_CONFIG`'s four stored UL subframes (plain PUSCH, SRS subframe
+    with the shortened PUSCH and UCI, the three PUCCH formats, PRACH), as int8
+    pairs (4, sf_len, 2) with one scale each, and what was sent."""
+    from srsran_tpu.phy.common import Cell
+    from srsran_tpu.phy.phch.prach import PrachConfig, prach_generate_np
+    from srsran_tpu.phy.phch.pucch import PucchConfig
+    from srsran_tpu.phy.phch.pusch import UciCfg
+    from srsran_tpu.phy.phch.uci import cqi_hl_nof_subbands, cqi_hl_subband_pack
+    from srsran_tpu.phy.ue.ue_ul import ue_ul_encode
+
+    c = ENB_UL_CONFIG
+    cell = Cell(nof_prb=c["nof_prb"], nof_ports=1, id=c["cell_id"])
+    rng = np.random.default_rng(c["seed"])
+    w = ul_width(c["nof_prb"], c["prb_start"])
+    grant = ul_grant(c["mcs"], c["prb_start"], w, c["rnti"])
+    tbs = [rng.integers(0, 2, grant.tbs).astype(np.uint8) for _ in range(2)]
+    nsub = cqi_hl_nof_subbands(c["nof_prb"])
+    cqi = np.asarray(cqi_hl_subband_pack(11, rng.integers(0, 4, nsub)), np.uint8)
+    uci = UciCfg(cqi_bits=tuple(int(b) for b in cqi), ack=(1,), ri=(1,))
+    pucch = [rng.integers(0, 2, n).astype(np.uint8) for n in c["pucch_bits"]]
+    h_a, h_b, h_c, h_d = ENB_UL_GAINS
+    sfs = [h_a * np.asarray(ue_ul_encode(cell, c["sf_plain"], pusch=(grant, tbs[0]))),
+           h_a * np.asarray(ue_ul_encode(cell, c["sf_srs"], pusch=(grant, tbs[1]), uci=uci,
+                                         srs=(c["prb_start"], w)))]
+    cfgs = [PucchConfig(n_pucch=n) for n in c["n_pucch"]]
+    sf = c["sf_pucch"]
+    sfs.append(h_b * np.asarray(ue_ul_encode(cell, sf, pucch1=(cfgs[0], list(pucch[0]))))
+               + h_c * np.asarray(ue_ul_encode(cell, sf, pucch2=(cfgs[1], pucch[1])))
+               + h_d * np.asarray(ue_ul_encode(cell, sf, pucch3=(cfgs[2], pucch[2], c["rnti_f3"]))))
+    p = prach_generate_np(cell, PrachConfig(freq_offset=c["prach_freq_offset"]), c["preamble"])
+    x = np.zeros(cell.sf_len, np.complex64)
+    x[c["prach_delay"] : c["prach_delay"] + len(p)] = p
+    sfs.append(x)
+    qs = [quantise(awgn(c["seed"] + i, s, c["amp"])) for i, s in enumerate(sfs)]
+    sent = dict(tbs=tbs, cqi=cqi, pucch=pucch, w=w)
+    return c, np.stack([q for q, _ in qs]), np.asarray([s for _, s in qs], np.float32), sent
+
+
+def enb_ul_stimulus() -> dict:
+    """`enb_ul_capture` and the reference's results on it; beside them
+    `refsignal_dl_sync_run` on the stored received frame (`OUT_FRAME`) under
+    its own PCI and a wrong one."""
+    from srsran_tpu.phy.chest.srs import srs_estimate
+    from srsran_tpu.phy.common import Cell
+    from srsran_tpu.phy.enb.enb_ul import enb_ul_decode_pucch, enb_ul_decode_pusch, enb_ul_fft
+    from srsran_tpu.phy.phch.prach import PrachConfig, prach_cp_len, prach_detect, prach_nfft
+    from srsran_tpu.phy.phch.pucch import PucchConfig
+    from srsran_tpu.phy.phch.pusch import UciCfg
+    from srsran_tpu.phy.sync.refsignal_dl_sync import refsignal_dl_sync_run
+
+    c, q, scale, sent = enb_ul_capture()
+    cell = Cell(nof_prb=c["nof_prb"], nof_ports=1, id=c["cell_id"])
+    x = [frame_samples(q[i], scale[i]) for i in range(4)]
+    grids = [np.asarray(enb_ul_fft(cell, s[None])) for s in x]
+    grant = ul_grant(c["mcs"], c["prb_start"], sent["w"], c["rnti"])
+    tb0, ok0, _, snr0 = enb_ul_decode_pusch(cell, c["sf_plain"], grids[0], grant, c["max_iterations"])
+    uci_exp = UciCfg(cqi_bits=(0,) * len(sent["cqi"]), ack=(0,), ri=(0,))
+    tb1, ok1, _, snr1, uci = enb_ul_decode_pusch(cell, c["sf_srs"], grids[1], grant,
+                                                 c["max_iterations"], uci=uci_exp, shortened=True)
+    ce, snr_srs = (np.asarray(v) for v in srs_estimate(grids[1], cell, c["prb_start"], sent["w"]))
+    pucch = [enb_ul_decode_pucch(cell, c["sf_pucch"], grids[2], PucchConfig(n_pucch=n), f, nb,
+                                 rnti=c["rnti_f3"] if f == "3" else 0)
+             for n, f, nb in zip(c["n_pucch"], "123", c["pucch_bits"])]
+    cp, nfft = prach_cp_len(cell), prach_nfft(cell)
+    metric, delay, det = (np.asarray(v) for v in prach_detect(
+        cell, PrachConfig(freq_offset=c["prach_freq_offset"]), x[3][cp : cp + nfft]))
+    frame = np.load(OUT_FRAME)
+    rs = [refsignal_dl_sync_run(sync_samples(frame), Cell(nof_prb=int(frame["nof_prb"]), nof_ports=1,
+                                                            id=pci))
+          for pci in (int(frame["cell_id"]), c["wrong_pci"])]
+    assert ok0 and ok1 and np.array_equal(tb0, sent["tbs"][0]) and np.array_equal(tb1, sent["tbs"][1])
+    assert uci == dict(cqi_bits=tuple(int(b) for b in sent["cqi"]), ack=(1,), ri=(1,)), uci
+    assert det[c["preamble"]] and det.sum() == 1 and rs[0].found and not rs[1].found
+    return dict(
+        q=q, scale=scale, w=np.int64(sent["w"]), tbs=np.int64(grant.tbs),
+        sent_packed=pack_rows(sent["tbs"]), sent_cqi=sent["cqi"], sent_pucch=pack_rows(sent["pucch"]),
+        ref_tb_packed=pack_rows([tb0, tb1]), ref_crc_ok=np.asarray([ok0, ok1]),
+        ref_snr_db=np.asarray([snr0, snr1], np.float64),
+        ref_uci_cqi=np.asarray(uci["cqi_bits"], np.uint8), ref_uci_ack=np.asarray(uci["ack"]),
+        ref_uci_ri=np.asarray(uci["ri"]), ref_srs_ce=ce, ref_srs_snr=snr_srs,
+        ref_pucch_packed=pack_rows([np.asarray(b, np.uint8) for b, _ in pucch]),
+        ref_pucch_metric=np.asarray([float(np.asarray(m)) for _, m in pucch], np.float64),
+        ref_prach_metric=metric, ref_prach_delay=delay, ref_prach_det=det,
+        ref_rs=np.asarray([[r.found, r.false_alarm, r.peak_index, r.rsrp_dbfs, r.rssi_dbfs,
+                            r.cfo_hz, r.psr] for r in rs], np.float64),
+        **{k: np.asarray(v) for k, v in c.items()})
+
+
+def main_enb_ul():
+    fx = enb_ul_stimulus()
+    np.savez(OUT_ENB_UL, **fx)
+    print(f"wrote {OUT_ENB_UL}: crc {fx['ref_crc_ok'].tolist()} snr_db {fx['ref_snr_db'].tolist()}, "
+          f"PUCCH metrics {fx['ref_pucch_metric'].tolist()}, PRACH delay "
+          f"{int(fx['ref_prach_delay'][int(fx['preamble'])])}, refsignal {fx['ref_rs'].tolist()}")
+
+
 def main():
     import jax
 
@@ -873,3 +1017,4 @@ if __name__ == "__main__":
     main_gen_windows()
     main_ctrl_windows()
     main_ue_dl_frame()
+    main_enb_ul()

@@ -5,7 +5,8 @@
 `--path window`, `window_mimo` or `window_ul` profiles one windowed engine
 instead, `--path loopback`, `loopback_ul` or `loopback_mimo` one loopback
 window, `--path ctrl_dl` or `ctrl_ul` one control loopback window, `--path
-ue_dl` one TRACK subframe of the 20 MHz link (see the end of this text).
+ue_dl` one TRACK subframe of the 20 MHz link, `--path ul_link` the 20 MHz
+UL link (see the end of this text).
 
 First the static entry point at full width, with the inputs of `chip_smoke.py`:
 `ue_dl_subframe` at 100 PRB, MCS 26, B=128 subframes a call (siso);
@@ -72,12 +73,18 @@ Viterbi, collect, PDSCH; medians of 5, host ms and CUDA-event ms), then
 from `torch.profiler` the kernels and device ms of each step and the
 kernels by name of the whole `ue_dl_decode_subframe`.
 
+The ul_link path runs `chip_smoke.py` phase 27 alone in its own process:
+the 20 MHz multi-UE UL link over four frames with its gates, ms per UL
+subframe, and for four kept subframes (PRACH, RM CQI, SRS, Viterbi CQI)
+the fenced steps of `chip_smoke.enb_ul_steps` with their kernels and
+device ms.
+
 The last line is all of it as one JSON object.
 
 Run from the repo root on a machine with a card:
     python3 tools/profile_torch_dynamic.py [--path siso|mimo|ul|window|window_mimo|window_ul|
                                                    loopback|loopback_ul|loopback_mimo|ctrl_dl|ctrl_ul|
-                                                   ue_dl]
+                                                   ue_dl|ul_link]
 """
 
 from __future__ import annotations
@@ -197,7 +204,7 @@ def dynamic_grants(path: str, rng):
         for tag, mcs, s0, l, amp in specs:
             grant = chip_smoke.ul_grant(mcs, s0, l, 0x46)
             tb = rng.integers(0, 2, grant.tbs).astype(np.uint8)
-            rx = chip_smoke.awgn(rng, ue_ul_encode(cell, 3, pusch=(grant, tb))[None], amp)
+            rx = chip_smoke.awgn(rng, ue_ul_encode(cell, 3, pusch=(grant, tb)).cpu().numpy()[None], amp)
             out.append((tag, 3, grant, tb, torch.from_numpy(rx).cuda()))
         return dec, out
     nof_ports = 2 if path == "mimo" else 1
@@ -458,7 +465,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--path", default="siso", choices=(
         "siso", "mimo", "ul", "window", "window_mimo", "window_ul",
-        "loopback", "loopback_ul", "loopback_mimo", "ctrl_dl", "ctrl_ul", "ue_dl"))
+        "loopback", "loopback_ul", "loopback_mimo", "ctrl_dl", "ctrl_ul", "ue_dl", "ul_link"))
     path = parser.parse_args().path
     if not torch.cuda.is_available():
         print("profile_torch_dynamic: torch.cuda.is_available() is false", file=sys.stderr)
@@ -471,6 +478,11 @@ def main() -> int:
     report = {"card": card, "torch": torch.__version__, "path": path, "grants": {}}
     if path == "ue_dl":
         profile_ue_dl(report)
+        print(json.dumps(report))
+        return 0
+    if path == "ul_link":
+        _launches, report["ul_link"], _shapes = chip_smoke.phase_ul_link(
+            torch.device("cuda", torch.cuda.current_device()))
         print(json.dumps(report))
         return 0
     if path.startswith("ctrl"):
