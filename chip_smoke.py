@@ -155,7 +155,7 @@ Phases (each prints its own lines; any failure exits non-zero):
      (`ue_dl_steps`: OFDM + chest, PCFICH, blind search host part, Viterbi,
      collect, PDSCH), kernels and busy share, the Viterbi's calls and
      kernels, MAP launches;
-  25. (after 22-24 and 26-27) the static kernel against `map_pass_plain`
+  25. (after 22-24 and 26-30) the static kernel against `map_pass_plain`
      at every (B, K) that phases 22-24 and 26-27 launched it at
      (`turbo_cuda.SHAPES`), with ms, bound and share of bound;
   26. the stored UL subframes `testdata/enb_ul_100prb.npz` (100 PRB, cell
@@ -176,7 +176,28 @@ Phases (each prints its own lines; any failure exits non-zero):
      TB, UCI value, PUCCH bit, the preamble and the SRS SNR are gated; ms
      per UL subframe (host and CUDA events, warm medians), the real-time
      factor, the fenced spans of `enb_ul_steps` with kernels and device ms,
-     `ue_ul_encode` ms per UE, MAP launches and the busy share.
+     `ue_ul_encode` ms per UE, MAP launches and the busy share;
+  28. the stored reference attach `testdata/full_stack_attach_100prb.json`
+     (100 PRB, cell 301, MCS 20, SRS and SR on, no noise): the port's
+     `EnbStack`/`UeStack` on the card through `StackRun` — attach, 4 DL
+     packets of 1400 bytes, 3 UL of 1000 — give the reference's stats, RRC
+     and NAS states in every TTI, its IP, IMSIs and packets;
+  29. the 20 MHz attached link (`stack_link_run`): one `EnbStack` and two
+     `UeStack`s (preambles 11 and 29, the second 40 TTIs later) through EPA
+     `Channel`s (the common DL, each UE's UL) with AWGN 0.01; both attach
+     with AS security on, distinct C-RNTIs and IPs, two PRACH detections;
+     20 TTIs of 1400-byte DL packets a UE a TTI, 20 of 1000-byte UL ones,
+     every packet through in order and intact; warm medians over the
+     attached TTIs of ms per TTI of each end (host clock, synchronised, and
+     CUDA events) and their DL/UL halves, the real-time factors, host
+     synchronisations, kernels and busy share of one TTI, MAP launches per
+     TTI, Mbps of IP payload each way;
+  30. phase 28's script (plus 2 DL and 2 UL packets) with
+     `dynamic_phy=True` and with `windowed_phy=True, phy_window=4` on both
+     ends (`stack_planes_run`): the same gates, each plane used at both
+     ends; ms per TTI and MAP launches by mode.  Phase 25 then also takes
+     the static shapes of phases 28-30, and phase 12 the windows of phase
+     30 (`note_shape`) and the dynamic plane's launch shapes.
 Every path is driven with the launch counts set to 0 just before and read
 just after.  Prints one JSON line of kernel results, then as its last line
 {"ok": true, "device": {...}}.  TF32 stays off: the channel-estimate
@@ -192,6 +213,7 @@ import sys
 import time
 from collections import Counter
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -2776,6 +2798,552 @@ def phase_ul_link(dev, n_frames: int = 4) -> tuple[tuple[int, int], dict, Counte
     return launches, times, +shapes
 
 
+# --- phases 28-30: the per-TTI LTE stack ------------------------------------------
+
+FIXTURE_STACK = TESTDATA / "full_stack_attach_100prb.json"
+# the subscribers of tests/test_full_stack.py (OPc = compute_opc(key, op))
+STACK_UES = (("001010123456789", bytes.fromhex("00112233445566778899aabbccddeeff"),
+              bytes.fromhex("63bfa50ee6523365ff14c1f45f88737d")),
+             ("001010999888777", bytes(range(16)), bytes(16)))
+STACK = dict(cell_id=301, mcs=20, rand_state=0x5EED00C0FFEE, seed=28, settle=5, max_attach=200,
+             max_traffic=150, dl=(4, 1400), ul=(3, 1000))
+# phase 29: two UEs (preambles 11 and 29, the second 40 TTIs later) through
+# EPA fading with AWGN, then 20 TTIs of DL and 20 of UL traffic
+STACK_LINK = dict(preambles=(11, 29), attach_delays=(0, 40), doppler_hz=5.0, amp=0.01,
+                  traffic_ttis=20, dl_bytes=1400, ul_bytes=1000, max_attach=300, max_drain=200)
+# phase 30: the stored attach's script on the other data planes
+STACK_PLANES = (("dynamic", dict(dynamic_phy=True)),
+                ("windowed", dict(windowed_phy=True, phy_window=4)))
+
+
+def port_stack_modules() -> SimpleNamespace:
+    """The port's stack classes, as `StackRun` and `stack_pair` take them."""
+    from srsran_tpu_torch.apps import full_stack
+    from srsran_tpu_torch.epc import Hss, Mme, Spgw, Subscriber
+    from srsran_tpu_torch.phy.common import Cell
+    from srsran_tpu_torch.stack.nas_ue import Usim
+    from srsran_tpu_torch.stack.security import compute_opc
+
+    return SimpleNamespace(EnbStack=full_stack.EnbStack, UeStack=full_stack.UeStack, Cell=Cell,
+                           Hss=Hss, Mme=Mme, Spgw=Spgw, Subscriber=Subscriber, Usim=Usim,
+                           compute_opc=compute_opc)
+
+
+def stack_pair(m, nof_prb: int, n_ues: int = 1, enb_kw=None, ue_kw=(), **dev_kw) -> SimpleNamespace:
+    """An EPC (HSS with STACK's RAND state, SPGW, MME), an `EnbStack` and
+    `n_ues` `UeStack`s of the classes in `m` on one cell (STACK's PCI, one
+    port).  `ue_kw`: per-UE constructor arguments; `dev_kw`: `device=` for
+    the port, nothing for the reference."""
+    cell = m.Cell(nof_prb=nof_prb, nof_ports=1, id=STACK["cell_id"])
+    hss = m.Hss()
+    hss._rand_state = STACK["rand_state"]
+    usims = []
+    for i, (imsi, key, op) in enumerate(STACK_UES[:n_ues]):
+        opc = m.compute_opc(key, op)
+        hss.add_subscriber(m.Subscriber(f"ue{i + 1}", imsi, key, opc, amf=b"\x80\x00", sqn=0))
+        usims.append(m.Usim(imsi, key, opc))
+    spgw = m.Spgw()
+    mme = m.Mme(hss, spgw)
+    enb = m.EnbStack(cell, mme, spgw, **dict(dict(mcs=STACK["mcs"]), **(enb_kw or {})), **dev_kw)
+    ues = []
+    for i, usim in enumerate(usims):
+        ue = m.UeStack(cell, usim, **dict(ue_kw[i] if i < len(ue_kw) else {}), **dev_kw)
+        if i:
+            ue.ue_identity = bytes([0x99 - i, 0x88, 0x77, 0x66, 0x55])
+        ues.append(ue)
+    return SimpleNamespace(cell=cell, hss=hss, spgw=spgw, mme=mme, enb=enb, ues=ues)
+
+
+def stack_packets(seed: int, n: int, size: int) -> list[bytes]:
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, size, dtype=np.uint8).tobytes() for _ in range(n)]
+
+
+def stack_registered(ue) -> bool:
+    return ue.rrc_state == type(ue).RRC_ACTIVE and ue.nas.state == ue.nas.REGISTERED
+
+
+class StackRun:
+    """The stored attach over one `EnbStack`/`UeStack` pair, one TTI a
+    `step`: the eNB's DL subframe to the UE, the UE's UL subframe to the eNB
+    the next TTI (`link_dl`/`link_ul` carry them; identity by default).
+    `settle` TTIs after the UE registers, STACK's DL packets are queued at
+    the SGi and its UL packets at the UE.  Each TTI records both ends'
+    stats, both RRC states and the UE's NAS state."""
+
+    def __init__(self, enb, ue, mme, spgw, dl=STACK["dl"], ul=STACK["ul"],
+                 link_dl=lambda x: x, link_ul=lambda x: x):
+        self.enb, self.ue, self.mme, self.spgw = enb, ue, mme, spgw
+        self.link_dl, self.link_ul = link_dl, link_ul
+        self.dl_pkts = stack_packets(STACK["seed"], *dl)
+        self.ul_pkts = stack_packets(STACK["seed"] + 1, *ul)
+        self.ul = None
+        self.tti = 0
+        self.reg_tti = None
+        self.records = []
+
+    def step(self):
+        """One TTI; returns (the eNB's DL subframe, the UE's UL subframe)."""
+        dl = self.enb.run_tti(self.ul)
+        ul = self.ue.run_tti(self.link_dl(dl))
+        self.ul = None if ul is None else self.link_ul(ul)
+        self.records.append(dict(enb=dict(self.enb.stats), ue=dict(self.ue.stats),
+                                 enb_rrc=int(self.enb.rrc_state), ue_rrc=int(self.ue.rrc_state),
+                                 nas=int(self.ue.nas.state)))
+        if self.reg_tti is None and stack_registered(self.ue):
+            self.reg_tti = self.tti
+        if self.reg_tti is not None and self.tti == self.reg_tti + STACK["settle"]:
+            for p in self.dl_pkts:
+                self.spgw.sgi_tx(self.ue.ue_ip, p)
+            for p in self.ul_pkts:
+                self.ue.send_ip_packet(p)
+        self.tti += 1
+        return dl, ul
+
+    def delivered(self) -> bool:
+        return (len(self.ue.ip_rx) >= len(self.dl_pkts)
+                and len(self.spgw.sgi_rx) >= len(self.ul_pkts))
+
+    def run(self, n_ttis: int | None = None):
+        """Run `n_ttis` TTIs, or until the packets are through (at most
+        STACK's attach and traffic budgets)."""
+        if n_ttis is not None:
+            while self.tti < n_ttis:
+                self.step()
+            return self
+        while self.reg_tti is None and self.tti < STACK["max_attach"]:
+            self.step()
+        check(self.reg_tti is not None, f"stack: no attach in {self.tti} TTIs: {self.records[-1]}")
+        while not self.delivered() and self.tti < self.reg_tti + STACK["max_traffic"]:
+            self.step()
+        return self
+
+    def result(self) -> dict:
+        return dict(ip=self.ue.ue_ip, imsis=sorted(self.mme.attached_imsis),
+                    ip_rx=[p.hex() for p in self.ue.ip_rx],
+                    sgi_rx=[[ip, p.hex()] for ip, p in self.spgw.sgi_rx],
+                    reg_tti=self.reg_tti, ttis=self.tti)
+
+    def check_traffic(self, tag: str):
+        """The gates of every stack phase: registered with AS security on,
+        every packet through, in order and intact."""
+        ue = self.ue
+        check(stack_registered(ue) and ue.cipher_alg == ue.integ_alg == 2,
+              f"{tag}: UE not registered with AS security: {self.records[-1]}")
+        check(ue.ip_rx == self.dl_pkts, f"{tag}: DL packets {len(ue.ip_rx)}/{len(self.dl_pkts)} "
+              f"or out of order")
+        check([p for _ip, p in self.spgw.sgi_rx] == self.ul_pkts,
+              f"{tag}: UL packets {len(self.spgw.sgi_rx)}/{len(self.ul_pkts)} or out of order")
+
+
+def check_stack_fixture(fx: dict, run: StackRun) -> int:
+    """The port's run of the stored attach against the reference's, TTI by
+    TTI.  Returns the TTIs compared."""
+    ref = fx["records"]
+    check(len(run.records) == len(ref), f"stored attach: {len(run.records)} TTIs, stored {len(ref)}")
+    for tti, (got, want) in enumerate(zip(run.records, ref)):
+        check(got == want, f"stored attach: TTI {tti}: {got}, stored {want}")
+    res = run.result()
+    for k in ("ip", "imsis", "ip_rx", "sgi_rx", "reg_tti", "ttis"):
+        check(res[k] == fx["result"][k], f"stored attach: {k} {res[k]}, stored {fx['result'][k]}")
+    return len(ref)
+
+
+class StackAir:
+    """Phase 29's air on `device`: the DL through one EPA `Channel` (the
+    common DL) and each UE's UL through its own; seeded AWGN of amplitude
+    STACK_LINK's `amp` on every receiver, from one `torch.Generator`."""
+
+    def __init__(self, cell, n_ues: int, device):
+        from srsran_tpu_torch.phy.channel.channel import Channel, ChannelConfig
+        from srsran_tpu_torch.phy.channel.fading import FadingConfig
+
+        L = STACK_LINK
+
+        def chan(seed):
+            return Channel(ChannelConfig(fading=FadingConfig("epa", L["doppler_hz"], cell.srate, seed),
+                                         srate=cell.srate, seed=seed), device=device)
+
+        self.n, self.device = cell.sf_len, device
+        self.dl_chan = chan(STACK["seed"])
+        self.ul_chans = [chan(STACK["seed"] + 1 + i) for i in range(n_ues)]
+        self.gen = torch.Generator(device=device).manual_seed(STACK["seed"])
+
+    def noise(self) -> torch.Tensor:
+        v = torch.randn(2, self.n, generator=self.gen, device=self.device) * STACK_LINK["amp"]
+        return torch.complex(v[0], v[1])
+
+    def dl(self, x: torch.Tensor, n_ues: int) -> list[torch.Tensor]:
+        y = self.dl_chan.run(x)
+        return [y + self.noise() for _ in range(n_ues)]
+
+    def ul(self, txs) -> torch.Tensor:
+        y = self.noise()
+        for chan, x in zip(self.ul_chans, txs):
+            y = y + chan.run(torch.zeros(self.n, dtype=torch.complex64, device=self.device)
+                             if x is None else x)
+        return y
+
+
+class Timed:
+    """Wraps methods of objects so that each call is timed on the host clock
+    between two synchronizes; `ms[name]` lists the calls' milliseconds."""
+
+    def __init__(self, device):
+        self.device = device
+        self.ms: dict = {}
+        self.on = True
+
+    def wrap(self, obj, method: str, name: str):
+        fn = getattr(obj, method)
+        self.ms[name] = []
+
+        def timed(*a, **kw):
+            if not self.on:
+                return fn(*a, **kw)
+            sync(self.device)
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            sync(self.device)
+            self.ms[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        setattr(obj, method, timed)
+
+
+def stack_link_run(device, nof_prb: int = 100, traffic_ttis: int = STACK_LINK["traffic_ttis"],
+                   on_step=None) -> dict:
+    """Phase 29's link: an `EnbStack` (STACK's cell and MCS) and two
+    `UeStack`s (preambles 11 and 29, the second 40 TTIs later) through
+    `StackAir`.  After both register (and 10 TTIs for the second's Attach
+    Complete), `traffic_ttis` TTIs of full-buffer DL — a `dl_bytes` packet a
+    UE a TTI at the SGi — then `traffic_ttis` TTIs of UL — a `ul_bytes`
+    packet a UE a TTI — then until everything is through (packet sizes
+    scaled by nof_prb / 100).  Gates: both UEs
+    registered with AS security on, distinct C-RNTIs and IPs, two PRACH
+    detections, every packet delivered in order and intact.  `on_step(tti,
+    phase)` runs after each TTI ("attach", "dl", "ul", "drain").  Returns
+    the run's record: per TTI the host ms (synchronised) and CUDA-event ms
+    of `EnbStack.run_tti` and of each `UeStack.run_tti`, and the split of
+    each end into its DL and UL halves."""
+    L = STACK_LINK
+    # the packets scale with the cell, so that a narrower cell of the CPU
+    # tests carries the same load for its width
+    dl_bytes, ul_bytes = (max(1, L[k] * nof_prb // 100) for k in ("dl_bytes", "ul_bytes"))
+    cuda = torch.device(device).type == "cuda"
+    s = stack_pair(port_stack_modules(), nof_prb, n_ues=2,
+                   ue_kw=[dict(preamble=p, attach_delay=d)
+                          for p, d in zip(L["preambles"], L["attach_delays"])], device=device)
+    enb, ues, spgw = s.enb, s.ues, s.spgw
+    air = StackAir(s.cell, len(ues), device)
+    timed = Timed(device)
+    timed.wrap(enb, "_process_ul", "enb ul receive")
+    timed.wrap(enb, "_build_dl", "enb dl render")
+    for i, ue in enumerate(ues):
+        timed.wrap(ue, "_process_dl", f"ue{i} dl decode")
+        timed.wrap(ue, "_build_ul", f"ue{i} ul encode")
+    rec = dict(enb_ms=[], enb_event_ms=[], ue_ms=[[] for _ in ues], ue_event_ms=[[] for _ in ues],
+               phase=[], cell=s.cell, stack=s, timed=timed)
+    dl_sent = [[] for _ in ues]
+    ul_sent = {}
+    ul = [None] * len(ues)
+
+    def one_tti(phase: str):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if cuda else None
+
+        def clocked(fn, arg, host, event):
+            sync(device)
+            t0 = time.perf_counter()
+            if ev:
+                ev[0].record()
+            out = fn(arg)
+            if ev:
+                ev[1].record()
+            sync(device)
+            host.append((time.perf_counter() - t0) * 1e3)
+            event.append(ev[0].elapsed_time(ev[1]) if ev else None)
+            return out
+
+        x = clocked(enb.run_tti, air.ul(ul) if any(u is not None for u in ul) else None,
+                    rec["enb_ms"], rec["enb_event_ms"])
+        for i, (ue, y) in enumerate(zip(ues, air.dl(x, len(ues)))):
+            ul[i] = clocked(ue.run_tti, y, rec["ue_ms"][i], rec["ue_event_ms"][i])
+        rec["phase"].append(phase)
+        if on_step is not None:
+            on_step(len(rec["phase"]) - 1, phase)
+
+    while not all(stack_registered(u) for u in ues) and len(rec["phase"]) < L["max_attach"]:
+        one_tti("attach")
+    check(all(stack_registered(u) for u in ues),
+          f"stack link: UEs not registered after {len(rec['phase'])} TTIs: "
+          f"{[(u.rrc_state, u.nas.state) for u in ues]}")
+    for _ in range(10):  # the second UE's Attach Complete reaches the MME
+        one_tti("attach")
+    rec["attached_tti"] = len(rec["phase"])
+    rng = np.random.default_rng(STACK["seed"] + 29)
+    for _ in range(traffic_ttis):
+        for i, ue in enumerate(ues):
+            p = rng.integers(0, 256, dl_bytes, dtype=np.uint8).tobytes()
+            spgw.sgi_tx(ue.ue_ip, p)
+            dl_sent[i].append(p)
+        one_tti("dl")
+    for _ in range(traffic_ttis):
+        for i, ue in enumerate(ues):
+            p = rng.integers(0, 256, ul_bytes, dtype=np.uint8).tobytes()
+            ue.send_ip_packet(p)
+            ul_sent.setdefault(ue.ue_ip, []).append(p)
+        one_tti("ul")
+    def through():
+        got_ul = {}
+        for ip, p in spgw.sgi_rx:
+            got_ul.setdefault(ip, []).append(p)
+        return (all(len(u.ip_rx) >= len(d) for u, d in zip(ues, dl_sent))
+                and all(len(got_ul.get(ip, ())) >= len(v) for ip, v in ul_sent.items()), got_ul)
+
+    while not through()[0] and len(rec["phase"]) < rec["attached_tti"] + 2 * traffic_ttis + L["max_drain"]:
+        one_tti("drain")
+    got_ul = through()[1]
+    for i, ue in enumerate(ues):
+        check(ue.cipher_alg == ue.integ_alg == 2, f"stack link: UE {i} has no AS security")
+        check(ue.ip_rx == dl_sent[i], f"stack link: UE {i} got {len(ue.ip_rx)}/{len(dl_sent[i])} DL "
+              f"packets or out of order")
+        check(got_ul.get(ue.ue_ip) == ul_sent[ue.ue_ip], f"stack link: UE {i}'s UL packets "
+              f"{len(got_ul.get(ue.ue_ip, ()))}/{len(ul_sent[ue.ue_ip])} or out of order")
+    check(ues[0].crnti != ues[1].crnti and ues[0].ue_ip != ues[1].ue_ip,
+          "stack link: the UEs share a C-RNTI or an IP")
+    check(enb.stats["prach_detected"] == 2, f"stack link: PRACH detections {enb.stats}")
+    check(sorted(s.mme.attached_imsis) == sorted(imsi for imsi, _k, _o in STACK_UES[:2]),
+          f"stack link: MME attached {s.mme.attached_imsis}")
+    rec.update(dl_bits=8 * sum(len(p) for d in dl_sent for p in d),
+               ul_bits=8 * sum(len(p) for v in ul_sent.values() for p in v))
+    return rec
+
+
+def stack_steps_synced(run_one, device) -> int:
+    """Host synchronisations (`torch.cuda.set_sync_debug_mode`'s warnings)
+    made by one call of run_one."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run_one()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_stored_stack(dev) -> tuple[int, int]:
+    """Phase 28: the stored reference attach on the card, TTI by TTI.
+    Returns the (static, dynamic-K) launches."""
+    fx = json.loads(FIXTURE_STACK.read_text())
+    s = stack_pair(port_stack_modules(), fx["nof_prb"], enb_kw=fx["enb_kw"], ue_kw=[fx["ue_kw"]],
+                   device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    run = StackRun(s.enb, s.ues[0], s.mme, s.spgw).run(len(fx["records"]))
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    n = check_stack_fixture(fx, run)
+    run.check_traffic("stored attach")
+    check(launches[0] > 0, f"stored attach: map launches {launches}")
+    print(f"stored attach: {fx['nof_prb']} PRB cell {STACK['cell_id']} MCS {STACK['mcs']} "
+          f"{fx['enb_kw']}: {n} TTIs equal to the reference's stats, RRC and NAS states TTI by TTI "
+          f"(registered at TTI {run.reg_tti}, IP {run.ue.ue_ip}); {len(run.dl_pkts)} DL x "
+          f"{STACK['dl'][1]} B and {len(run.ul_pkts)} UL x {STACK['ul'][1]} B packets identical; "
+          f"{secs * 1e3 / n:.1f} ms per TTI (both ends, host clock); {launches[0]} map launches")
+    return launches
+
+
+def phase_stack_link(dev) -> tuple[tuple[int, int], dict, Counter]:
+    """Phase 29: the 20 MHz attached link, timed.  Returns ((static,
+    dynamic-K) launches, times dict, the run's launches by kernel shape)."""
+    from srsran_tpu_torch.phy.fec import turbo_cuda
+
+    L = STACK_LINK
+    marks = {}
+
+    def on_step(_tti, phase):
+        marks[f"map {phase}"] = turbo_cuda.LAUNCHES
+
+    reset_launches()
+    before = Counter(turbo_cuda.SHAPES)
+    rec = stack_link_run(dev, 100, on_step=on_step)
+    launches = read_launches()
+    shapes = Counter(turbo_cuda.SHAPES)
+    shapes.subtract(before)
+    mark("phase 29: the link ran; its host syncs, kernels and times")
+    med = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
+    s = rec["stack"]
+    enb, ues = s.enb, s.ues
+    att = [i for i, p in enumerate(rec["phase"]) if p != "attach"]
+    enb_ms, enb_ev = med([rec["enb_ms"][i] for i in att]), med([rec["enb_event_ms"][i] for i in att])
+    ue_ms = [med([v[i] for i in att]) for v in rec["ue_ms"]]
+    ue_ev = [med([v[i] for i in att]) for v in rec["ue_event_ms"]]
+    # the halves of each end: the wrapped methods run once a TTI each
+    halves = {k: med(v[-len(att):]) for k, v in rec["timed"].ms.items()}
+    attach_tti = [i for i, p in enumerate(rec["phase"]) if p == "attach"]
+    attach_ue_ms = med([rec["ue_ms"][0][i] for i in attach_tti])
+    n_traffic = sum(p in ("dl", "ul", "drain") for p in rec["phase"])
+    map_attached = (marks[f"map {rec['phase'][-1]}"] - marks["map attach"]) / max(1, len(att))
+    # host syncs and kernels of one attached TTI (both ends and the air)
+    rec["timed"].on = False
+    air = StackAir(s.cell, len(ues), dev)
+    ul = [None] * len(ues)
+
+    def one():
+        x = enb.run_tti(air.ul(ul) if any(u is not None for u in ul) else None)
+        for i, (ue, y) in enumerate(zip(ues, air.dl(x, len(ues)))):
+            ul[i] = ue.run_tti(y)
+
+    for i, ue in enumerate(ues):
+        for _ in range(2):
+            s.spgw.sgi_tx(ue.ue_ip, bytes(L["dl_bytes"]))
+            ue.send_ip_packet(bytes(L["ul_bytes"]))
+    syncs = [stack_steps_synced(one, dev) for _ in range(5)]
+    host = []
+    for _ in range(5):
+        host.append(wall_ms(one, 1))
+    kern = [profile_kernels(one) for _ in range(3)]
+    kernels, dev_ms = med([k[0] for k in kern]), med([k[1] for k in kern])
+    host_ms = med(host)
+    step_ms = enb_ms + sum(ue_ms)
+    dl_ttis = sum(p == "dl" for p in rec["phase"])
+    span = len(att)
+    times = dict(enb_ms_per_tti=enb_ms, enb_event_ms_per_tti=enb_ev, ue_ms_per_tti=ue_ms,
+                 ue_event_ms_per_tti=ue_ev, halves_ms=halves, attach_ue_ms_per_tti=attach_ue_ms,
+                 rtf_enb=1.0 / enb_ms, rtf_ue=[1.0 / v for v in ue_ms], rtf_system=1.0 / step_ms,
+                 host_syncs_per_tti=syncs, kernels_per_tti=kernels, device_ms_per_tti=dev_ms,
+                 step_host_ms=host_ms, busy=dev_ms / host_ms, map_launches=launches[0] + launches[1],
+                 map_launches_per_attached_tti=map_attached, ttis=len(rec["phase"]),
+                 attached_tti=rec["attached_tti"], traffic_ttis=n_traffic,
+                 dl_mbps_air=rec["dl_bits"] / (span * 1e-3) / 1e6,
+                 ul_mbps_air=rec["ul_bits"] / (span * 1e-3) / 1e6,
+                 dl_mbps_wall=rec["dl_bits"] / (span * step_ms * 1e-3) / 1e6,
+                 ul_mbps_wall=rec["ul_bits"] / (span * step_ms * 1e-3) / 1e6,
+                 enb_stats=dict(enb.stats), ue_stats=[dict(u.stats) for u in ues],
+                 crntis=[u.crnti for u in ues], ips=[u.ue_ip for u in ues])
+    print(f"stack link: 100 PRB cell {STACK['cell_id']} MCS {STACK['mcs']}, 2 UEs (preambles "
+          f"{L['preambles']}, delays {L['attach_delays']}), EPA {L['doppler_hz']} Hz, AWGN {L['amp']}: "
+          f"both registered with AS security by TTI {rec['attached_tti'] - 10}, C-RNTIs "
+          f"{times['crntis']}, IPs {times['ips']}, {enb.stats['prach_detected']} PRACH detections; "
+          f"{L['traffic_ttis']} TTIs of {L['dl_bytes']} B DL a UE, {L['traffic_ttis']} of "
+          f"{L['ul_bytes']} B UL a UE, every packet through in order within {n_traffic} TTIs "
+          f"(dl {dl_ttis}); eNB {enb.stats}; UEs {[u.stats for u in ues]}; {launches} map launches")
+    print(f"stack link: per attached TTI (median of {len(att)}): EnbStack.run_tti {enb_ms:.2f} ms host "
+          f"/ {enb_ev:.2f} ms events, UeStack.run_tti {[round(v, 2) for v in ue_ms]} ms host / "
+          f"{[round(v, 2) for v in ue_ev]} ms events (attach TTIs: UE 0 {attach_ue_ms:.2f} ms); halves "
+          + ", ".join(f"{k} {v:.2f}" for k, v in halves.items())
+          + f"; real-time factor eNB {1 / enb_ms:.4f}x, UE {1 / ue_ms[0]:.4f}x, system "
+          f"{1 / step_ms:.4f}x")
+    print(f"stack link: one attached TTI (eNB, 2 UEs, air): {host_ms:.2f} ms host, {kernels} kernels, "
+          f"{dev_ms:.3f} ms of device time (busy {dev_ms / host_ms:.1%}), host syncs {syncs}; "
+          f"{map_attached:.2f} map launches per attached TTI; IP payload DL "
+          f"{times['dl_mbps_air']:.2f} Mbps / UL {times['ul_mbps_air']:.2f} Mbps of air time, "
+          f"{times['dl_mbps_wall']:.3f} / {times['ul_mbps_wall']:.3f} Mbps of wall time")
+    return launches, times, +shapes
+
+
+def stack_planes_run(device, nof_prb: int = 100, on_run=None) -> dict:
+    """Phase 30's runs: `StackRun` (plus 2 DL and 2 UL packets) on
+    `dynamic_phy=True` and on `windowed_phy=True, phy_window=4`, both ends,
+    each gated as phase 28 and required to have used its plane at both
+    ends.  `on_run(mode, stack)` runs before each run (phase 30 notes the
+    windows' launch shapes there).  Returns {mode: (StackRun, (the eNB's
+    plane stats, the UE's), host seconds)}."""
+    out = {}
+    for mode, kw in STACK_PLANES:
+        s = stack_pair(port_stack_modules(), nof_prb, ue_kw=[kw], enb_kw=kw, device=device)
+        if on_run is not None:
+            on_run(mode, s)
+        sync(device)
+        t0 = time.perf_counter()
+        run = StackRun(s.enb, s.ues[0], s.mme, s.spgw, dl=(STACK["dl"][0] + 2, STACK["dl"][1]),
+                       ul=(STACK["ul"][0] + 2, STACK["ul"][1])).run()
+        sync(device)
+        secs = time.perf_counter() - t0
+        run.check_traffic(f"{mode} plane")
+        plane = (s.enb._dyn_ul.stats, s.ues[0]._dyn_phy.stats) if mode == "dynamic" else (
+            s.enb._win_ul.stats, s.ues[0]._win_dl.stats)
+        check(plane[0]["ttis"] > 0 and plane[1]["ttis"] > 0, f"{mode} plane: unused at an end {plane}")
+        out[mode] = (run, tuple(dict(p) for p in plane), secs)
+    return out
+
+
+def phase_stack_planes(dev) -> tuple[dict, dict, dict]:
+    """Phase 30: `stack_planes_run` at 100 PRB on the card.  Returns ({mode:
+    (static, dynamic-K) launches}, times, {mode: launches by kernel
+    shape})."""
+    from srsran_tpu_torch.phy.fec import turbo_cuda
+
+    by_mode, times, shapes, marks = {}, {}, {}, {}
+
+    def on_run(mode, s):
+        if mode == "windowed":
+            for eng, tag in ((s.enb._win_ul.engine, "stack windowed UL"),
+                             (s.ues[0]._win_dl.engine, "stack windowed DL")):
+                def noted(*a, _fn=eng.dispatch_window, _tag=tag, **k):
+                    p = _fn(*a, **k)
+                    note_shape(_tag, p.pack)
+                    return p
+
+                eng.dispatch_window = noted
+        if marks:
+            by_mode[marks["mode"]] = read_launches()
+            shapes[marks["mode"]] = +(Counter(turbo_cuda.SHAPES) - marks["shapes"])
+        marks.update(mode=mode, shapes=Counter(turbo_cuda.SHAPES))
+        reset_launches()
+
+    runs = stack_planes_run(dev, 100, on_run=on_run)
+    by_mode[marks["mode"]] = read_launches()
+    shapes[marks["mode"]] = +(Counter(turbo_cuda.SHAPES) - marks["shapes"])
+    for mode, (run, plane, secs) in runs.items():
+        launches = by_mode[mode]
+        check(launches[1] > 0, f"{mode} plane: no dynamic-K map launch ({launches})")
+        times[mode] = dict(ms_per_tti=secs * 1e3 / run.tti, ttis=run.tti, reg_tti=run.reg_tti,
+                           map_launches=list(launches), plane_stats=list(plane))
+        print(f"{mode} plane: 100 PRB, registered at TTI {run.reg_tti}, {len(run.dl_pkts)} DL and "
+              f"{len(run.ul_pkts)} UL packets through in order by TTI {run.tti}; "
+              f"{secs * 1e3 / run.tti:.1f} ms per TTI (both ends, host clock); eNB plane {plane[0]}, "
+              f"UE plane {plane[1]}; map launches static {launches[0]}, dynamic-K {launches[1]}")
+    return by_mode, times, shapes
+
+
+def phase_dyn_shapes(dev, shapes) -> tuple[float, list]:
+    """Phase 12, second half: the dynamic-K kernel at every (B, nw, lw, T)
+    that phase 30's dynamic plane launched it at (`turbo_cuda.SHAPES`), on
+    codeblocks of mixed K up to the bucket's K_max, against the plain
+    version below each K.  Returns (max_abs_err, [dict per shape])."""
+    from srsran_tpu_torch.phy.fec import turbo_cuda
+    from srsran_tpu_torch.phy.fec.cbsegm import CB_SIZES
+    from srsran_tpu_torch.phy.fec.turbo import map_pass_plain
+
+    max_err, rows = 0.0, []
+    for (b, nw, lw, T, _dyn), n in sorted(shapes.items()):
+        k_max = nw * lw
+        sizes = [k for k in CB_SIZES if k <= k_max]
+        ks = [k_max] + np.random.default_rng(b + k_max).choice(sizes, b - 1).tolist()
+        lx, lz, beta_k, k_vec, below_k = dyn_map_inputs(k_max, ks, seed=b + k_max, device=dev)
+        got = turbo_cuda.map_pass(lx, lz, beta_k, nw, lw, T, k_vec=k_vec)
+        ref = map_pass_plain(lx, lz, beta_k, k_max, k_vec, layout=(nw, lw, T))
+        torch.cuda.synchronize()
+        err = float((got - ref)[below_k].abs().max())
+        same = bool(torch.equal((got > 0)[below_k], (ref > 0)[below_k]))
+        check(bool(torch.isfinite(got[below_k]).all()) and err <= MAP_ATOL and same,
+              f"dyn kernel disagrees with plain at B={b} K_max={k_max}: {err}, bits {same}")
+        ms = queued_ms(lambda: turbo_cuda.map_pass(lx, lz, beta_k, nw, lw, T, k_vec=k_vec), 50)
+        plain = cuda_ms(lambda: map_pass_plain(lx, lz, beta_k, k_max, k_vec, layout=(nw, lw, T)), 3)
+        bound, by = map_bound(lx, lz, beta_k, (nw, lw, T), k_vec)
+        max_err = max(max_err, err)
+        rows.append(dict(shape=[b, k_max], layout=[nw, lw, T], launches=n, ms=ms, plain_ms=plain,
+                         bound_ms=bound, bound_by=by, max_abs_err=err))
+        print(f"map dyn B={b} K_max={k_max} (nw={nw} lw={lw} T={T}, {n} launches, {len(set(ks))} sizes "
+              f"of K): max_abs_err below K {err:.3g}, hard bits identical; kernel {ms:.4f} ms, plain "
+              f"{plain:.3f} ms, bound {bound:.3g} ms by {by} ({bound / ms:.2%} of it)")
+    return max_err, rows
+
+
 def phase_static_shapes(dev, shapes) -> tuple[float, list]:
     """Phase 25: the static kernel against `map_pass_plain` at every (B, nw,
     lw, T) that phases 22-24 launched it at.  Returns (max_abs_err, [dict
@@ -3114,13 +3682,32 @@ def main() -> int:
     by_path["UL link"], windows["UL link"], ul_link_shapes = phase_ul_link(dev)
     rx_shapes.update(ul_link_shapes)
     torch.cuda.empty_cache()
-    mark("phase 25: the static kernel at the receive chains' shapes")
+    # phases 28-30: the per-TTI LTE stack
+    mark("phase 28: the stored attach")
+    before = Counter(turbo_cuda.SHAPES)
+    by_path["stack stored attach"] = phase_stored_stack(dev)
+    rx_shapes.update(+(Counter(turbo_cuda.SHAPES) - before))
+    torch.cuda.empty_cache()
+    mark("phase 29: the 20 MHz attached link")
+    by_path["stack link"], windows["stack link"], stack_shapes = phase_stack_link(dev)
+    rx_shapes.update(stack_shapes)
+    torch.cuda.empty_cache()
+    mark("phase 30: the dynamic and windowed data planes")
+    plane_launches, windows["stack planes"], plane_shapes = phase_stack_planes(dev)
+    for mode, launches_mode in plane_launches.items():
+        by_path[f"stack {mode} plane"] = launches_mode
+        rx_shapes.update(plane_shapes[mode])
+    torch.cuda.empty_cache()
+    mark("phase 25: the static kernel at the receive chains' and the stack's shapes")
     max_err_rx, rx_rows = phase_static_shapes(dev, {k: v for k, v in rx_shapes.items() if not k[4]})
     max_err = max(max_err, max_err_rx)
     torch.cuda.empty_cache()
     mark("phase 12: the dynamic-K kernel at the windows' shapes")
     max_err_win, win_shapes = phase_window_kernel(dev)
-    max_err_dyn = max(max_err_dyn, max_err_win)
+    # and at the shapes the dynamic plane of phase 30 gave it
+    max_err_stack, stack_dyn_rows = phase_dyn_shapes(
+        dev, {k: v for k, v in plane_shapes["dynamic"].items() if k[4]})
+    max_err_dyn = max(max_err_dyn, max_err_win, max_err_stack)
     print(json.dumps({"windows": windows}))
 
     common = {"route": "cuda", "source": "srsran_tpu_torch/csrc/map_window.cu", "library_ms": None}
@@ -3137,7 +3724,7 @@ def main() -> int:
              launches_by_path={k: v[1] for k, v in by_path.items() if v[1]},
              max_abs_err=max_err_dyn, ms=kern_dyn_ms, plain_ms=plain_dyn_ms,
              bound_ms=bound_dyn_ms, bound_by=bound_dyn_by, shape=list(lx_d.shape),
-             other_shapes=win_shapes)]}))
+             other_shapes=win_shapes + stack_dyn_rows)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -30,6 +30,11 @@ LTE_CRC24B = 0x1800063
 LTE_CRC16 = 0x11021
 LTE_CRC8 = 0x19B
 
+# RNTI spaces (reference phy_common.h:82-96)
+SIRNTI = 0xFFFF
+PRNTI = 0xFFFE
+MRNTI = 0xFFFD
+
 
 class CP(enum.IntEnum):
     NORM = 0

@@ -44,7 +44,7 @@ class UeDlResult:
     dci_format: str = ""  # "1A" | "1" | "2" | "2a"
     cce_used: int = -1  # its CCE start (→ PUCCH 1a resource, pucch_proc.c:257)
     phich_ack: bool | None = None  # decoded HI when a resource was watched
-    deferred: bool = False  # PDSCH queued on a windowed plane (never in the port yet)
+    deferred: bool = False  # PDSCH queued on a windowed plane (no tbs yet)
     rank: int = 0  # recommended RI (0 = not measured; cc_worker.cc:566)
     pmi: int = 0  # recommended codebook index for the measured rank
     sb_snr: np.ndarray | None = None  # per-subband SNR (linear) over the
@@ -73,13 +73,12 @@ def ue_dl_decode_subframe(cell: Cell, samples, sf_idx: int, rnti: int, nrx: int 
     ``harq_softbuffers``: the caller's dict harq_pid → (ndi, softbuffers),
     carried between retransmissions.  ``dynamic``: a
     `pipeline_dynamic.DynamicUeDl` for single-codeword grants of its CFI.
-    ``deferred`` (a windowed plane, ROADMAP Slice 7c) and ``tdd`` (Slice 10)
-    raise NotImplementedError."""
+    ``deferred``: an `apps.windowed_plane.WindowedUeDlPlane` — the grant's
+    PDSCH (port-0/diversity, or two codewords on a MIMO plane) is queued
+    there instead of decoded, and the result carries ``deferred=True``
+    with no tbs.  ``tdd`` (ROADMAP Slice 10) raises NotImplementedError."""
     if tdd is not None:
         raise NotImplementedError("TDD subframes are not ported yet (ROADMAP Slice 10)")
-    if deferred is not None:
-        raise NotImplementedError("deferred= needs the windowed plane, not ported yet "
-                                  "(ROADMAP Slice 7c, apps/windowed_plane.py)")
     dev = resolve(device)
     x = as_samples(samples, dev)
     res = UeDlResult()
@@ -103,7 +102,8 @@ def ue_dl_decode_subframe(cell: Cell, samples, sf_idx: int, rnti: int, nrx: int 
     res.dcis = [(bits, agg, cce) for _, bits, agg, cce in found]
     for fmt, bits, _agg, cce in found:
         if _decode_grant(res, fmt, bits, cce, grid, ce, noise, cell, sf_idx, cfi, rnti,
-                         nports_cell, max_iterations, harq_softbuffers, equalize, dynamic, x):
+                         nports_cell, max_iterations, harq_softbuffers, equalize, dynamic, x,
+                         deferred):
             break  # one DL grant per subframe (dedup across aggregation levels)
     return res
 
@@ -201,10 +201,12 @@ def _mark_used(res: UeDlResult, dci, fmt: str, cce: int):
 
 
 def _decode_grant(res, fmt, bits, cce, grid, ce, noise, cell, sf_idx, cfi, rnti, nports_cell,
-                  max_iterations, harq_softbuffers, equalize, dynamic, samples) -> bool:
-    """Parse one found DCI and decode its PDSCH; True once a decode was
-    attempted (the caller stops there).  A DCI whose fields are reserved
-    (a CRC-RNTI false positive) is passed over."""
+                  max_iterations, harq_softbuffers, equalize, dynamic, samples,
+                  deferred=None) -> bool:
+    """Parse one found DCI and decode its PDSCH (or queue it on the
+    `deferred` plane); True once a decode was attempted (the caller stops
+    there).  A DCI whose fields are reserved (a CRC-RNTI false positive)
+    is passed over."""
     if fmt in ("2", "2a"):
         try:
             dci = Dci2.unpack(bits, cell.nof_prb, fmt=fmt, nof_ports=nports_cell)
@@ -222,6 +224,12 @@ def _decode_grant(res, fmt, bits, cce, grid, ce, noise, cell, sf_idx, cfi, rnti,
                              rv1=dci.rv1, rv2=dci.rv2, pmi=pmi, rnti=rnti, tx_scheme=scheme)
         except (ValueError, IndexError):
             return False  # reserved MCS
+        if deferred is not None and deferred.mimo and grant.tbs1 > 0 and grant.tbs2 > 0:
+            deferred.submit(samples, sf_idx, grant, dci.harq_pid, (dci.ndi1, dci.ndi2), tti=-1,
+                            dci=dci, fmt=fmt, cce=cce)
+            _mark_used(res, dci, fmt, cce)
+            res.deferred = True
+            return True
         sbs = (None, None)
         if harq_softbuffers is not None:
             stored = harq_softbuffers.get(dci.harq_pid)
@@ -272,6 +280,12 @@ def _decode_grant(res, fmt, bits, cce, grid, ce, noise, cell, sf_idx, cfi, rnti,
             except (ValueError, IndexError):
                 return False  # reserved MCS
 
+    if deferred is not None and not deferred.mimo and grant.tbs > 0:
+        deferred.submit(samples, sf_idx, grant, dci.harq_pid, dci.ndi, tti=-1, dci=dci, fmt=fmt,
+                        cce=cce)
+        _mark_used(res, dci, fmt, cce)
+        res.deferred = True
+        return True
     # HARQ: the stored softbuffers combine only under the same NDI; a
     # toggled NDI is a new TB
     sb = None

@@ -429,3 +429,37 @@ def test_port_decodes_enb_ul_fixture_like_reference():
     assert info["uci"]["cqi_bits"] == tuple(fx["sent_cqi"].tolist()) and len(info["uci"]["cqi_bits"]) == 30
     assert info["prach"] == ([int(fx["preamble"])], 2)
     assert info["refsignal"][0].found and not info["refsignal"][1].found
+
+
+# --- the stored attach (chip_smoke.py phase 28) ----------------------------------
+
+
+def test_stack_fixture_is_current():
+    """The stored attach was made with the tool's configuration and the
+    script's constants of today (rerunning the reference's attach takes
+    half a minute: `tools/make_torch_fixture.py` `main_stack`), and stays
+    small."""
+    import json
+
+    tool = load_tool()
+    smoke = load_smoke()
+    fx = json.loads(tool.OUT_STACK.read_text())
+    assert tool.OUT_STACK == smoke.FIXTURE_STACK and tool.OUT_STACK.stat().st_size < 2**17
+    assert fx["nof_prb"] == 100 and fx["enb_kw"] == fx["ue_kw"] == tool.STACK_KW
+    assert fx["stack"] == json.loads(json.dumps(smoke.STACK))
+    assert fx["result"]["ttis"] == len(fx["records"]) and fx["result"]["reg_tti"] is not None
+
+
+def test_port_runs_stack_fixture_like_reference():
+    """chip_smoke.py phase 28's checks of the stored attach, on the CPU:
+    the port's stack gives the reference's stats, RRC and NAS states in
+    every TTI, its IP, IMSIs and packets."""
+    import json
+
+    smoke = load_smoke()
+    fx = json.loads(smoke.FIXTURE_STACK.read_text())
+    s = smoke.stack_pair(smoke.port_stack_modules(), fx["nof_prb"], enb_kw=fx["enb_kw"],
+                         ue_kw=[fx["ue_kw"]], device="cpu")
+    run = smoke.StackRun(s.enb, s.ues[0], s.mme, s.spgw).run(len(fx["records"]))
+    assert smoke.check_stack_fixture(fx, run) == len(fx["records"])
+    run.check_traffic("stored attach")

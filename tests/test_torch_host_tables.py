@@ -26,6 +26,7 @@ import srsran_tpu.phy.scrambling as r_scr
 import srsran_tpu.phy.sequence as r_seq
 import srsran_tpu.phy.sync.pss as r_pss
 import srsran_tpu.phy.sync.sss as r_sss
+import srsran_tpu.phy.tdd as r_tdd
 import srsran_tpu_torch.phy.chest.chest_dl as t_chest
 import srsran_tpu_torch.phy.chest.refsignal_dl as t_rs
 import srsran_tpu_torch.phy.common as t_common
@@ -44,6 +45,7 @@ import srsran_tpu_torch.phy.scrambling as t_scr
 import srsran_tpu_torch.phy.sequence as t_seq
 import srsran_tpu_torch.phy.sync.pss as t_pss
 import srsran_tpu_torch.phy.sync.sss as t_sss
+import srsran_tpu_torch.phy.tdd as t_tdd
 from srsran_tpu_torch.convert import from_reference
 
 torch.set_num_threads(1)
@@ -67,7 +69,8 @@ def test_common_numerology():
             assert t_common.sf_len(n) == r_common.sf_len(n)
             assert t_common.srate(prb, std) == r_common.srate(prb, std)
     for name in ("NRE", "MAX_PRB", "CP_NORM_0_LEN", "CP_NORM_LEN", "CP_EXT_LEN",
-                 "LTE_CRC24A", "LTE_CRC24B", "LTE_CRC16", "LTE_CRC8"):
+                 "LTE_CRC24A", "LTE_CRC24B", "LTE_CRC16", "LTE_CRC8", "SIRNTI", "PRNTI",
+                 "MRNTI"):
         assert getattr(t_common, name) == getattr(r_common, name), name
     for prb in range(1, 101):
         for std in (True, False):
@@ -534,3 +537,41 @@ def test_prach_tables_and_config():
             if zcz + 6 <= cell.nof_prb:
                 np.testing.assert_array_equal(t_prach._freq_map(cell, cfg),
                                               r_prach._freq_map(ref_cell, ref))
+
+
+def test_tdd_tables_and_harq_timing():
+    """`phy/tdd.py`: every table, and the timing functions over every
+    UL/DL and special-subframe configuration (and FDD, cfg None)."""
+    for name in ("NOF_SF_X_FRAME", "MAX_TDD_SF_CONFIGS", "MAX_TDD_SS_CONFIGS",
+                 "FDD_HARQ_DELAY_UL_MS", "FDD_HARQ_DELAY_DL_MS", "FDD_NOF_HARQ", "SF_TYPE_TABLE",
+                 "SS_SYMBOLS_TABLE", "NOF_HARQ_TABLE", "MI_TABLE", "K_PUSCH", "K_PHICH"):
+        got, ref = getattr(t_tdd, name), getattr(r_tdd, name)
+        assert np.array_equal(np.asarray(got, dtype=np.int64), np.asarray(ref, dtype=np.int64)), name
+    for cfgs in ((None, None),) + tuple(
+            (t_tdd.TddConfig(sf, ss), r_tdd.TddConfig(sf, ss))
+            for sf in range(7) for ss in range(10)):
+        tc, rc = cfgs
+        for sf_idx in range(10):
+            assert int(t_tdd.sf_type(tc, sf_idx)) == int(r_tdd.sf_type(rc, sf_idx))
+            assert t_tdd.mi_value(tc, sf_idx) == r_tdd.mi_value(rc, sf_idx)
+        assert t_tdd.nof_harq(tc) == r_tdd.nof_harq(rc)
+        for tti in range(20):
+            for fn in ("ack_tti", "pusch_tti", "phich_tti", "ul_pid"):
+                try:
+                    want = getattr(r_tdd, fn)(rc, tti)
+                except (ValueError, KeyError, IndexError) as e:
+                    with pytest.raises(type(e)):
+                        getattr(t_tdd, fn)(tc, tti)
+                    continue
+                assert getattr(t_tdd, fn)(tc, tti) == want, (fn, tti)
+        if tc is None:
+            continue
+        assert (t_tdd.nof_dw(tc), t_tdd.nof_gp(tc), t_tdd.nof_up(tc)) == (
+            r_tdd.nof_dw(rc), r_tdd.nof_gp(rc), r_tdd.nof_up(rc))
+        for slot in range(2):
+            assert t_tdd.nof_dw_slot(tc, slot) == r_tdd.nof_dw_slot(rc, slot)
+        for sf_idx in range(10):
+            assert t_tdd.das_set(tc, sf_idx) == r_tdd.das_set(rc, sf_idx)
+        np.testing.assert_array_equal(t_tdd.ul_sf_mask(tc), r_tdd.ul_sf_mask(rc))
+        np.testing.assert_array_equal(t_tdd.dl_sf_mask(tc), r_tdd.dl_sf_mask(rc))
+        np.testing.assert_array_equal(t_tdd.dl_sf_mask(tc, False), r_tdd.dl_sf_mask(rc, False))

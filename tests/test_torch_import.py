@@ -29,6 +29,9 @@ def test_import_leaves_jax_out():
         "import srsran_tpu_torch.phy.enb.enb_ul, srsran_tpu_torch.phy.phch.prach\n"
         "import srsran_tpu_torch.phy.chest.srs, srsran_tpu_torch.phy.channel.channel\n"
         "import srsran_tpu_torch.phy.sync.refsignal_dl_sync\n"
+        "import srsran_tpu_torch.apps.full_stack, srsran_tpu_torch.apps.windowed_plane\n"
+        "import srsran_tpu_torch.epc, srsran_tpu_torch.stack.asn1.s1ap, srsran_tpu_torch.stack.gtpc\n"
+        "import srsran_tpu_torch.stack.sched_grid, srsran_tpu_torch.runtime.config\n"
         "import importlib.util as u\n"
         "spec = u.spec_from_file_location('prof', 'tools/profile_torch_dynamic.py')\n"
         "spec.loader.exec_module(u.module_from_spec(spec))\n"
@@ -53,7 +56,12 @@ def test_every_module_of_the_port_imports_without_jax():
               "phy.ue.ue_sync", "phy.ue.ue_dl", "phy.ue.intra_measure", "stack.mac_pdu",
               "runtime.pcap", "apps.enb", "apps.ue", "phy.enb.enb_ul", "phy.phch.prach",
               "phy.phch.prach_data", "phy.chest.srs", "phy.channel.fading", "phy.channel.channel",
-              "phy.sync.refsignal_dl_sync"):
+              "phy.sync.refsignal_dl_sync", "stack.security", "stack.asn1", "stack.asn1.per",
+              "stack.asn1.rrc", "stack.asn1.s1ap", "stack.rrc", "stack.nas", "stack.nas_ue",
+              "stack.pdcp", "stack.rlc", "stack.mac", "stack.gtpu", "stack.gtpc",
+              "stack.sched_grid", "epc", "epc.hss", "epc.mme", "epc.s1ap", "epc.spgw",
+              "epc.mbms_gw", "phy.tdd", "runtime.config", "apps.full_stack",
+              "apps.windowed_plane"):
         assert f"srsran_tpu_torch.{m}" in mods, m
     code = (
         "import sys, importlib\n"

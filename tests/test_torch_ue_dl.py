@@ -433,8 +433,35 @@ def test_ue_dl_refuses_what_is_not_ported():
     zero = np.zeros((1, cell.sf_len), np.complex64)
     with pytest.raises(NotImplementedError, match="Slice 10"):
         t_decode(cell, zero, 0, 0x46, tdd=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="Slice 7c"):
-        t_decode(cell, zero, 0, 0x46, deferred=object(), device=CPU)
+
+
+def test_ue_dl_deferred_queues_on_a_windowed_plane():
+    """`deferred=` with the port's WindowedUeDlPlane: each grant's PDSCH is
+    queued (deferred result, no TBs, the DCI and CCE kept), and the window
+    realized REALIZE_DELAY TTIs after its dispatch gives the TBs of the
+    static call (15 PRB frame, subframes 0-3, W = 4)."""
+    from srsran_tpu_torch.apps.windowed_plane import REALIZE_DELAY, WindowedUeDlPlane
+
+    cell = Cell(nof_prb=15, nof_ports=1, id=84)
+    pcell = from_reference(cell)
+    stream, tbs = make_frame(cell, 0x5A, 9, seed=3)
+    rx = awgn(np.random.default_rng(1), stream, 0.01)
+    plane = WindowedUeDlPlane(pcell, cfi=2, w=4, device=CPU)
+    for sf_idx in range(4):
+        sf = torch.from_numpy(rx[sf_idx * cell.sf_len : (sf_idx + 1) * cell.sf_len][None])
+        plane.current_tti = sf_idx
+        a = t_decode(pcell, sf, sf_idx, 0x5A, device=CPU)
+        b = t_decode(pcell, sf, sf_idx, 0x5A, deferred=plane, device=CPU)
+        assert b.deferred and b.tbs == [] and not a.deferred
+        assert (b.dci_format, b.cce_used) == (a.dci_format, a.cce_used)
+        plane.flush(sf_idx)
+    assert plane.poll(3 + REALIZE_DELAY - 1) == []
+    events = plane.poll(3 + REALIZE_DELAY)
+    assert [ev["tti"] for ev in events] == [0, 1, 2, 3]
+    for ev in events:
+        (tb, ok), = ev["tbs"]
+        assert ok
+        np.testing.assert_array_equal(tb, tbs[ev["tti"]])
 
 
 # --- the golden vectors through the port ---------------------------------------

@@ -99,7 +99,17 @@ Run from the repo root:  JAX_PLATFORMS=cpu python tools/make_torch_fixture.py
 (`main`, `main_dynamic`, `main_mimo`, `main_ul`, `main_ul_dynamic` each
 write one file, `main_windows` the three decode windows, `main_gen_windows`
 the three generate windows, `main_ctrl_windows` the two control windows,
-`main_ue_dl_frame` the received frame, `main_enb_ul` the UL subframes.)
+`main_ue_dl_frame` the received frame, `main_enb_ul` the UL subframes,
+`main_stack` the stored attach.)
+
+`main_stack` runs the reference's `EnbStack`/`UeStack` (100 PRB, cell
+301, MCS 20, SRS and SR on, one UE, no noise, the HSS's RAND state fixed)
+through `chip_smoke.StackRun`: the attach, then 4 DL packets of 1400 bytes
+and 3 UL packets of 1000 bytes.  It writes, per TTI, both ends' stats, both
+RRC states and the UE's NAS state, and at the end the UE's IP, the MME's
+attached IMSIs and the packets the UE and the SGi received, as JSON
+(`testdata/full_stack_attach_100prb.json`); `chip_smoke.py` phase 28 runs
+the port through the same script on the card and requires every TTI equal.
 """
 
 from __future__ import annotations
@@ -982,6 +992,41 @@ def main_enb_ul():
           f"{int(fx['ref_prach_delay'][int(fx['preamble'])])}, refsignal {fx['ref_rs'].tolist()}")
 
 
+OUT_STACK = TESTDATA / "full_stack_attach_100prb.json"
+STACK_KW = dict(srs_enabled=True, sr_enabled=True)
+
+
+def reference_stack_modules():
+    """The reference's stack classes, as `chip_smoke.stack_pair` takes them."""
+    from types import SimpleNamespace
+
+    from srsran_tpu.apps.full_stack import EnbStack, UeStack
+    from srsran_tpu.epc import Hss, Mme, Spgw, Subscriber
+    from srsran_tpu.phy.common import Cell
+    from srsran_tpu.stack.nas_ue import Usim
+    from srsran_tpu.stack.security import compute_opc
+
+    return SimpleNamespace(EnbStack=EnbStack, UeStack=UeStack, Cell=Cell, Hss=Hss, Mme=Mme,
+                           Spgw=Spgw, Subscriber=Subscriber, Usim=Usim, compute_opc=compute_opc)
+
+
+def main_stack(nof_prb: int = 100):
+    import json
+    import sys
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    s = chip_smoke.stack_pair(reference_stack_modules(), nof_prb, enb_kw=STACK_KW, ue_kw=[STACK_KW])
+    run = chip_smoke.StackRun(s.enb, s.ues[0], s.mme, s.spgw).run()
+    run.check_traffic("reference stack")
+    fx = dict(nof_prb=nof_prb, enb_kw=STACK_KW, ue_kw=STACK_KW, stack=chip_smoke.STACK,
+              records=run.records, result=run.result())
+    OUT_STACK.write_text(json.dumps(fx, indent=None, separators=(",", ":"), default=list) + "\n")
+    print(f"wrote {OUT_STACK}: {run.tti} TTIs, registered at TTI {run.reg_tti}, IP {run.ue.ue_ip}, "
+          f"eNB {run.records[-1]['enb']}, UE {run.records[-1]['ue']}")
+
+
 def main():
     import jax
 
@@ -1018,3 +1063,4 @@ if __name__ == "__main__":
     main_ctrl_windows()
     main_ue_dl_frame()
     main_enb_ul()
+    main_stack()
