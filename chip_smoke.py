@@ -57,7 +57,7 @@ Phases (each prints its own lines; any failure exits non-zero):
      `testdata/enb_ul_dynamic_20mhz.npz`, stage keys, ms per TTI; and two
      transmit-diversity and two spatial-multiplexing grants through
      `DynamicUeDl` behind the 2x2 channel;
-  12. (run after phases 13-21, whose windows give it its shapes) the
+  12. (run last, after phases 13-21 and 30-31, whose windows give it its shapes) the
      kernel's dynamic-K mode at every launch shape those phases gave it:
      each dense-slot bucket N that a window of this run reached (N x K_max
      6144, K_i the window's own per-slot sizes, 40 in the unused slots),
@@ -197,7 +197,23 @@ Phases (each prints its own lines; any failure exits non-zero):
      ends (`stack_planes_run`): the same gates, each plane used at both
      ends; ms per TTI and MAP launches by mode.  Phase 25 then also takes
      the static shapes of phases 28-30, and phase 12 the windows of phase
-     30 (`note_shape`) and the dynamic plane's launch shapes.
+     30 (`note_shape`) and the dynamic plane's launch shapes;
+  31. (after 30, before 25 and 12) the windowed control-plane stack
+     (`bench.py` `bench_stack_window_rtf`), at the bench's 25 PRB and at 100
+     PRB (`stack_window_run`): `WindowedCtrlEnb` and `WindowedCtrlUe` (cell
+     7, MCS 8, W = 64) over `WindowedDeviceLoopback` at 30 dB; the UE
+     attaches (at most 9000 TTIs), then the bench's load (48 DL packets of
+     400 B and one UL packet of 400 B every 64 TTIs) for 20 warm and 10
+     timed windows, then 2 windows with each end's `run_tti` fenced, then a
+     drain: every packet once and in order within 40 windows of the offer's
+     end, RRC active, control windows run, no static MAP launch; ms per TTI
+     (host clock after a synchronize, and CUDA events), the real-time
+     factor, the attach's TTI and seconds, IP Mbps each way of air and wall
+     time, kernels per TTI and the busy share (`torch.profiler`, one
+     window), `map_window_dyn` launches and Viterbi calls per window, and
+     the fenced `run_tti` ms of each end at the window positions that
+     dispatch or realise a window against the quiet ones.  Phase 12 takes
+     its windows' shapes.
 Every path is driven with the launch counts set to 0 just before and read
 just after.  Prints one JSON line of kernel results, then as its last line
 {"ok": true, "device": {...}}.  TF32 stays off: the channel-estimate
@@ -1054,7 +1070,7 @@ def phase_window_kernel(dev):
               f"{n / (3 * n_sm):.2f} waves of {3 * n_sm}): kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
               f"bound {bound_ms:.4f} ms by {bound_by} ({100 * bound_ms / ms:.1f}% of it)")
         max_err = max([max_err] + errs)
-        shapes.append(dict(shape=[n, 6144], windows=[t for _ks, tags in k_sets for t in tags],
+        shapes.append(dict(shape=[n, 6144], windows=sorted({t for _ks, tags in k_sets for t in tags}),
                            k_sets_checked=len(k_sets), max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                            bound_ms=bound_ms, bound_by=bound_by))
     return max_err, shapes
@@ -3310,6 +3326,228 @@ def phase_stack_planes(dev) -> tuple[dict, dict, dict]:
     return by_mode, times, shapes
 
 
+# phase 31: the windowed control-plane stack (`bench.py`
+# `bench_stack_window_rtf`): the bench's cell, MCS and link; its offered load
+# (48 DL packets of 400 B and one UL packet of 400 B every 64 TTIs), made
+# unique by a sequence number so that every delivery can be held to its
+# offer; warm 20 W TTIs, time 10 W; then drain
+STACK_WINDOW = dict(cell_id=7, mcs=8, snr_db=30.0, w=64, max_attach=9000, warm_windows=20,
+                    timed_windows=10, offer_every=64, dl=(48, 400), ul=(1, 400), max_drain_windows=40,
+                    widths=(25, 100))
+
+
+def stack_window_packet(seq: int, size: int) -> bytes:
+    return seq.to_bytes(4, "big") + bytes([seq & 0xFF]) * (size - 4)
+
+
+def stack_window_run(device, nof_prb: int, w: int = STACK_WINDOW["w"], warm_ttis: int | None = None,
+                     timed_ttis: int | None = None, on_stack=None) -> dict:
+    """Phase 31's run: a `WindowedCtrlEnb` and a `WindowedCtrlUe` (W = w,
+    MCS 8, cell 7) over a `WindowedDeviceLoopback` at 30 dB on `device`.
+    The UE attaches (at most STACK_WINDOW's 9000 TTIs), then the bench's
+    load is offered for `warm_ttis` (20 W) and `timed_ttis` (10 W) TTIs,
+    the second timed on the host clock after a synchronize and by CUDA
+    events; two more windows run with each end's `run_tti` fenced; then
+    the offer stops and the run drains (at most STACK_WINDOW's 40 windows).
+    Gates: registered with RRC active and AS security, every offered DL and
+    UL packet delivered exactly once and in order, control windows run.
+    `on_stack(enb, ue)` runs before the first TTI.  Returns the run's
+    record."""
+    from srsran_tpu_torch.apps.windowed_stack import (WindowedCtrlEnb, WindowedCtrlUe,
+                                                      WindowedDeviceLoopback)
+    from srsran_tpu_torch.epc import Hss, Mme, Spgw, Subscriber
+    from srsran_tpu_torch.phy.common import Cell
+    from srsran_tpu_torch.phy.fec import turbo_cuda
+    from srsran_tpu_torch.stack.nas_ue import Usim
+    from srsran_tpu_torch.stack.security import compute_opc
+    import srsran_tpu_torch.pipeline_ctrl as pc
+
+    S = STACK_WINDOW
+    warm_ttis = S["warm_windows"] * w if warm_ttis is None else warm_ttis
+    timed_ttis = S["timed_windows"] * w if timed_ttis is None else timed_ttis
+    tag = f"stack window {nof_prb} PRB"
+    cuda = torch.device(device).type == "cuda"
+    imsi, key, op = STACK_UES[0]
+    opc = compute_opc(key, op)
+    cell = Cell(nof_prb=nof_prb, nof_ports=1, id=S["cell_id"])
+    hss = Hss()
+    hss._rand_state = STACK["rand_state"]
+    hss.add_subscriber(Subscriber("ue1", imsi, key, opc, amf=b"\x80\x00", sqn=0))
+    spgw = Spgw()
+    mme = Mme(hss, spgw)
+    dev_kw = {} if cuda else {"device": device}
+    enb = WindowedCtrlEnb(cell, mme, spgw, mcs=S["mcs"], ctrl_window=w, **dev_kw)
+    ue = WindowedCtrlUe(cell, Usim(imsi, key, opc), ctrl_window=w, **dev_kw)
+    check(enb.phy_device == ue.phy_device == torch.device(device),
+          f"{tag}: the stacks are on {enb.phy_device}, {ue.phy_device}, expected {device}")
+    if on_stack is not None:
+        on_stack(enb, ue)
+    link = WindowedDeviceLoopback(enb, ue, snr_db=S["snr_db"])
+    vit_calls = [0]
+    viterbi = pc._viterbi_batch
+
+    def counted(*a, **k):
+        vit_calls[0] += 1
+        return viterbi(*a, **k)
+
+    pc._viterbi_batch = counted
+    rec = dict(tag=tag, nof_prb=nof_prb, w=w, enb=enb, ue=ue, spgw=spgw, mme=mme)
+    try:
+        sync(device)
+        t0 = time.perf_counter()
+        while not stack_registered(ue) and enb.tti < S["max_attach"]:
+            link.step()
+        sync(device)
+        rec.update(attach_tti=enb.tti, attach_s=time.perf_counter() - t0)
+        check(stack_registered(ue) and ue.cipher_alg == ue.integ_alg == 2,
+              f"{tag}: no attach in {enb.tti} TTIs: RRC {ue.rrc_state}, NAS {ue.nas.state}, {enb.stats}")
+        sent_dl, sent_ul = [], []
+        n_dl0, n_ul0 = len(ue.ip_rx), len(spgw.sgi_rx)
+        seq = [0]
+
+        def offer():
+            if (enb.tti - rec["attach_tti"]) % S["offer_every"]:
+                return
+            for _ in range(S["dl"][0]):
+                p = stack_window_packet(seq[0], S["dl"][1])
+                seq[0] += 1
+                spgw.sgi_tx(ue.ue_ip, p)
+                sent_dl.append(p)
+            for _ in range(S["ul"][0]):
+                p = stack_window_packet(seq[0], S["ul"][1])
+                seq[0] += 1
+                ue.send_ip_packet(p)
+                sent_ul.append(p)
+
+        def traffic(n):
+            for _ in range(n):
+                offer()
+                link.step()
+
+        traffic(warm_ttis)
+        counts0 = (turbo_cuda.LAUNCHES, turbo_cuda.LAUNCHES_DYN, vit_calls[0], enb.stats.get("ul_crc_ok", 0),
+                   ue.stats["dl_tbs_ok"], ue.stats["ctrl_windows"])
+        rx0 = (sum(map(len, ue.ip_rx)), sum(len(p) for _ip, p in spgw.sgi_rx))
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if cuda else None
+        sync(device)
+        t0 = time.perf_counter()
+        if ev:
+            ev[0].record()
+        traffic(timed_ttis)
+        if ev:
+            ev[1].record()
+        sync(device)
+        secs = time.perf_counter() - t0
+        counts1 = (turbo_cuda.LAUNCHES, turbo_cuda.LAUNCHES_DYN, vit_calls[0], enb.stats.get("ul_crc_ok", 0),
+                   ue.stats["dl_tbs_ok"], ue.stats["ctrl_windows"])
+        rx1 = (sum(map(len, ue.ip_rx)), sum(len(p) for _ip, p in spgw.sgi_rx))
+        windows = timed_ttis / w
+        ms = secs * 1e3 / timed_ttis
+        rec.update(ms_per_tti=ms, event_ms_per_tti=ev[0].elapsed_time(ev[1]) / timed_ttis if ev else None,
+                   rtf=1.0 / ms, timed_ttis=timed_ttis, warm_ttis=warm_ttis,
+                   map_dyn_per_window=(counts1[1] - counts0[1]) / windows,
+                   map_static_timed=(counts1[0] - counts1[1]) - (counts0[0] - counts0[1]),
+                   viterbi_calls_per_window=(counts1[2] - counts0[2]) / windows,
+                   ul_crc_ok_timed=counts1[3] - counts0[3], dl_tbs_ok_timed=counts1[4] - counts0[4],
+                   ctrl_windows_timed=counts1[5] - counts0[5],
+                   dl_mbps_air=8 * (rx1[0] - rx0[0]) / (timed_ttis * 1e-3) / 1e6,
+                   ul_mbps_air=8 * (rx1[1] - rx0[1]) / (timed_ttis * 1e-3) / 1e6,
+                   dl_mbps_wall=8 * (rx1[0] - rx0[0]) / secs / 1e6,
+                   ul_mbps_wall=8 * (rx1[1] - rx0[1]) / secs / 1e6)
+        if cuda:
+            kernels, dev_ms = profile_kernels(lambda: traffic(w))
+            rec.update(kernels_per_tti=kernels / w, device_ms_per_tti=dev_ms / w, busy=dev_ms / w / ms)
+        # each end's run_tti fenced, by position in the window: the
+        # boundary positions dispatch or realise a window, the rest are
+        # quiet
+        timed = Timed(device)
+        timed.wrap(enb, "run_tti", "enb")
+        timed.wrap(ue, "run_tti", "ue")
+        pos = []
+        for _ in range(2 * w):
+            pos.append(enb.tti % w)
+            offer()
+            link.step()
+        timed.on = False
+        rd = 4
+        boundary = {w - 1, 0, rd - 1, rd, 2 * rd - 1, 2 * rd, 3 * rd - 1}
+        med = lambda v: sorted(v)[len(v) // 2] if v else None  # noqa: E731
+        spans = {}
+        for end in ("enb", "ue"):
+            v = timed.ms[end]
+            spans[end] = dict(quiet_ms=med([x for x, p in zip(v, pos) if p not in boundary]),
+                              boundary_ms={p: med([x for x, q in zip(v, pos) if q == p])
+                                           for p in sorted(boundary)})
+        rec["fenced"] = spans
+        # the offer stops; everything offered must come through
+        t_stop = enb.tti
+        while ((len(ue.ip_rx) - n_dl0 < len(sent_dl) or len(spgw.sgi_rx) - n_ul0 < len(sent_ul))
+               and enb.tti < t_stop + S["max_drain_windows"] * w):
+            link.step()
+        rec.update(drain_ttis=enb.tti - t_stop, ttis=enb.tti, dl_packets=len(sent_dl), ul_packets=len(sent_ul),
+                   viterbi_calls=vit_calls[0])
+    finally:
+        pc._viterbi_batch = viterbi
+    got_ul = [p for _ip, p in list(spgw.sgi_rx)[n_ul0:]]
+    check(ue.ip_rx[n_dl0:] == sent_dl, f"{tag}: DL packets {len(ue.ip_rx) - n_dl0}/{len(sent_dl)} "
+          f"within {rec['drain_ttis']} TTIs of the offer's end, or not once and in order: {enb.stats}")
+    check(got_ul == sent_ul, f"{tag}: UL packets {len(got_ul)}/{len(sent_ul)} within {rec['drain_ttis']} "
+          f"TTIs of the offer's end, or not once and in order: {ue.stats}")
+    check(stack_registered(ue) and enb.rrc_state == enb.RRC_ACTIVE, f"{tag}: the UE left RRC active")
+    check(ue.stats["ctrl_windows"] > 0, f"{tag}: no control window ran")
+    rec.update(dl_tbs_ok=ue.stats["dl_tbs_ok"], ul_crc_ok=enb.stats.get("ul_crc_ok", 0),
+               ctrl_windows=ue.stats["ctrl_windows"], enb_stats=dict(enb.stats), ue_stats=dict(ue.stats))
+    return rec
+
+
+def phase_stack_window(dev, nof_prb: int) -> tuple[tuple[int, int], dict]:
+    """Phase 31 at one width on the card.  Returns ((static, dynamic-K)
+    launches, times dict)."""
+    tag = f"stack window {nof_prb} PRB"
+
+    def on_stack(enb, ue):
+        # phase 12 takes every window's launch shape
+        for eng, end in ((enb._ul_fe.inner, "UL"), (ue._fe.inner, "DL")):
+            def noted(*a, _fn=eng.dispatch_window_from, _tag=f"{tag} {end}", **k):
+                p = _fn(*a, **k)
+                note_shape(_tag, p.pack)
+                return p
+
+            eng.dispatch_window_from = noted
+
+    reset_launches()
+    rec = stack_window_run(dev, nof_prb, on_stack=on_stack)
+    launches = read_launches()
+    check(launches[0] == 0, f"{tag}: the static MAP mode was launched {launches[0]} times")
+    check(launches[1] > 0, f"{tag}: no dynamic-K map launch")
+    check(rec["attach_tti"] <= STACK_WINDOW["max_attach"], f"{tag}: attach at TTI {rec['attach_tti']}")
+    keys = ("attach_tti", "attach_s", "ms_per_tti", "event_ms_per_tti", "rtf", "warm_ttis", "timed_ttis",
+            "dl_mbps_air", "ul_mbps_air", "dl_mbps_wall", "ul_mbps_wall", "dl_tbs_ok", "ul_crc_ok",
+            "ctrl_windows", "dl_tbs_ok_timed", "ul_crc_ok_timed", "ctrl_windows_timed", "kernels_per_tti",
+            "device_ms_per_tti", "busy", "map_dyn_per_window", "viterbi_calls_per_window", "fenced",
+            "drain_ttis", "ttis", "dl_packets", "ul_packets")
+    times = {k: rec[k] for k in keys}
+    times.update(map_launches=list(launches), enb_stats=rec["enb_stats"], ue_stats=rec["ue_stats"])
+    S = STACK_WINDOW
+    print(f"{tag}: W={rec['w']} MCS {S['mcs']} cell {S['cell_id']} {S['snr_db']} dB: registered at TTI "
+          f"{rec['attach_tti']} ({rec['attach_s']:.1f} s); {rec['dl_packets']} DL x {S['dl'][1]} B and "
+          f"{rec['ul_packets']} UL x {S['ul'][1]} B packets offered, all through once and in order "
+          f"{rec['drain_ttis']} TTIs after the offer stopped; dl_tbs_ok {rec['dl_tbs_ok']}, ul_crc_ok "
+          f"{rec['ul_crc_ok']}, ctrl_windows {rec['ctrl_windows']}; map launches static {launches[0]}, "
+          f"dynamic-K {launches[1]}")
+    print(f"{tag}: timed {rec['timed_ttis']} TTIs after {rec['warm_ttis']} warm: {rec['ms_per_tti']:.3f} ms "
+          f"per TTI host clock, {rec['event_ms_per_tti']:.3f} ms by CUDA events, real-time factor "
+          f"{rec['rtf']:.4f}x; {rec['kernels_per_tti']:.1f} kernels and {rec['device_ms_per_tti']:.3f} ms of "
+          f"device time per TTI (busy {rec['busy']:.1%}); {rec['map_dyn_per_window']:.2f} map_window_dyn "
+          f"launches and {rec['viterbi_calls_per_window']:.2f} Viterbi calls per window; IP DL "
+          f"{rec['dl_mbps_air']:.3f} / UL {rec['ul_mbps_air']:.4f} Mbps of air time, "
+          f"{rec['dl_mbps_wall']:.4f} / {rec['ul_mbps_wall']:.5f} Mbps of wall time")
+    print(f"{tag}: fenced run_tti ms (quiet median; boundary positions): "
+          + "; ".join(f"{end} quiet {v['quiet_ms']:.3f}, " + ", ".join(
+              f"[{p}] {m:.2f}" for p, m in v["boundary_ms"].items()) for end, v in rec["fenced"].items()))
+    return launches, times
+
+
 def phase_dyn_shapes(dev, shapes) -> tuple[float, list]:
     """Phase 12, second half: the dynamic-K kernel at every (B, nw, lw, T)
     that phase 30's dynamic plane launched it at (`turbo_cuda.SHAPES`), on
@@ -3698,6 +3936,13 @@ def main() -> int:
         by_path[f"stack {mode} plane"] = launches_mode
         rx_shapes.update(plane_shapes[mode])
     torch.cuda.empty_cache()
+    # phase 31: the windowed control-plane stack at the bench's width and at
+    # the full width
+    for nof_prb in STACK_WINDOW["widths"]:
+        mark(f"phase 31: the windowed control-plane stack at {nof_prb} PRB")
+        name = f"stack window {nof_prb} PRB"
+        by_path[name], windows[name] = phase_stack_window(dev, nof_prb)
+        torch.cuda.empty_cache()
     mark("phase 25: the static kernel at the receive chains' and the stack's shapes")
     max_err_rx, rx_rows = phase_static_shapes(dev, {k: v for k, v in rx_shapes.items() if not k[4]})
     max_err = max(max_err, max_err_rx)

@@ -30,6 +30,7 @@ def test_import_leaves_jax_out():
         "import srsran_tpu_torch.phy.chest.srs, srsran_tpu_torch.phy.channel.channel\n"
         "import srsran_tpu_torch.phy.sync.refsignal_dl_sync\n"
         "import srsran_tpu_torch.apps.full_stack, srsran_tpu_torch.apps.windowed_plane\n"
+        "import srsran_tpu_torch.apps.windowed_stack\n"
         "import srsran_tpu_torch.epc, srsran_tpu_torch.stack.asn1.s1ap, srsran_tpu_torch.stack.gtpc\n"
         "import srsran_tpu_torch.stack.sched_grid, srsran_tpu_torch.runtime.config\n"
         "import importlib.util as u\n"
@@ -61,7 +62,7 @@ def test_every_module_of_the_port_imports_without_jax():
               "stack.pdcp", "stack.rlc", "stack.mac", "stack.gtpu", "stack.gtpc",
               "stack.sched_grid", "epc", "epc.hss", "epc.mme", "epc.s1ap", "epc.spgw",
               "epc.mbms_gw", "phy.tdd", "runtime.config", "apps.full_stack",
-              "apps.windowed_plane"):
+              "apps.windowed_plane", "apps.windowed_stack"):
         assert f"srsran_tpu_torch.{m}" in mods, m
     code = (
         "import sys, importlib\n"
