@@ -6,7 +6,8 @@ Run from the repo root:  python3 chip_smoke.py
 Phases (each prints its own lines; any failure exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the MAP kernel (csrc/map_window.cu) from the sources, timed,
-     and print its registers and spills as ptxas reports them;
+     and print its registers and spills as ptxas reports them; build the
+     native library (`native.py`: the sample ring and the log backend);
   3. the kernel (`turbo_cuda.map_pass`, (B, K) LLRs in, posteriors out)
      against its plain PyTorch version (`turbo.map_pass_plain`) on the card
      at the main paths' MAP shapes: static mode at K=5632 (lw=88, T=32, 88
@@ -155,9 +156,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      (`ue_dl_steps`: OFDM + chest, PCFICH, blind search host part, Viterbi,
      collect, PDSCH), kernels and busy share, the Viterbi's calls and
      kernels, MAP launches;
-  25. (after 22-24 and 26-30) the static kernel against `map_pass_plain`
-     at every (B, K) that phases 22-24 and 26-27 launched it at
-     (`turbo_cuda.SHAPES`), with ms, bound and share of bound;
+  25. (after 22-24 and 26-32) the static kernel against `map_pass_plain`
+     at every (B, K) that phases 22-24, 26-30 and 32 launched it at
+     (`turbo_cuda.SHAPES`; phase 32's from its processes' result lines),
+     with ms, bound and share of bound;
   26. the stored UL subframes `testdata/enb_ul_100prb.npz` (100 PRB, cell
      301, int8 I/Q; `check_enb_ul`): a plain PUSCH subframe and an SRS
      subframe (shortened PUSCH with ACK, RI and the 30-bit subband CQI; the
@@ -214,6 +216,24 @@ Phases (each prints its own lines; any failure exits non-zero):
      the fenced `run_tti` ms of each end at the window positions that
      dispatch or realise a window against the quiet ones.  Phase 12 takes
      its windows' shapes.
+  32. (after 31, before 25 and 12) the three-process `run_lte` at 100 PRB
+     (`run_lte_3proc`): `python -m srsran_tpu_torch.apps.run_lte_3proc` as
+     three child processes on free ports, the EPC (host only), the eNB and
+     the UE on the card, S1AP on length-framed TCP, GTP-U on UDP, the PHY's
+     complex64 subframes in lockstep over TCP, the reference test's traffic
+     (12 DL and 6 UL packets) for 12 s from the first exchange: the UE
+     registered, the EPC attached the one IMSI, at least 6 DL and 3 UL
+     packets through; each PHY process's device, MAP launches by mode and
+     launch shapes (phase 25 takes the static ones), ms per lockstep TTI and
+     each process's own part of it, the attach's TTI and seconds;
+  33. `run_lte_demo` at 100 PRB in one process with its defaults: attached,
+     every DL ping and UL pong through (its own prints); the attach TTI, the
+     wall time and the MAP launches;
+  34. `enb_app` -> `ue_app` over UDP through the native ring at the README's
+     6 PRB and cell 42 (the eNB's 200 TTIs, a payload every 5): at least one
+     SDU, each of the UE's SDUs (read from its MAC pcap) a payload the eNB
+     wrote; the ring's dropped samples and the SDU count.  The native
+     library is built in phase 2 from `native/` with g++.
 Every path is driven with the launch counts set to 0 just before and read
 just after.  Prints one JSON line of kernel results, then as its last line
 {"ok": true, "device": {...}}.  TF32 stays off: the channel-estimate
@@ -3582,6 +3602,313 @@ def phase_dyn_shapes(dev, shapes) -> tuple[float, list]:
     return max_err, rows
 
 
+# phases 32-34: the run scripts as processes (`python -m srsran_tpu_torch.apps.*`),
+# each process on the card unless given `--device`.  Phase 32 is the
+# three-process `run_lte` (`run_lte_3proc`: EPC, eNB and UE roles on real
+# sockets) at 100 PRB with the reference test's traffic, phase 33
+# `run_lte_demo` at 100 PRB in one process, phase 34 `enb_app` -> `ue_app`
+# over UDP through the native ring at the README's 6 PRB and cell 42.
+ROOT = Path(__file__).resolve().parent
+RUN_LTE = dict(prb=100, duration=12.0, n_dl=12, n_ul=6, min_ip_rx=6, min_sgi_rx=3)
+RUN_LTE_IMSI = "001010123456789"
+UDP_APPS = dict(prb=6, cell_id=42, ttis=200, payload_period=5, ue_duration=15.0)
+# the eNB's SDU of TTI t (`apps/enb_app.py`) and the length of one
+UDP_PAYLOAD = re.compile(rb"(tti-(\d{6})-payload)\1")
+MAC_PCAP_CONTEXT = 19  # bytes of the mac-lte context before a PDU (`runtime.pcap.MacPcap`)
+
+
+def port_cmd(app: str) -> list[str]:
+    """The argv that runs one of the port's run scripts."""
+    return [sys.executable, "-u", "-m", f"srsran_tpu_torch.apps.{app}"]
+
+
+def child_env(**extra) -> dict:
+    """The environment of a child process: the repo on its path."""
+    import os
+
+    path = os.pathsep.join(p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p)
+    return dict(os.environ, PYTHONPATH=path, **extra)
+
+
+def free_ports(n: int) -> list[int]:
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+class Child:
+    """A child process whose merged output one thread collects line by line."""
+
+    def __init__(self, argv: list[str], env: dict):
+        import threading
+
+        self.argv = argv
+        self.proc = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                     env=env, cwd=ROOT)
+        self.lines: list[str] = []
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip("\n"))
+
+    def wait_for(self, text: str, timeout: float) -> bool:
+        """True once a line holds `text`; False at the timeout or the exit."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if any(text in line for line in self.lines):
+                return True
+            if self.proc.poll() is not None and not self._reader.is_alive():
+                return any(text in line for line in self.lines)
+            time.sleep(0.05)
+        return False
+
+    def finish(self, timeout: float) -> int:
+        """The exit code; killed at the timeout."""
+        try:
+            rc = self.proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            rc = self.proc.wait()
+        self._reader.join(5)
+        return rc
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def json_line(self, key: str, value) -> dict | None:
+        """The last JSON object of the output whose `key` is `value`."""
+        for line in reversed(self.lines):
+            try:
+                d = json.loads(line)
+            except json.JSONDecodeError:
+                continue
+            if isinstance(d, dict) and d.get(key) == value:
+                return d
+        return None
+
+    def tail(self, n: int = 40) -> str:
+        return "\n".join(self.lines[-n:])
+
+
+def run_lte_3proc(prb: int = RUN_LTE["prb"], duration: float = RUN_LTE["duration"], cmds=None,
+                  role_args=None, prefix=(), extra=(), env=None) -> dict:
+    """The three roles of `run_lte_3proc` as child processes on free ports:
+    the EPC first, then the eNB once the EPC listens, and the UE beside it
+    (it retries its connection).  `cmds` maps a role to its argv (default:
+    the port's script), `role_args` a role to extra arguments (`--device
+    cpu`), `prefix` goes before every argv (`ip netns exec ...`) and `extra`
+    after the common arguments (`--tun --netns ...`).  Returns {role: its
+    result line} with "rc" (exit codes), "wall_s" (start to the last exit)
+    and "out" (each role's last lines); a role that exits non-zero or
+    prints no result line fails the run."""
+    cmds = cmds or {r: port_cmd("run_lte_3proc") for r in ("epc", "enb", "ue")}
+    role_args = role_args or {}
+    env = env or child_env()
+    p1, p2, p3 = free_ports(3)
+    common = ["--duration", str(duration), "--prb", str(prb), "--n-dl", str(RUN_LTE["n_dl"]),
+              "--n-ul", str(RUN_LTE["n_ul"]), *extra]
+    argv = {"epc": ["--role", "epc", "--s1ap-port", str(p1), "--gtpu-port", str(p2)],
+            "enb": ["--role", "enb", "--s1ap", f"127.0.0.1:{p1}", "--gtpu", f"127.0.0.1:{p2}",
+                    "--phy-port", str(p3)],
+            "ue": ["--role", "ue", "--phy", f"127.0.0.1:{p3}"]}
+    children: dict[str, Child] = {}
+    t0 = time.perf_counter()
+    try:
+        for role in ("epc", "enb", "ue"):
+            if role == "enb":
+                check(children["epc"].wait_for('"epc": "listening"', 120),
+                      f"run_lte_3proc: the EPC does not listen:\n{children['epc'].tail()}")
+            children[role] = Child([*prefix, *cmds[role], *common, *argv[role], *role_args.get(role, ())], env)
+        out = {"rc": {}, "out": {}}
+        for role in ("ue", "enb", "epc"):
+            c = children[role]
+            out["rc"][role] = c.finish(duration + 300)
+            out["out"][role] = c.tail()
+            out[role] = c.json_line("role", role)
+        out["wall_s"] = time.perf_counter() - t0
+    finally:
+        for c in children.values():
+            c.stop()
+    for role in ("epc", "enb", "ue"):
+        check(out["rc"][role] == 0 and out[role] is not None,
+              f"run_lte_3proc: the {role} role exited {out['rc'][role]} with "
+              f"{'a' if out[role] else 'no'} result line:\n{out['out'][role]}")
+    return out
+
+
+def check_run_lte(out: dict, min_ttis: int = 1):
+    """The gates of the reference's `tests/test_run_lte_3proc.py` on a
+    three-process run: the UE registered, the EPC attached the one IMSI, IP
+    both ways (at least 6 packets DL, 3 UL), and at least `min_ttis` TTIs."""
+    ue, enb, epc = out["ue"], out["enb"], out["epc"]
+    check(ue["registered"], f"run_lte_3proc: the UE did not register: {ue}")
+    check(epc["attached"] == [RUN_LTE_IMSI], f"run_lte_3proc: the EPC attached {epc['attached']}")
+    check(ue["ip_rx"] >= RUN_LTE["min_ip_rx"], f"run_lte_3proc: {ue['ip_rx']} DL packets at the UE")
+    check(epc["sgi_rx"] >= RUN_LTE["min_sgi_rx"], f"run_lte_3proc: {epc['sgi_rx']} UL packets at the SGi")
+    check(enb["ttis"] >= min_ttis, f"run_lte_3proc: {enb['ttis']} TTIs, expected at least {min_ttis}")
+
+
+def phase_run_lte(dev) -> tuple[tuple[int, int], dict, Counter]:
+    """Phase 32: `run_lte_3proc` at 100 PRB with the eNB and the UE on the
+    card.  Returns ((static, dynamic-K) launches of both PHY processes, the
+    times and counts, the static launch shapes of both)."""
+    out = run_lte_3proc()
+    check_run_lte(out)
+    shapes: Counter = Counter()
+    launches = [0, 0]
+    for role in ("enb", "ue"):
+        r = out[role]
+        check(r["device"] == str(dev), f"run_lte_3proc: the {role} ran on {r['device']}, not {dev}")
+        launches[0] += r["map_launches"]["static"]
+        launches[1] += r["map_launches"]["dyn"]
+        for b, nw, lw, t, dyn, n in r["map_shapes"]:
+            shapes[(b, nw, lw, t, bool(dyn))] += n
+    check(out["ue"]["map_launches"]["static"] > 0 and out["enb"]["map_launches"]["static"] > 0,
+          f"run_lte_3proc: a PHY process launched no static MAP pass: "
+          f"eNB {out['enb']['map_launches']}, UE {out['ue']['map_launches']}")
+    check(launches[1] == 0, f"run_lte_3proc: {launches[1]} dynamic-K launches on the per-TTI plane")
+    ue, enb, epc = out["ue"], out["enb"], out["epc"]
+    print(f"run_lte_3proc: {RUN_LTE['prb']} PRB, {RUN_LTE['duration']} s from the first exchange: "
+          f"{enb['ttis']} TTIs; registered at TTI {ue['attached_tti']} ({ue['attached_s']:.3f} s after "
+          f"the first exchange); IP DL {ue['ip_rx']} of {epc['dl_sent']} sent, UL {epc['sgi_rx']} of "
+          f"{ue['ul_sent']} sent; eNB ul_crc_ok {enb['ul_crc_ok']}; wall {out['wall_s']:.1f} s with start-up")
+    print(f"run_lte_3proc: ms per lockstep TTI (host clock, median / mean): eNB {enb['tti_ms']:.3f} / "
+          f"{enb['tti_ms_mean']:.3f}, UE {ue['tti_ms']:.3f} / {ue['tti_ms_mean']:.3f}; each process's own "
+          f"part (median, after a synchronize): eNB {enb['busy_ms']:.3f}, UE {ue['busy_ms']:.3f}; map "
+          f"launches static eNB {enb['map_launches']['static']}, UE {ue['map_launches']['static']}; "
+          f"{len(shapes)} launch shapes")
+    times = dict(prb=RUN_LTE["prb"], duration_s=RUN_LTE["duration"], ttis=enb["ttis"],
+                 attached_tti=ue["attached_tti"], attached_s=ue["attached_s"], ip_dl=ue["ip_rx"],
+                 ip_ul=epc["sgi_rx"], dl_sent=epc["dl_sent"], ul_sent=ue["ul_sent"],
+                 ul_crc_ok=enb["ul_crc_ok"], wall_s=out["wall_s"],
+                 enb_tti_ms=enb["tti_ms"], ue_tti_ms=ue["tti_ms"], enb_tti_ms_mean=enb["tti_ms_mean"],
+                 ue_tti_ms_mean=ue["tti_ms_mean"], enb_busy_ms=enb["busy_ms"], ue_busy_ms=ue["busy_ms"],
+                 map_launches={r: out[r]["map_launches"] for r in ("enb", "ue")})
+    return tuple(launches), times, shapes
+
+
+DEMO_LINES = {"attached": re.compile(r"\[(\d+) ms\] ATTACHED .*registered in (\d+) TTIs"),
+              "dl": re.compile(r"DL ping: (\d+)/(\d+) received"),
+              "ul": re.compile(r"UL pong: (\d+)/(\d+) received at SGi"),
+              "launches": re.compile(r"map launches: static (\d+), dynamic-K (\d+)")}
+
+
+def run_lte_demo(prb: int, role_args=(), env=None) -> dict:
+    """`run_lte_demo` in a child process with its defaults (4 pings, no
+    AWGN) at `prb`, gated on its own prints: attached, every DL ping and UL
+    pong through.  Returns the attach TTI, the pings, the MAP launches and
+    the wall time."""
+    t0 = time.perf_counter()
+    c = Child([*port_cmd("run_lte_demo"), "--prb", str(prb), *role_args], env or child_env())
+    try:
+        rc = c.finish(600)
+    finally:
+        c.stop()
+    wall = time.perf_counter() - t0
+    text = "\n".join(c.lines)
+    found = {k: p.search(text) for k, p in DEMO_LINES.items()}
+    check(rc == 0 and all(found.values()), f"run_lte_demo exited {rc}:\n{c.tail()}")
+    (dl_got, dl_n), (ul_got, ul_n) = (tuple(map(int, found[k].groups())) for k in ("dl", "ul"))
+    check(dl_got == dl_n and ul_got >= ul_n, f"run_lte_demo: pings {dl_got}/{dl_n}, pongs {ul_got}/{ul_n}")
+    return dict(prb=prb, attached_tti=int(found["attached"].group(2)), pings=dl_got, pongs=ul_got,
+                map_launches=[int(x) for x in found["launches"].groups()], wall_s=wall, out=c.tail(8))
+
+
+def phase_run_lte_demo(dev) -> tuple[tuple[int, int], dict]:
+    """Phase 33: `run_lte_demo` at 100 PRB on the card."""
+    r = run_lte_demo(RUN_LTE["prb"])
+    check(r["map_launches"][0] > 0, "run_lte_demo: no static MAP launch")
+    print(f"run_lte_demo: {r['prb']} PRB on {dev}: attached at TTI {r['attached_tti']}, DL pings "
+          f"{r['pings']}, UL pongs {r['pongs']}; {r['wall_s']:.1f} s wall with start-up; map launches "
+          f"static {r['map_launches'][0]}, dynamic-K {r['map_launches'][1]}")
+    print("run_lte_demo: " + r["out"].replace("\n", "\nrun_lte_demo: "))
+    return tuple(r["map_launches"]), {k: v for k, v in r.items() if k != "out"}
+
+
+def pcap_pdus(path) -> list[bytes]:
+    """The MAC PDUs of a `MacPcap` file."""
+    data = Path(path).read_bytes()
+    out, i = [], 24
+    while i + 16 <= len(data):
+        n = int.from_bytes(data[i + 8:i + 12], "little")
+        out.append(data[i + 16 + MAC_PCAP_CONTEXT:i + 16 + n])
+        i += 16 + n
+    return out
+
+
+def udp_apps_run(role_args=(), env=None, ue_duration: float = UDP_APPS["ue_duration"]) -> dict:
+    """`ue_app` (its MAC PDUs into a pcap) and then `enb_app` over UDP at the
+    README's cell, gated: at least one SDU, and every SDU of the pcap's
+    CRC-passing PDUs the whole of a payload the eNB wrote, as many as the
+    UE printed.  The UE's ring holds 64 subframes and drops what it cannot
+    take (the system's own behaviour: the eNB sends as fast as it renders)."""
+    import tempfile
+
+    from srsran_tpu_torch.stack.mac_pdu import LCID_DTCH, mac_unpack
+
+    U = UDP_APPS
+    (port,) = free_ports(1)
+    env = env or child_env()
+    cfg = [f"--phy.nof_prb={U['prb']}", f"--phy.cell_id={U['cell_id']}"]
+    with tempfile.TemporaryDirectory() as tmp:
+        pcap = Path(tmp) / "ue_mac.pcap"
+        t0 = time.perf_counter()
+        ue = Child([*port_cmd("ue_app"), "--port", str(port), "--duration", str(ue_duration), *cfg,
+                    "--pcap.enable=true", f"--pcap.filename={pcap}", *role_args], env)
+        enb = None
+        try:
+            check(ue.wait_for("listening", 120), f"ue_app does not listen:\n{ue.tail()}")
+            enb = Child([*port_cmd("enb_app"), "--dest", f"127.0.0.1:{port}", "--ttis", str(U["ttis"]),
+                         "--payload-period", str(U["payload_period"]), *cfg, *role_args], env)
+            rc_enb = enb.finish(600)
+            rc_ue = ue.finish(ue_duration + 300)
+        finally:
+            ue.stop()
+            if enb is not None:
+                enb.stop()
+        wall = time.perf_counter() - t0
+        check(rc_enb == 0, f"enb_app exited {rc_enb}:\n{enb.tail()}")
+        check(rc_ue == 0, f"ue_app exited {rc_ue}:\n{ue.tail()}")
+        sdus = [sdu for pdu in pcap_pdus(pcap) for lcid, sdu in mac_unpack(pdu) if lcid == LCID_DTCH]
+    text = "\n".join(ue.lines)
+    done = re.search(r"done: (\d+) SDUs, dropped_samples=(\d+)", text)
+    launches = re.search(DEMO_LINES["launches"], text)
+    check(done is not None and launches is not None, f"ue_app printed no summary:\n{ue.tail()}")
+    n_sdu, dropped = int(done.group(1)), int(done.group(2))
+    ttis = []
+    for sdu in sdus:
+        m = UDP_PAYLOAD.fullmatch(sdu)
+        check(m is not None, f"ue_app: an SDU that the eNB did not write: {sdu!r}")
+        ttis.append(int(m.group(2)))
+    check(n_sdu >= 1 and n_sdu == len(sdus), f"ue_app: {n_sdu} SDUs printed, {len(sdus)} in its pcap")
+    check(all(t % U["payload_period"] == 0 and t < U["ttis"] for t in ttis),
+          f"ue_app: SDUs of TTIs {ttis}, not the eNB's payloads")
+    return dict(sdus=n_sdu, sdu_ttis=ttis, dropped_samples=dropped,
+                map_launches=[int(x) for x in launches.groups()], wall_s=wall)
+
+
+def phase_udp_apps(dev) -> tuple[tuple[int, int], dict]:
+    """Phase 34: `enb_app` -> `ue_app` over UDP on the card."""
+    r = udp_apps_run()
+    check(r["map_launches"][0] > 0, "ue_app: no static MAP launch")
+    U = UDP_APPS
+    print(f"enb_app -> ue_app: {U['prb']} PRB cell {U['cell_id']}, {U['ttis']} TTIs sent, a payload every "
+          f"{U['payload_period']}: {r['sdus']} SDUs (TTIs {r['sdu_ttis']}), each a payload the eNB wrote; "
+          f"dropped_samples={r['dropped_samples']}; map launches static {r['map_launches'][0]}; "
+          f"{r['wall_s']:.1f} s wall with start-up")
+    return tuple(r["map_launches"]), r
+
+
 def phase_static_shapes(dev, shapes) -> tuple[float, list]:
     """Phase 25: the static kernel against `map_pass_plain` at every (B, nw,
     lw, T) that phases 22-24 launched it at.  Returns (max_abs_err, [dict
@@ -3640,6 +3967,12 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = turbo_cuda.build()
     print(f"build: {time.perf_counter() - t0:.1f} s ({lib.name})")
+    from srsran_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native_lib = native.build()
+    print(f"build: native library {time.perf_counter() - t0:.1f} s ({native_lib.name}, g++ "
+          f"{' '.join(native.CXXFLAGS)})")
     usage = subprocess.run([turbo_cuda._nvcc(), *turbo_cuda.NVCC_FLAGS[:4], "-Xptxas", "-v", "-cubin",
                             "-o", str(lib.with_suffix(".cubin")), str(turbo_cuda.SOURCE)],
                            capture_output=True, text=True, check=True).stderr
@@ -3943,6 +4276,14 @@ def main() -> int:
         name = f"stack window {nof_prb} PRB"
         by_path[name], windows[name] = phase_stack_window(dev, nof_prb)
         torch.cuda.empty_cache()
+    # phases 32-34: the run scripts as processes on the card
+    mark("phase 32: run_lte_3proc at 100 PRB")
+    by_path["run_lte_3proc"], windows["run_lte_3proc"], proc_shapes = phase_run_lte(dev)
+    rx_shapes.update(proc_shapes)
+    mark("phase 33: run_lte_demo at 100 PRB")
+    by_path["run_lte_demo"], windows["run_lte_demo"] = phase_run_lte_demo(dev)
+    mark("phase 34: enb_app -> ue_app over UDP")
+    by_path["enb_app->ue_app"], windows["enb_app->ue_app"] = phase_udp_apps(dev)
     mark("phase 25: the static kernel at the receive chains' and the stack's shapes")
     max_err_rx, rx_rows = phase_static_shapes(dev, {k: v for k, v in rx_shapes.items() if not k[4]})
     max_err = max(max_err, max_err_rx)

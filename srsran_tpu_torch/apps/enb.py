@@ -9,7 +9,6 @@ largest TBS that fits, schedule it by DCI 1A, and render the subframe
 
 from __future__ import annotations
 
-import logging
 from collections import deque
 
 import numpy as np
@@ -23,7 +22,7 @@ from ..phy.phch.pbch import Mib
 from ..phy.phch.pdcch import nof_cce, search_space_candidates
 from ..phy.phch.pdsch import DlGrant, pdsch_nof_re
 from ..phy.phch.ra import dl_mcs_to_mod, dl_tbs, riv_encode
-from ..runtime.pcap import MacPcap
+from ..runtime import MacPcap, get_logger
 from ..stack.mac_pdu import LCID_DTCH, mac_pack
 
 
@@ -39,7 +38,7 @@ class EnbApp:
         self.cfi = cfi
         self.tti = 0
         self.tx_queue: deque[bytes] = deque()
-        self.log = logging.getLogger("srsran_tpu_torch.enb")
+        self.log = get_logger("enb")
         self.pcap = MacPcap(pcap_path) if pcap_path else None
         self.mib = Mib(nof_prb=cell.nof_prb)
         self.stats = {"tx_tbs": 0, "tx_bytes": 0}
@@ -90,7 +89,7 @@ class EnbApp:
         self.stats["tx_bytes"] += sum(len(s) for _, s in sdus)
         if self.pcap:
             self.pcap.write_pdu(pdu, self.rnti, sfn=self.tti // 10, sf_idx=sf_idx)
-        self.log.debug("tti %d: scheduled %d SDUs in TBS %d", self.tti, len(sdus), tbs_bits)
+        self.log.debug(f"tti {self.tti}: scheduled {len(sdus)} SDUs in TBS {tbs_bits}")
         return sched
 
     def run_tti(self) -> torch.Tensor:

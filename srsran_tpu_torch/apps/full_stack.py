@@ -16,8 +16,9 @@ the same way: the samples never cross to the host.  The host reads back
 only what a decision needs — a power gate as one `.item()`, decoded bits
 and PUCCH/PRACH/SRS metrics once per call.  The host stack under it
 (MAC, RLC, PDCP, RRC, NAS, the EPC) is the port's copy of the reference's.
-TDD (`tdd_cfg=`) and the kernel TUN boundary (`UeStack.attach_tun`) raise
-NotImplementedError: they belong to later slices (ROADMAP).
+The kernel TUN boundary (`UeStack.attach_tun`) is the port's `io.tun`.  TDD
+(`tdd_cfg=`) raises NotImplementedError: it belongs to a later slice
+(ROADMAP).
 """
 
 from __future__ import annotations
@@ -1772,10 +1773,14 @@ class UeStack:
         return self.nas.ue_ip
 
     def attach_tun(self, name: str = "tun_ue0", netns: str | None = None):
-        """Open the kernel IP boundary (gw.cc TUN role).  Not ported yet:
-        the kernel TUN belongs to the `io/` slice (ROADMAP)."""
-        raise NotImplementedError("UeStack.attach_tun needs io/tun.py, not ported yet "
-                                  "(ROADMAP, the io/ slice)")
+        """Open the kernel IP boundary (gw.cc TUN role): requires an
+        assigned UE IP (post-attach).  Outbound kernel packets become UL
+        SDUs each TTI; DL SDUs are written back to the kernel."""
+        from ..io.tun import UeGw
+
+        assert self.ue_ip, "attach first (no UE IP yet)"
+        self.gw = UeGw(self.ue_ip, name=name, netns=netns)
+        return self.gw
 
     def send_ip_packet(self, pkt: bytes):
         self.ip_tx_queue.append(bytes(pkt))

@@ -8,7 +8,6 @@ SDUs of the CRC-passing MAC PDUs into the GW-side queue.
 
 from __future__ import annotations
 
-import logging
 from collections import deque
 
 import numpy as np
@@ -17,7 +16,7 @@ from ..device import resolve
 from ..phy.common import Cell
 from ..phy.ue.ue_dl import ue_dl_decode_subframe
 from ..phy.ue.ue_sync import UeSync
-from ..runtime.pcap import MacPcap
+from ..runtime import MacPcap, get_logger
 from ..stack.mac_pdu import LCID_DTCH, mac_unpack
 
 
@@ -31,7 +30,7 @@ class UeApp:
         self.cfi = cfi
         self.sync = UeSync(nof_prb=nof_prb, device=self.device)
         self.rx_queue: deque[bytes] = deque()
-        self.log = logging.getLogger("srsran_tpu_torch.ue")
+        self.log = get_logger("ue")
         self.pcap = MacPcap(pcap_path, ue_id=1) if pcap_path else None
         self.stats = {"rx_tbs": 0, "rx_tbs_ok": 0, "rx_bytes": 0, "in_sync": 0}
 
@@ -60,7 +59,7 @@ class UeApp:
             for tb, ok in res.tbs:
                 self.stats["rx_tbs"] += 1
                 if not ok:
-                    self.log.warning("sf %d: TB CRC KO", sf_idx)
+                    self.log.warning(f"sf {sf_idx}: TB CRC KO")
                     continue
                 self.stats["rx_tbs_ok"] += 1
                 pdu = np.packbits(tb).tobytes()

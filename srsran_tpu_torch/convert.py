@@ -3,9 +3,11 @@
 `from_reference(obj)` reads the dataclass fields of a `srsran_tpu` `Cell`,
 `DlGrant`, `DlGrant2`, `UlGrant`, `ChestDlConfig`, `OfdmConfig`, `TbCoding`,
 `DlSched`, `Mib`, `PucchConfig`, `UciCfg`, `Agc`, `PrachConfig`, `FadingConfig`,
-`RlfConfig`, `DelayConfig`, `HstConfig` or `ChannelConfig` and builds the port's
-class of the same name (a nested configuration too), so that both packages
-decode one configuration.  A
+`RlfConfig`, `DelayConfig`, `HstConfig`, `ChannelConfig`, the app configuration
+`AppConfig` (with its `RfConfig`, `PhyConfig`, `ExpertPhyConfig`, `LogConfig`
+and `PcapConfig`) or the operator configuration `EnbConfig`, and builds the
+port's class of the same name (a nested configuration too; dicts and lists
+are copied), so that both packages decode one configuration.  A
 `DlSched`'s grants are converted too, and its DCI bits become numpy
 arrays.
 It goes by the class name and the fields (duck typing), so this package
@@ -18,6 +20,7 @@ the reference's array (as numpy) onto a device of the port.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import enum
 
@@ -38,10 +41,13 @@ from .phy.phch.prach import PrachConfig
 from .phy.phch.pucch import PucchConfig
 from .phy.phch.pusch import UciCfg, UlGrant
 from .phy.phch.sch import TbCoding
+from .runtime.config import AppConfig, ExpertPhyConfig, LogConfig, PcapConfig, PhyConfig, RfConfig
+from .runtime.enb_cfg import EnbConfig
 
 _CLASSES = {c.__name__: c for c in (
     Cell, DlGrant, DlGrant2, UlGrant, ChestDlConfig, OfdmConfig, TbCoding, Mib, PucchConfig,
-    UciCfg, Agc, PrachConfig, FadingConfig, RlfConfig, DelayConfig, HstConfig, ChannelConfig)}
+    UciCfg, Agc, PrachConfig, FadingConfig, RlfConfig, DelayConfig, HstConfig, ChannelConfig,
+    AppConfig, RfConfig, PhyConfig, ExpertPhyConfig, LogConfig, PcapConfig, EnbConfig)}
 _ENUMS = {e.__name__: e for e in (CP, Mod)}
 
 
@@ -50,6 +56,8 @@ def _value(v):
         return _ENUMS[type(v).__name__](v.value)
     if dataclasses.is_dataclass(v) and type(v).__name__ in _CLASSES:
         return from_reference(v)
+    if isinstance(v, (dict, list)):
+        return copy.deepcopy(v)
     return v
 
 

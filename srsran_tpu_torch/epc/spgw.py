@@ -184,10 +184,11 @@ class Spgw:
     def attach_tun(self, name: str = "tun_sgi0", gw_ip: str = "172.16.0.254"):
         """Open a kernel TUN for the SGi interface: the UE address pool is
         routed into it, so real sockets/ping on this host exchange traffic
-        with attached UEs through the whole RAN path.  Not ported yet: the
-        kernel TUN boundary belongs to the `io/` slice (ROADMAP)."""
-        raise NotImplementedError("Spgw.attach_tun needs io/tun.py, not ported yet "
-                                  "(ROADMAP, the io/ slice)")
+        with attached UEs through the whole RAN path."""
+        from ..io.tun import SpgwGi
+
+        self.sgi_tun = SpgwGi(gw_ip=gw_ip, name=name)
+        return self.sgi_tun
 
     def pump_tun(self):
         """Move packets between the kernel TUN and the GTP-U plane: DL

@@ -76,13 +76,23 @@ def pss_correlate(samples: torch.Tensor, fft_size: int = 128) -> torch.Tensor:
     return corr[..., :n].abs()
 
 
+# relative distance from the maximum within which PSS metrics tie (`pss_find`)
+PSS_TIE_RTOL = 1e-5
+
+
 def pss_find(samples: torch.Tensor, fft_size: int = 128):
     """The best (n_id_2, offset, peak, avg) of a sample window, tensors of
     shape (...,) on the device of the samples; the first maximum wins a tie.
-    peak / avg is the detection metric (a proxy of the peak-to-sidelobe)."""
+    peak / avg is the detection metric (a proxy of the peak-to-sidelobe).
+
+    A tie is a metric within `PSS_TIE_RTOL` of the maximum: the PSS
+    occasions of a periodic noise-free stream are equal in exact arithmetic
+    but differ by a few ULP of the FFT correlation, and the earliest must
+    win as it would there (a later one drops the subframes before it)."""
     c = pss_correlate(samples, fft_size)
     flat = c.reshape(c.shape[:-2] + (-1,))
-    arg = torch.argmax(flat, dim=-1)
+    top = torch.amax(flat, dim=-1, keepdim=True)
+    arg = torch.argmax((flat >= top * (1 - PSS_TIE_RTOL)).to(torch.uint8), dim=-1)
     n = c.shape[-1]
     peak = torch.gather(flat, -1, arg[..., None])[..., 0]
     return arg // n, arg % n, peak, torch.mean(c, dim=(-1, -2))

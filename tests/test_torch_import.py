@@ -33,6 +33,16 @@ def test_import_leaves_jax_out():
         "import srsran_tpu_torch.apps.windowed_stack\n"
         "import srsran_tpu_torch.epc, srsran_tpu_torch.stack.asn1.s1ap, srsran_tpu_torch.stack.gtpc\n"
         "import srsran_tpu_torch.stack.sched_grid, srsran_tpu_torch.runtime.config\n"
+        "import srsran_tpu_torch.native, srsran_tpu_torch.runtime, srsran_tpu_torch.io\n"
+        "import srsran_tpu_torch.runtime.logger, srsran_tpu_torch.runtime.metrics\n"
+        "import srsran_tpu_torch.runtime.trace, srsran_tpu_torch.runtime.crash\n"
+        "import srsran_tpu_torch.runtime.state, srsran_tpu_torch.runtime.enb_cfg\n"
+        "import srsran_tpu_torch.runtime.plots, srsran_tpu_torch.io.filesource\n"
+        "import srsran_tpu_torch.io.net, srsran_tpu_torch.io.radio, srsran_tpu_torch.io.rf_zmq\n"
+        "import srsran_tpu_torch.io.tun, srsran_tpu_torch.io.icmp_ping\n"
+        "import srsran_tpu_torch.apps.enb_app, srsran_tpu_torch.apps.ue_app\n"
+        "import srsran_tpu_torch.apps.run_lte_demo, srsran_tpu_torch.apps.run_lte_3proc\n"
+        "assert 'zmq' not in sys.modules and 'matplotlib' not in sys.modules\n"
         "import importlib.util as u\n"
         "spec = u.spec_from_file_location('prof', 'tools/profile_torch_dynamic.py')\n"
         "spec.loader.exec_module(u.module_from_spec(spec))\n"
@@ -62,7 +72,11 @@ def test_every_module_of_the_port_imports_without_jax():
               "stack.pdcp", "stack.rlc", "stack.mac", "stack.gtpu", "stack.gtpc",
               "stack.sched_grid", "epc", "epc.hss", "epc.mme", "epc.s1ap", "epc.spgw",
               "epc.mbms_gw", "phy.tdd", "runtime.config", "apps.full_stack",
-              "apps.windowed_plane", "apps.windowed_stack"):
+              "apps.windowed_plane", "apps.windowed_stack", "native", "runtime",
+              "runtime.logger", "runtime.metrics", "runtime.trace", "runtime.crash",
+              "runtime.state", "runtime.enb_cfg", "runtime.plots", "io", "io.filesource",
+              "io.net", "io.radio", "io.rf_zmq", "io.tun", "io.icmp_ping", "apps.enb_app",
+              "apps.ue_app", "apps.run_lte_demo", "apps.run_lte_3proc"):
         assert f"srsran_tpu_torch.{m}" in mods, m
     code = (
         "import sys, importlib\n"
