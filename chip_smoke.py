@@ -2847,6 +2847,13 @@ STACK = dict(cell_id=301, mcs=20, rand_state=0x5EED00C0FFEE, seed=28, settle=5, 
 # EPA fading with AWGN, then 20 TTIs of DL and 20 of UL traffic
 STACK_LINK = dict(preambles=(11, 29), attach_delays=(0, 40), doppler_hz=5.0, amp=0.01,
                   traffic_ttis=20, dl_bytes=1400, ul_bytes=1000, max_attach=300, max_drain=200)
+# phases 35-36: frame structure 2.  The stored TDD attach: configuration 1,
+# special subframe 4, with tests/test_tdd.py's traffic (3 DL packets of 48
+# B, 3 UL of 40 B); the attached link: configuration 2 (M = 4 association
+# sets: multiplexed ACKs), special subframe 4
+FIXTURE_STACK_TDD = TESTDATA / "full_stack_attach_tdd_100prb.json"
+STACK_TDD = dict(tdd=(1, 4), kw=dict(sr_enabled=True), dl=(3, 48), ul=(3, 40))
+STACK_LINK_TDD = dict(tdd=(2, 4), n_ues=1)
 # phase 30: the stored attach's script on the other data planes
 STACK_PLANES = (("dynamic", dict(dynamic_phy=True)),
                 ("windowed", dict(windowed_phy=True, phy_window=4)))
@@ -2857,12 +2864,13 @@ def port_stack_modules() -> SimpleNamespace:
     from srsran_tpu_torch.apps import full_stack
     from srsran_tpu_torch.epc import Hss, Mme, Spgw, Subscriber
     from srsran_tpu_torch.phy.common import Cell
+    from srsran_tpu_torch.phy.tdd import TddConfig
     from srsran_tpu_torch.stack.nas_ue import Usim
     from srsran_tpu_torch.stack.security import compute_opc
 
     return SimpleNamespace(EnbStack=full_stack.EnbStack, UeStack=full_stack.UeStack, Cell=Cell,
                            Hss=Hss, Mme=Mme, Spgw=Spgw, Subscriber=Subscriber, Usim=Usim,
-                           compute_opc=compute_opc)
+                           compute_opc=compute_opc, TddConfig=TddConfig)
 
 
 def stack_pair(m, nof_prb: int, n_ues: int = 1, enb_kw=None, ue_kw=(), **dev_kw) -> SimpleNamespace:
@@ -3048,7 +3056,7 @@ class Timed:
 
 
 def stack_link_run(device, nof_prb: int = 100, traffic_ttis: int = STACK_LINK["traffic_ttis"],
-                   on_step=None) -> dict:
+                   on_step=None, tdd=None, n_ues: int = 2) -> dict:
     """Phase 29's link: an `EnbStack` (STACK's cell and MCS) and two
     `UeStack`s (preambles 11 and 29, the second 40 TTIs later) through
     `StackAir`.  After both register (and 10 TTIs for the second's Attach
@@ -3058,17 +3066,28 @@ def stack_link_run(device, nof_prb: int = 100, traffic_ttis: int = STACK_LINK["t
     scaled by nof_prb / 100).  Gates: both UEs
     registered with AS security on, distinct C-RNTIs and IPs, two PRACH
     detections, every packet delivered in order and intact.  `on_step(tti,
-    phase)` runs after each TTI ("attach", "dl", "ul", "drain").  Returns
-    the run's record: per TTI the host ms (synchronised) and CUDA-event ms
-    of `EnbStack.run_tti` and of each `UeStack.run_tti`, and the split of
-    each end into its DL and UL halves."""
+    phase)` runs after each TTI ("attach", "dl", "ul", "drain").  `n_ues`:
+    the first 1 or 2 of those UEs.  `tdd`:
+    (UL/DL configuration, special-subframe configuration) of frame
+    structure 2 on every end, with its gates too: each PRACH detected on
+    subframe 2, no UE energy outside U subframes, no eNB energy in a U
+    subframe or past a DwPTS, DL HARQ ACKs received.  Returns the run's
+    record: per TTI the host ms (synchronised) and CUDA-event ms of
+    `EnbStack.run_tti` and of each `UeStack.run_tti`, the subframe index,
+    and the split of each end into its DL and UL halves."""
+    from srsran_tpu_torch.phy import tdd as tdd_mod
+    from srsran_tpu_torch.phy.ofdm import OfdmConfig
+
     L = STACK_LINK
     # the packets scale with the cell, so that a narrower cell of the CPU
     # tests carries the same load for its width
     dl_bytes, ul_bytes = (max(1, L[k] * nof_prb // 100) for k in ("dl_bytes", "ul_bytes"))
     cuda = torch.device(device).type == "cuda"
-    s = stack_pair(port_stack_modules(), nof_prb, n_ues=2,
-                   ue_kw=[dict(preamble=p, attach_delay=d)
+    m = port_stack_modules()
+    cfg = None if tdd is None else m.TddConfig(*tdd)
+    tdd_kw = {} if cfg is None else dict(tdd_cfg=cfg)
+    s = stack_pair(m, nof_prb, n_ues=n_ues, enb_kw=tdd_kw,
+                   ue_kw=[dict(preamble=p, attach_delay=d, **tdd_kw)
                           for p, d in zip(L["preambles"], L["attach_delays"])], device=device)
     enb, ues, spgw = s.enb, s.ues, s.spgw
     air = StackAir(s.cell, len(ues), device)
@@ -3079,10 +3098,24 @@ def stack_link_run(device, nof_prb: int = 100, traffic_ttis: int = STACK_LINK["t
         timed.wrap(ue, "_process_dl", f"ue{i} dl decode")
         timed.wrap(ue, "_build_ul", f"ue{i} ul encode")
     rec = dict(enb_ms=[], enb_event_ms=[], ue_ms=[[] for _ in ues], ue_event_ms=[[] for _ in ues],
-               phase=[], cell=s.cell, stack=s, timed=timed)
+               phase=[], sf=[], prach_sf=[], cell=s.cell, stack=s, timed=timed)
     dl_sent = [[] for _ in ues]
     ul_sent = {}
     ul = [None] * len(ues)
+    if cfg is not None:
+        ofdm = OfdmConfig.from_cell(s.cell, normalize=True)
+        dwpts_end = ofdm.symbol_starts()[tdd_mod.nof_dw(cfg) - 1] + ofdm.symbol_sz
+
+    def tdd_gates(tti: int, x, ul):
+        """Frame structure 2's gates on the subframes of eNB TTI `tti`."""
+        kind = tdd_mod.sf_type(cfg, tti % 10)
+        quiet = {tdd_mod.SfType.U: 0, tdd_mod.SfType.S: dwpts_end}.get(kind)
+        if quiet is not None:
+            check(float(x[..., quiet:].abs().max()) == 0,
+                  f"stack link: eNB energy in TTI {tti} ({kind.name}) after sample {quiet}")
+        for i, u in enumerate(ul):
+            if u is not None and float(u.abs().max()) > 0:
+                check(kind == tdd_mod.SfType.U, f"stack link: UE {i} sent in TTI {tti} ({kind.name})")
 
     def one_tti(phase: str):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if cuda else None
@@ -3100,11 +3133,17 @@ def stack_link_run(device, nof_prb: int = 100, traffic_ttis: int = STACK_LINK["t
             event.append(ev[0].elapsed_time(ev[1]) if ev else None)
             return out
 
+        tti, prach = enb.tti, enb.stats["prach_detected"]
         x = clocked(enb.run_tti, air.ul(ul) if any(u is not None for u in ul) else None,
                     rec["enb_ms"], rec["enb_event_ms"])
+        if enb.stats["prach_detected"] > prach:  # in the UEs' subframe of TTI tti - 1
+            rec["prach_sf"].append((tti - 1) % 10)
         for i, (ue, y) in enumerate(zip(ues, air.dl(x, len(ues)))):
             ul[i] = clocked(ue.run_tti, y, rec["ue_ms"][i], rec["ue_event_ms"][i])
+        if cfg is not None:
+            tdd_gates(tti, x, ul)
         rec["phase"].append(phase)
+        rec["sf"].append(tti % 10)
         if on_step is not None:
             on_step(len(rec["phase"]) - 1, phase)
 
@@ -3145,10 +3184,13 @@ def stack_link_run(device, nof_prb: int = 100, traffic_ttis: int = STACK_LINK["t
               f"packets or out of order")
         check(got_ul.get(ue.ue_ip) == ul_sent[ue.ue_ip], f"stack link: UE {i}'s UL packets "
               f"{len(got_ul.get(ue.ue_ip, ()))}/{len(ul_sent[ue.ue_ip])} or out of order")
-    check(ues[0].crnti != ues[1].crnti and ues[0].ue_ip != ues[1].ue_ip,
+    check(len({u.crnti for u in ues}) == len({u.ue_ip for u in ues}) == len(ues),
           "stack link: the UEs share a C-RNTI or an IP")
-    check(enb.stats["prach_detected"] == 2, f"stack link: PRACH detections {enb.stats}")
-    check(sorted(s.mme.attached_imsis) == sorted(imsi for imsi, _k, _o in STACK_UES[:2]),
+    check(enb.stats["prach_detected"] == len(ues), f"stack link: PRACH detections {enb.stats}")
+    if cfg is not None:
+        check(rec["prach_sf"] == [2] * len(ues), f"stack link: PRACH detected on subframes {rec['prach_sf']}")
+        check(enb.stats.get("dl_ack", 0) > 0, f"stack link: no DL HARQ ACK received {enb.stats}")
+    check(sorted(s.mme.attached_imsis) == sorted(imsi for imsi, _k, _o in STACK_UES[:len(ues)]),
           f"stack link: MME attached {s.mme.attached_imsis}")
     rec.update(dl_bits=8 * sum(len(p) for d in dl_sent for p in d),
                ul_bits=8 * sum(len(p) for v in ul_sent.values() for p in v))
@@ -3170,25 +3212,37 @@ def stack_steps_synced(run_one, device) -> int:
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-def phase_stored_stack(dev) -> tuple[int, int]:
-    """Phase 28: the stored reference attach on the card, TTI by TTI.
-    Returns the (static, dynamic-K) launches."""
-    fx = json.loads(FIXTURE_STACK.read_text())
-    s = stack_pair(port_stack_modules(), fx["nof_prb"], enb_kw=fx["enb_kw"], ue_kw=[fx["ue_kw"]],
-                   device=dev)
+def stored_stack_run(m, fx: dict, **dev_kw) -> StackRun:
+    """A stored attach's `StackRun`, set up on the classes in `m`: the
+    fixture's cell width and constructor arguments, its frame structure 2
+    configuration on both ends (`tdd`, when there is one) and its traffic
+    (`traffic`: (DL, UL) as (packets, bytes); STACK's by default)."""
+    tdd = dict(tdd_cfg=m.TddConfig(*fx["tdd"])) if fx.get("tdd") else {}
+    s = stack_pair(m, fx["nof_prb"], enb_kw=dict(fx["enb_kw"], **tdd), ue_kw=[dict(fx["ue_kw"], **tdd)],
+                   **dev_kw)
+    dl, ul = fx.get("traffic", (STACK["dl"], STACK["ul"]))
+    return StackRun(s.enb, s.ues[0], s.mme, s.spgw, dl=tuple(dl), ul=tuple(ul))
+
+
+def phase_stored_stack(dev, path: Path = FIXTURE_STACK, tag: str = "stored attach") -> tuple[int, int]:
+    """Phase 28 (and 35 with the TDD fixture): a stored reference attach on
+    the card, TTI by TTI.  Returns the (static, dynamic-K) launches."""
+    fx = json.loads(path.read_text())
+    run = stored_stack_run(port_stack_modules(), fx, device=dev)
     reset_launches()
     t0 = time.perf_counter()
-    run = StackRun(s.enb, s.ues[0], s.mme, s.spgw).run(len(fx["records"]))
+    run.run(len(fx["records"]))
     secs = time.perf_counter() - t0
     launches = read_launches()
     n = check_stack_fixture(fx, run)
-    run.check_traffic("stored attach")
-    check(launches[0] > 0, f"stored attach: map launches {launches}")
-    print(f"stored attach: {fx['nof_prb']} PRB cell {STACK['cell_id']} MCS {STACK['mcs']} "
-          f"{fx['enb_kw']}: {n} TTIs equal to the reference's stats, RRC and NAS states TTI by TTI "
+    run.check_traffic(tag)
+    check(launches[0] > 0, f"{tag}: map launches {launches}")
+    print(f"{tag}: {fx['nof_prb']} PRB cell {STACK['cell_id']} MCS {STACK['mcs']} {fx['enb_kw']}"
+          + (f" TDD {fx['tdd']}" if fx.get("tdd") else "")
+          + f": {n} TTIs equal to the reference's stats, RRC and NAS states TTI by TTI "
           f"(registered at TTI {run.reg_tti}, IP {run.ue.ue_ip}); {len(run.dl_pkts)} DL x "
-          f"{STACK['dl'][1]} B and {len(run.ul_pkts)} UL x {STACK['ul'][1]} B packets identical; "
-          f"{secs * 1e3 / n:.1f} ms per TTI (both ends, host clock); {launches[0]} map launches")
+          f"{len(run.dl_pkts[0])} B and {len(run.ul_pkts)} UL x {len(run.ul_pkts[0])} B packets "
+          f"identical; {secs * 1e3 / n:.1f} ms per TTI (both ends, host clock); {launches[0]} map launches")
     return launches
 
 
@@ -3278,6 +3332,82 @@ def phase_stack_link(dev) -> tuple[tuple[int, int], dict, Counter]:
           f"{map_attached:.2f} map launches per attached TTI; IP payload DL "
           f"{times['dl_mbps_air']:.2f} Mbps / UL {times['ul_mbps_air']:.2f} Mbps of air time, "
           f"{times['dl_mbps_wall']:.3f} / {times['ul_mbps_wall']:.3f} Mbps of wall time")
+    return launches, times, +shapes
+
+
+def phase_stack_link_tdd(dev) -> tuple[tuple[int, int], dict, Counter]:
+    """Phase 36: the 20 MHz attached link under frame structure 2
+    (`STACK_LINK_TDD`), one UE (with two, the reference's own stack
+    releases the first UE during the DL traffic: ROADMAP Queue 3), timed by
+    subframe type.  Returns ((static, dynamic-K) launches, times dict, the
+    run's launches by kernel shape)."""
+    from srsran_tpu_torch.phy import tdd as tdd_mod
+    from srsran_tpu_torch.phy.fec import turbo_cuda
+
+    T = STACK_LINK_TDD
+    reset_launches()
+    before = Counter(turbo_cuda.SHAPES)
+    rec = stack_link_run(dev, 100, tdd=T["tdd"], n_ues=T["n_ues"])
+    launches = read_launches()
+    shapes = Counter(turbo_cuda.SHAPES)
+    shapes.subtract(before)
+    check(launches[0] > 0 and launches[1] == 0, f"TDD link: map launches {launches}")
+    mark("phase 36: the TDD link ran; its host syncs, kernels and times")
+    med = lambda v: sorted(v)[len(v) // 2] if v else None  # noqa: E731
+    s = rec["stack"]
+    enb, ues = s.enb, s.ues
+    cfg = enb.tdd
+    att = [i for i, p in enumerate(rec["phase"]) if p != "attach"]
+    by_type = {}
+    for kind in tdd_mod.SfType:
+        idx = [i for i in att if tdd_mod.sf_type(cfg, rec["sf"][i]) == kind]
+        by_type[kind.name] = dict(ttis=len(idx), enb_ms=med([rec["enb_ms"][i] for i in idx]),
+                                  enb_event_ms=med([rec["enb_event_ms"][i] for i in idx]),
+                                  ue_ms=[med([v[i] for i in idx]) for v in rec["ue_ms"]],
+                                  ue_event_ms=[med([v[i] for i in idx]) for v in rec["ue_event_ms"]])
+    # host syncs, kernels and device time of a frame (10 TTIs: every subframe
+    # type), per TTI; the profiler's own cost grows with the frame's 30,000
+    # kernels, so one frame each
+    air = StackAir(s.cell, len(ues), dev)
+    ul = [None] * len(ues)
+
+    def frame():
+        for _ in range(10):
+            x = enb.run_tti(air.ul(ul) if any(u is not None for u in ul) else None)
+            for i, (ue, y) in enumerate(zip(ues, air.dl(x, len(ues)))):
+                ul[i] = ue.run_tti(y)
+
+    for ue in ues:
+        for _ in range(4):
+            s.spgw.sgi_tx(ue.ue_ip, bytes(STACK_LINK["dl_bytes"]))
+            ue.send_ip_packet(bytes(STACK_LINK["ul_bytes"]))
+    rec["timed"].on = False
+    syncs = stack_steps_synced(frame, dev) / 10
+    host_ms = wall_ms(frame, 2) / 10
+    kernels, dev_ms = (v / 10 for v in profile_kernels(frame))
+    span = len(att)
+    times = dict(by_type=by_type, host_syncs_per_tti=syncs, kernels_per_tti=kernels,
+                 device_ms_per_tti=dev_ms, step_host_ms=host_ms, busy=dev_ms / host_ms,
+                 map_launches=launches[0], ttis=len(rec["phase"]), attached_tti=rec["attached_tti"],
+                 prach_sf=rec["prach_sf"], dl_mbps_air=rec["dl_bits"] / (span * 1e-3) / 1e6,
+                 ul_mbps_air=rec["ul_bits"] / (span * 1e-3) / 1e6, enb_stats=dict(enb.stats),
+                 ue_stats=[dict(u.stats) for u in ues], crntis=[u.crnti for u in ues],
+                 ips=[u.ue_ip for u in ues])
+    print(f"TDD link: 100 PRB cell {STACK['cell_id']} MCS {STACK['mcs']}, TddConfig{T['tdd']}, "
+          f"{len(ues)} UE, EPA {STACK_LINK['doppler_hz']} Hz, AWGN {STACK_LINK['amp']}: registered "
+          f"with AS security by TTI {rec['attached_tti'] - 10}, PRACH on subframes {rec['prach_sf']}, "
+          f"C-RNTIs {times['crntis']}, IPs {times['ips']}; every packet through in order by TTI "
+          f"{len(rec['phase'])}; no UE energy outside U subframes, no eNB energy in U or past the "
+          f"DwPTS; eNB {enb.stats}; UE {[u.stats for u in ues]}; {launches[0]} static map launches")
+    for kind, v in by_type.items():
+        if v["ttis"]:
+            print(f"TDD link: {kind} subframes (median of {v['ttis']} attached TTIs): EnbStack.run_tti "
+                  f"{v['enb_ms']:.2f} ms host / {v['enb_event_ms']:.2f} ms events, UeStack.run_tti "
+                  f"{[round(x, 2) for x in v['ue_ms']]} ms host / "
+                  f"{[round(x, 2) for x in v['ue_event_ms']]} ms events")
+    print(f"TDD link: per TTI over a frame: {host_ms:.2f} ms host (two frames), {kernels:.0f} kernels, {dev_ms:.3f} ms "
+          f"of device time (busy {dev_ms / host_ms:.1%}), host syncs {syncs}; IP payload DL "
+          f"{times['dl_mbps_air']:.2f} Mbps / UL {times['ul_mbps_air']:.2f} Mbps of air time")
     return launches, times, +shapes
 
 
@@ -3909,6 +4039,249 @@ def phase_udp_apps(dev) -> tuple[tuple[int, int], dict]:
     return tuple(r["map_launches"]), r
 
 
+# phase 37: the example scripts at 100 PRB (`pdsch_enodeb` → cf32 file →
+# `cell_search`, `pdsch_ue`, `synch_file`; `bler_sweep` at three SNRs;
+# `dynamic_grants`; `windowed_link`), the Wiener estimators on a batch of
+# subframes, the resamplers on one 30.72 Msps frame
+EXAMPLES = dict(prb=100, mcs=20, frames=4, cell_id=301, bler_mcs=26, bler_snr="12:14:1", bler_batch=128)
+# the estimators: a batch of CRS-only subframes through EPA (TS 36.101 B.2,
+# one block-fading draw a subframe) and through tests/test_chest.py's
+# dispersive channel (taps at 0, 25 and 60 samples of 15.36 Msps), AWGN of
+# amplitude 0.05 a component (the test's SNR, 23 dB); the adaptive
+# estimator learns over `warm` batches first
+CHEST = dict(batch=64, warm=8, amp=0.05, max_mse=0.01, max_mse_adaptive=0.03,
+             epa=((0.0, 30e-9, 70e-9, 90e-9, 110e-9, 190e-9, 410e-9),
+                  (0.0, -1.0, -2.0, -3.0, -8.0, -17.2, -20.8)),
+             dispersive=((0.0, 25 / 15.36e6, 60 / 15.36e6), (1.0, 0.6 * np.exp(1j), 0.4 * np.exp(-2j))))
+RESAMPLE_ATOL = 1e-4  # the card against the CPU, on unit-amplitude samples
+SF_ATOL = 1e-4  # the estimators' ce, the card against the CPU
+
+
+def run_main(main, argv) -> tuple[int, str, float]:
+    """An example's `main(argv)` in this process: (exit code, its standard
+    output, host seconds)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    return rc, out.getvalue(), time.perf_counter() - t0
+
+
+def examples_run(device, workdir: Path, prb: int = EXAMPLES["prb"], mcs: int = EXAMPLES["mcs"],
+                 frames: int = EXAMPLES["frames"], bler_batch: int = EXAMPLES["bler_batch"],
+                 bler_snr: str = EXAMPLES["bler_snr"]) -> dict:
+    """Phase 37's scripts on `device` (on the card without `--device`, as a
+    user runs them): `pdsch_enodeb` and `pdsch_ue` as `python -m` children,
+    then `cell_search`, `pdsch_ue`, `synch_file`, `bler_sweep`,
+    `dynamic_grants` and `windowed_link` through `main(argv)` in this
+    process.  Gates: the cell and its MIB found, every TB of the file
+    decoded both ways, a PSS in every half frame, the sweep's BLER falling
+    with SNR to none lost at the top, every grant of `dynamic_grants` (but
+    one coded above rate 0.93) and of `windowed_link` decoded.  Returns each script's parsed result and
+    seconds."""
+    from srsran_tpu_torch.examples import (
+        bler_sweep, cell_search, dynamic_grants, pdsch_ue, synch_file, windowed_link)
+    from srsran_tpu_torch.phy.common import Cell
+    from srsran_tpu_torch.phy.phch.pdsch import MOD_QM, pdsch_nof_re
+    from srsran_tpu_torch.phy.phch.ra import dl_mcs_to_mod
+
+    E = EXAMPLES
+    dev_args = [] if torch.device(device).type == "cuda" else ["--device", str(device)]
+    path = str(workdir / "dl.cf32")
+    out = {}
+    for name, argv in (("pdsch_enodeb", ["-o", path, "-p", str(prb), "-m", str(mcs), "-n", str(frames),
+                                         "-c", str(E["cell_id"])]),
+                       ("pdsch_ue child", ["-i", path, "-p", str(prb)])):
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", f"srsran_tpu_torch.examples.{name.split()[0]}", *argv,
+                            *dev_args], cwd=ROOT, env=child_env(OMP_NUM_THREADS="1"), capture_output=True,
+                           text=True, timeout=300)
+        check(p.returncode == 0, f"{name}: exit {p.returncode}: {p.stderr[-2000:]}")
+        out[name] = dict(stdout=p.stdout, s=time.perf_counter() - t0)
+    sf_len = Cell(nof_prb=prb).sf_len
+    check(Path(path).stat().st_size == 8 * 10 * frames * sf_len, "pdsch_enodeb: file size")
+    runs = (("cell_search", cell_search.main, ["-i", path, "-p", str(prb)]),
+            ("pdsch_ue", pdsch_ue.main, ["-i", path, "-p", str(prb)]),
+            ("synch_file", synch_file.main, ["-i", path, "-l", str(5 * sf_len), "-n", str(2 * frames)]),
+            ("bler_sweep", bler_sweep.main, ["--prb", str(prb), "--mcs", str(E["bler_mcs"]), "--snr",
+                                             bler_snr, "--batch", str(bler_batch)]),
+            ("dynamic_grants", dynamic_grants.main, ["--prb", str(prb)]),
+            ("windowed_link", windowed_link.main, ["--prb", str(prb)]))
+    for name, main, argv in runs:
+        rc, text, secs = run_main(main, argv + dev_args)
+        check(rc == 0, f"{name}: exit {rc}: {text[-2000:]}")
+        out[name] = dict(stdout=text, s=secs)
+    txt = {k: v["stdout"] for k, v in out.items()}
+    check(f"PCI={E['cell_id']}" in txt["cell_search"] and f"MIB: nof_prb={prb}" in txt["cell_search"],
+          f"cell_search: {txt['cell_search']}")
+    for name in ("pdsch_ue child", "pdsch_ue"):
+        m = re.search(r"total: (\d+)/(\d+) transport blocks", txt[name])
+        check(m is not None and m[1] == m[2] == "20", f"{name}: {txt[name][-300:]}")
+        out[name]["tbs"] = int(m[1])
+    check(f"{2 * frames}/{2 * frames} frames above threshold" in txt["synch_file"], txt["synch_file"][-300:])
+    rows = [line.split() for line in txt["bler_sweep"].splitlines() if not line.startswith("#")]
+    bler = [float(r[1]) for r in rows]
+    check(len(bler) == 3 and bler == sorted(bler, reverse=True) and bler[-1] == 0.0,
+          f"bler_sweep: {txt['bler_sweep']}")
+    out["bler_sweep"].update(rows=[dict(snr_db=float(r[0]), bler=float(r[1]), ok=r[2], mbps=float(r[3]),
+                                        ms=float(r[4])) for r in rows])
+    # a grant coded above rate 0.93 (a narrow allocation at the top MCS) has
+    # no decodable TB: only those may fail
+    cell = Cell(nof_prb=prb, nof_ports=1, id=17)
+    lost = [(int(sf), int(mcs), int(a), int(b), int(tbs)) for sf, mcs, a, b, tbs in re.findall(
+        r"sf (\d)  mcs +(\d+)  prb \[ *(\d+), *(\d+)\)  tbs +(\d+)  KO", txt["dynamic_grants"])]
+    for sf, mcs, a, b, tbs in lost:
+        rate = (tbs + 24) / (pdsch_nof_re(cell, sf, 1, tuple(range(a, b))) * MOD_QM[dl_mcs_to_mod(mcs)])
+        check(rate > 0.93, f"dynamic_grants lost a TB coded at rate {rate:.3f}: MCS {mcs}, PRB [{a}, {b})")
+    m = re.search(r"\n(\d+)/(\d+) grants decoded", txt["dynamic_grants"])
+    check(m is not None and int(m[2]) - int(m[1]) == len(lost), f"dynamic_grants: {txt['dynamic_grants'][-300:]}")
+    out["dynamic_grants"]["lost_above_rate"] = len(lost)
+    m = re.findall(r"(DL|UL): (\d+)/(\d+) TBs", txt["windowed_link"])
+    check(len(m) == 2 and all(a == b for _, a, b in m), f"windowed_link: {txt['windowed_link']}")
+    return out
+
+
+def chest_batch(cell, profile: str, rng, sf_idx: int):
+    """`CHEST['batch']` CRS-only received grids of `cell` under `profile`
+    ("epa": a block-fading draw a subframe; "dispersive": fixed taps, a
+    random common phase), AWGN of `CHEST['amp']`: (grids (B, nsymb, nre)
+    complex64 numpy, true channel (B, nre))."""
+    from srsran_tpu_torch.phy.chest.refsignal_dl import crs_positions, crs_sequence_port
+
+    b, nre = CHEST["batch"], cell.nof_re_per_symbol
+    delays, taps = (np.asarray(v) for v in CHEST[profile])
+    if profile == "epa":
+        taps = (rng.standard_normal((b, len(delays))) + 1j * rng.standard_normal((b, len(delays)))) \
+            * np.sqrt(10 ** (taps / 10) / 2)
+    else:
+        taps = np.exp(2j * np.pi * rng.random((b, 1))) * taps[None]
+    phase = np.exp(-2j * np.pi * np.outer((np.arange(nre) - nre // 2) * 15e3, delays))
+    h = (taps[:, None, :] * phase[None]).sum(-1)
+    h = (h / np.sqrt(np.mean(np.abs(h) ** 2, axis=1, keepdims=True))).astype(np.complex64)
+    syms, freqs = crs_positions(cell, 0)
+    seq = crs_sequence_port(cell, sf_idx, 0)
+    grid = np.zeros((b, cell.nsymb_per_sf, nre), np.complex64)
+    for s in range(len(syms)):
+        grid[:, syms[s], freqs[s]] = seq[s][None] * h[:, freqs[s]]
+    grid += (CHEST["amp"] * (rng.standard_normal(grid.shape) + 1j * rng.standard_normal(grid.shape))
+             ).astype(np.complex64)
+    return grid, h
+
+
+def estimators_run(device, nof_prb: int = 100) -> dict:
+    """Phase 37's estimators on `device`: per profile, the MSE of
+    `chest_dl` "interpolate" and "wiener" and of `chest_dl_adaptive` (after
+    `warm` batches) against the true channel, each estimate held to the same
+    call on the CPU, and ms per call (host clock after a synchronize).
+    Gates, tests/test_chest.py's on its channel: the Wiener estimators below
+    "interpolate", the fixed one below 0.01 and the adaptive one below 0.03;
+    on EPA both below 0.01."""
+    from srsran_tpu_torch.phy.chest.chest_dl import ChestDlConfig, chest_dl
+    from srsran_tpu_torch.phy.chest.wiener_dl import chest_dl_adaptive, wiener_init
+    from srsran_tpu_torch.phy.common import Cell
+
+    cell = Cell(nof_prb=nof_prb, nof_ports=1, id=301)
+    out = {}
+    for profile in ("epa", "dispersive"):
+        rng = np.random.default_rng(37)
+        # the adaptive state learnt on the card and the one learnt on the CPU
+        states = [wiener_init(), wiener_init()]
+        for sf in range(CHEST["warm"]):
+            grid, _ = chest_batch(cell, profile, rng, sf)
+            for i, d in enumerate((device, "cpu")):
+                _, states[i] = chest_dl_adaptive(torch.from_numpy(grid).to(d), cell, sf, states[i])
+        grid, h = chest_batch(cell, profile, rng, 9)
+        calls = {"interpolate": lambda x, _st: chest_dl(x, cell, 9, ChestDlConfig()),
+                 "wiener": lambda x, _st: chest_dl(x, cell, 9, ChestDlConfig(algorithm="wiener")),
+                 "adaptive": lambda x, st: chest_dl_adaptive(x, cell, 9, st)[0]}
+        g = torch.from_numpy(grid).to(device)
+        row = {}
+        for name, fn in calls.items():
+            ce = fn(g, states[0])["ce"][:, 0].cpu()
+            err = float((ce - fn(torch.from_numpy(grid), states[1])["ce"][:, 0]).abs().max())
+            check(bool(torch.isfinite(ce).all()) and err <= SF_ATOL, f"chest {name} {profile}: card vs CPU {err}")
+            row[name] = dict(mse=float(np.mean(np.abs(ce.numpy() - h[:, None, :]) ** 2)), card_vs_cpu=err,
+                             ms=wall_ms(lambda: fn(g, states[0]), 10) if g.is_cuda else None)
+        mse = {k: v["mse"] for k, v in row.items()}
+        if profile == "dispersive":
+            check(mse["wiener"] < mse["interpolate"] and mse["wiener"] < CHEST["max_mse"]
+                  and mse["adaptive"] < mse["interpolate"] and mse["adaptive"] < CHEST["max_mse_adaptive"],
+                  f"chest on the dispersive channel: {mse}")
+        else:
+            check(mse["wiener"] < CHEST["max_mse"] and mse["adaptive"] < CHEST["max_mse"],
+                  f"chest on EPA: {mse}")
+        out[profile] = row
+    return out
+
+
+def resampling_run(device) -> dict:
+    """Phase 37's resamplers on one 30.72 Msps frame (307200 samples, a
+    tone mix of unit amplitude) on `device`: `resample_fft` 3/4 (→ 23.04
+    Msps), `decimate` by 16 (→ 1.92 Msps) and `resample_arb` at 0.8; each
+    held to the same call on the CPU within RESAMPLE_ATOL, with ms per call
+    (CUDA events)."""
+    from srsran_tpu_torch.phy.resampling import decimate, resample_arb, resample_fft
+
+    n = 307200
+    t = np.arange(n) / 30.72e6
+    x = sum(a * np.exp(2j * np.pi * f * t) for f, a in ((1e5, 0.5), (-2.3e6, 0.3), (4.1e6, 0.2)))
+    x = x.astype(np.complex64)
+    xd = torch.from_numpy(x).to(device)
+    calls = {"resample_fft 3/4": lambda v: resample_fft(v, 3, 4),
+             "decimate 16": lambda v: decimate(v, 16),
+             "resample_arb 0.8": lambda v: resample_arb(v, 0.8)}
+    out = {}
+    for name, fn in calls.items():
+        got = fn(xd)
+        want = fn(torch.from_numpy(x))
+        err = float((got.cpu() - want).abs().max())
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()) and err <= RESAMPLE_ATOL,
+              f"{name}: card vs CPU {err}")
+        out[name] = dict(n_out=got.shape[-1], card_vs_cpu=err,
+                         ms=cuda_ms(lambda: fn(xd), 10) if torch.device(device).type == "cuda" else None)
+    return out
+
+
+def phase_examples(dev) -> tuple[tuple[int, int], dict, Counter]:
+    """Phase 37: `examples_run`, `estimators_run` and `resampling_run` at
+    full width on the card.  Returns ((static, dynamic-K) launches of the
+    in-process scripts, the times, their launches by kernel shape)."""
+    import tempfile
+
+    from srsran_tpu_torch.phy.fec import turbo_cuda
+
+    before = Counter(turbo_cuda.SHAPES)
+    reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        ex = examples_run(dev, Path(tmp))
+    launches = read_launches()
+    shapes = Counter(turbo_cuda.SHAPES)
+    shapes.subtract(before)
+    check(launches[0] > 0 and launches[1] > 0, f"examples: map launches {launches}")
+    est = estimators_run(dev)
+    res = resampling_run(dev)
+    E = EXAMPLES
+    for name, v in ex.items():
+        last = [line for line in v["stdout"].splitlines() if line.strip()][-1]
+        print(f"example {name} ({v['s']:.1f} s): {last}")
+    for r in ex["bler_sweep"]["rows"]:
+        print(f"example bler_sweep {E['prb']} PRB MCS {E['bler_mcs']} B={E['bler_batch']}: {r['snr_db']} dB "
+              f"BLER {r['bler']} ({r['ok']}), {r['mbps']} Mbps, {r['ms']} ms a batch")
+    for profile, row in est.items():
+        print(f"chest {profile} ({CHEST['batch']} subframes, 100 PRB, AWGN {CHEST['amp']}): "
+              + ", ".join(f"{k} MSE {v['mse']:.5f} ({v['ms']:.3f} ms a call, card vs CPU {v['card_vs_cpu']:.2g})"
+                          for k, v in row.items()))
+    print("resampling, one 30.72 Msps frame: " + ", ".join(
+        f"{k} -> {v['n_out']} samples {v['ms']:.3f} ms (card vs CPU {v['card_vs_cpu']:.2g})"
+        for k, v in res.items()))
+    times = dict(examples={k: {kk: vv for kk, vv in v.items() if kk != "stdout"} for k, v in ex.items()},
+                 chest=est, resampling=res, map_launches=list(launches))
+    return launches, times, +shapes
+
+
 def phase_static_shapes(dev, shapes) -> tuple[float, list]:
     """Phase 25: the static kernel against `map_pass_plain` at every (B, nw,
     lw, T) that phases 22-24 launched it at.  Returns (max_abs_err, [dict
@@ -4284,15 +4657,31 @@ def main() -> int:
     by_path["run_lte_demo"], windows["run_lte_demo"] = phase_run_lte_demo(dev)
     mark("phase 34: enb_app -> ue_app over UDP")
     by_path["enb_app->ue_app"], windows["enb_app->ue_app"] = phase_udp_apps(dev)
+    # phases 35-37: frame structure 2, the examples, the Wiener estimators
+    # and the resamplers
+    mark("phase 35: the stored TDD attach")
+    before = Counter(turbo_cuda.SHAPES)
+    by_path["stack stored TDD attach"] = phase_stored_stack(dev, FIXTURE_STACK_TDD, "stored TDD attach")
+    rx_shapes.update(+(Counter(turbo_cuda.SHAPES) - before))
+    torch.cuda.empty_cache()
+    mark("phase 36: the 20 MHz TDD attached link")
+    by_path["TDD link"], windows["TDD link"], tdd_shapes = phase_stack_link_tdd(dev)
+    rx_shapes.update(tdd_shapes)
+    torch.cuda.empty_cache()
+    mark("phase 37: the examples, the Wiener estimators and the resamplers")
+    by_path["examples"], windows["examples"], example_shapes = phase_examples(dev)
+    rx_shapes.update(example_shapes)
+    torch.cuda.empty_cache()
     mark("phase 25: the static kernel at the receive chains' and the stack's shapes")
     max_err_rx, rx_rows = phase_static_shapes(dev, {k: v for k, v in rx_shapes.items() if not k[4]})
     max_err = max(max_err, max_err_rx)
     torch.cuda.empty_cache()
     mark("phase 12: the dynamic-K kernel at the windows' shapes")
     max_err_win, win_shapes = phase_window_kernel(dev)
-    # and at the shapes the dynamic plane of phase 30 gave it
+    # and at the shapes the dynamic plane of phase 30 and the examples of
+    # phase 37 gave it
     max_err_stack, stack_dyn_rows = phase_dyn_shapes(
-        dev, {k: v for k, v in plane_shapes["dynamic"].items() if k[4]})
+        dev, {k: v for k, v in (plane_shapes["dynamic"] + example_shapes).items() if k[4]})
     max_err_dyn = max(max_err_dyn, max_err_win, max_err_stack)
     print(json.dumps({"windows": windows}))
 

@@ -17,8 +17,10 @@ only what a decision needs — a power gate as one `.item()`, decoded bits
 and PUCCH/PRACH/SRS metrics once per call.  The host stack under it
 (MAC, RLC, PDCP, RRC, NAS, the EPC) is the port's copy of the reference's.
 The kernel TUN boundary (`UeStack.attach_tun`) is the port's `io.tun`.  TDD
-(`tdd_cfg=`) raises NotImplementedError: it belongs to a later slice
-(ROADMAP).
+(`tdd_cfg=`, frame structure 2) runs through the same facades: PRACH on
+subframe 2, Table 8-2 grant timing, DL on D and DwPTS subframes, PUSCH on U
+subframes, multiplexed HARQ-ACKs with channel selection; the dynamic and
+windowed data planes stay FDD-only, as the reference's.
 """
 
 from __future__ import annotations
@@ -268,9 +270,6 @@ class EnbStack:
                  windowed_phy: bool = False, phy_window: int = 4,
                  phy_device=None, cfi_adapt: bool = False,
                  subband_cqi: bool = False, *, device=None):
-        if tdd_cfg is not None:
-            raise NotImplementedError("TDD is not ported yet (ROADMAP Slice 10: the port's "
-                                      "enb_dl_subframe(tdd=) raises)")
         # every PHY call runs on `device` (None: the card); phy_device is
         # the windowed plane's and defaults to it
         self.device = resolve(device)
@@ -1394,7 +1393,7 @@ class EnbStack:
                 from ..phy.phch.pdsch import pdsch_nof_re
 
                 n_re = pdsch_nof_re(self.cell, sf_idx, cfi,
-                                    tuple(range(self.cell.nof_prb)))
+                                    tuple(range(self.cell.nof_prb)), is_tdd)
                 grants = self.sched.get_dl_sched(tti, pdsch_nof_re=n_re)
                 for g in grants:
                     if g.pdu2 is not None and self.tm >= 3:
@@ -1627,9 +1626,6 @@ class UeStack:
                  windowed_phy: bool = False, phy_window: int = 4,
                  phy_device=None, expert=None,
                  subband_cqi: bool = False, *, device=None):
-        if tdd_cfg is not None:
-            raise NotImplementedError("TDD is not ported yet (ROADMAP Slice 10: the port's "
-                                      "ue_dl_decode_subframe(tdd=) raises)")
         # every PHY call runs on `device` (None: the card); phy_device is
         # the windowed plane's and defaults to it
         self.device = resolve(device)

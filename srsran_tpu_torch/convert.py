@@ -3,7 +3,8 @@
 `from_reference(obj)` reads the dataclass fields of a `srsran_tpu` `Cell`,
 `DlGrant`, `DlGrant2`, `UlGrant`, `ChestDlConfig`, `OfdmConfig`, `TbCoding`,
 `DlSched`, `Mib`, `PucchConfig`, `UciCfg`, `Agc`, `PrachConfig`, `FadingConfig`,
-`RlfConfig`, `DelayConfig`, `HstConfig`, `ChannelConfig`, the app configuration
+`RlfConfig`, `DelayConfig`, `HstConfig`, `ChannelConfig`, `TddConfig`, the app
+configuration
 `AppConfig` (with its `RfConfig`, `PhyConfig`, `ExpertPhyConfig`, `LogConfig`
 and `PcapConfig`) or the operator configuration `EnbConfig`, and builds the
 port's class of the same name (a nested configuration too; dicts and lists
@@ -14,8 +15,9 @@ It goes by the class name and the fields (duck typing), so this package
 needs no import of the reference (which would import jax).
 
 State that crosses between the packages is the HARQ softbuffer of the
-dynamic-grant and the windowed decodes: `softbuffer_from_reference` takes
-the reference's array (as numpy) onto a device of the port.
+dynamic-grant and the windowed decodes, and the adaptive Wiener estimator's
+state: `softbuffer_from_reference` and `wiener_state_from_reference` take
+the reference's arrays (as numpy) onto a device of the port.
 """
 
 from __future__ import annotations
@@ -41,13 +43,14 @@ from .phy.phch.prach import PrachConfig
 from .phy.phch.pucch import PucchConfig
 from .phy.phch.pusch import UciCfg, UlGrant
 from .phy.phch.sch import TbCoding
+from .phy.tdd import TddConfig
 from .runtime.config import AppConfig, ExpertPhyConfig, LogConfig, PcapConfig, PhyConfig, RfConfig
 from .runtime.enb_cfg import EnbConfig
 
 _CLASSES = {c.__name__: c for c in (
     Cell, DlGrant, DlGrant2, UlGrant, ChestDlConfig, OfdmConfig, TbCoding, Mib, PucchConfig,
     UciCfg, Agc, PrachConfig, FadingConfig, RlfConfig, DelayConfig, HstConfig, ChannelConfig,
-    AppConfig, RfConfig, PhyConfig, ExpertPhyConfig, LogConfig, PcapConfig, EnbConfig)}
+    AppConfig, RfConfig, PhyConfig, ExpertPhyConfig, LogConfig, PcapConfig, EnbConfig, TddConfig)}
 _ENUMS = {e.__name__: e for e in (CP, Mod)}
 
 
@@ -82,3 +85,11 @@ def softbuffer_from_reference(softbuffer, device) -> torch.Tensor:
     `extract_softbuffer` — as a float32 tensor on `device` that the port's
     counterpart takes."""
     return torch.from_numpy(np.array(softbuffer, dtype=np.float32)).to(device)
+
+
+def wiener_state_from_reference(state: dict, device) -> dict:
+    """The reference's adaptive Wiener state — `wiener_init`'s and
+    `chest_dl_adaptive`'s {"r3": (nlags,) complex64, "count": () float32}
+    pytree, its leaves as numpy — as the port's state of tensors on `device`."""
+    return {"r3": torch.from_numpy(np.array(state["r3"], dtype=np.complex64)).to(device),
+            "count": torch.from_numpy(np.array(state["count"], dtype=np.float32)).to(device)}

@@ -1,13 +1,14 @@
 """Downlink channel estimation from CRS.
 
-Counterpart of `srsran_tpu/phy/chest/chest_dl.py` ("interpolate" branch):
-per port, LS estimates at the pilots, then two small products
+Counterpart of `srsran_tpu/phy/chest/chest_dl.py`: per port, LS estimates
+at the pilots, then two small products
 
     ce(l, k) = sum_s Wt[l, s] * (Wf_s @ P_s)[k]
 
 with Wf_s the frequency interpolation (+ 3-tap smoothing) matrix of CRS
-symbol s and Wt the time interpolation matrix, plus the noise, RSRP and
-SNR estimates.  The matrices are host-built and cast to complex64 once per
+symbol s — or, with ``algorithm="wiener"``, its fixed MMSE matrix — and Wt
+the time interpolation matrix, plus the noise, RSRP and SNR estimates.
+``last_symbol`` keeps only the CRS symbols before it (a TDD DwPTS).  The matrices are host-built and cast to complex64 once per
 (cell, subframe, config, port, device): `torch.einsum` needs matching
 dtypes, and the products must stay in full fp32 (TF32 off on the card).
 """
@@ -29,7 +30,8 @@ from .refsignal_dl import crs_positions, crs_sequence_port
 class ChestDlConfig:
     smooth_len: int = 3  # freq smoothing kernel length (0 = off)
     time_interp: bool = True  # False = average over CRS symbols
-    algorithm: str = "interpolate"  # interpolate | wiener ("wiener" not ported yet)
+    algorithm: str = "interpolate"  # interpolate | wiener (ref chest_dl.h:78-82)
+    wiener_delay_spread: float = 0.07  # assumed max delay, fraction of symbol
 
 
 def _freq_interp_matrix(pilot_pos: np.ndarray, nre: int) -> np.ndarray:
@@ -94,11 +96,46 @@ def _time_interp_matrix(ref_syms: np.ndarray, nsymb: int, interp: bool) -> np.nd
     return w
 
 
+@lru_cache(maxsize=128)
+def _wiener_matrices(cell: Cell, cfg: ChestDlConfig, port: int, sf_idx: int):
+    """Frequency-domain Wiener interpolation matrices per CRS symbol.
+
+    MMSE estimator W = R_dp (R_pp + s2 I)^-1 under a uniform power-delay
+    profile over [0, tau_max] (wiener_dl.c's runtime-correlation Wiener in
+    a fixed form): correlation between subcarriers df apart is
+    sinc(df*tau) * exp(-j*pi*df*tau).  The noise-dependent inverse is
+    folded in for a fixed design SNR of 20 dB.
+    """
+    _, freqs = crs_positions(cell, port)
+    nre = cell.nof_re_per_symbol
+    tau = cfg.wiener_delay_spread
+    s2 = 10 ** (-20 / 10)  # design SNR 20 dB
+
+    def corr(dk):
+        return np.sinc(dk * tau) * np.exp(-1j * np.pi * dk * tau)
+
+    ws = []
+    for s in range(len(freqs)):
+        p = freqs[s].astype(np.float64)
+        k = np.arange(nre, dtype=np.float64)
+        r_pp = corr(p[:, None] - p[None, :]) + s2 * np.eye(len(p))
+        r_dp = corr(k[:, None] - p[None, :])
+        ws.append((r_dp @ np.linalg.inv(r_pp)).astype(np.complex64))
+    return np.stack(ws)
+
+
 @lru_cache(maxsize=256)
-def _chest_tables(cell: Cell, sf_idx: int, cfg: ChestDlConfig, port: int):
-    """Precompute (syms, freqs, ref_conj, Wf (4, nre, npil), Wt (nsymb, 4))."""
+def _chest_tables(cell: Cell, sf_idx: int, cfg: ChestDlConfig, port: int,
+                  last_symbol: int | None = None):
+    """Precompute (syms, freqs, ref_conj, Wf (4, nre, npil), Wt (nsymb, 4)).
+
+    ``last_symbol`` drops CRS symbols at/after it (TDD special subframes,
+    where only the DwPTS carries reference signals)."""
     syms, freqs = crs_positions(cell, port)
     seq = crs_sequence_port(cell, sf_idx, port)  # (nref, 2*nprb)
+    if last_symbol is not None:
+        keep = syms < last_symbol
+        syms, freqs, seq = syms[keep], freqs[keep], seq[keep]
     nre = cell.nof_re_per_symbol
     wf = []
     for s in range(len(syms)):
@@ -111,15 +148,22 @@ def _chest_tables(cell: Cell, sf_idx: int, cfg: ChestDlConfig, port: int):
     return syms, freqs, np.conj(seq), wf, wt
 
 
-def _device_tables(cell: Cell, sf_idx: int, cfg: ChestDlConfig, port: int):
-    """`_chest_tables` with int64 indices and complex64 matrices."""
-    syms, freqs, ref_conj, wf, wt = _chest_tables(cell, sf_idx, cfg, port)
+def _device_tables(cell: Cell, sf_idx: int, cfg: ChestDlConfig, port: int,
+                   last_symbol: int | None = None):
+    """`_chest_tables` with int64 indices and complex64 matrices; Wf is the
+    Wiener matrices' prefix of the kept CRS symbols under
+    ``algorithm="wiener"`` (symbol indices ascend, so a last_symbol cut
+    keeps a prefix)."""
+    syms, freqs, ref_conj, wf, wt = _chest_tables(cell, sf_idx, cfg, port, last_symbol)
+    if cfg.algorithm == "wiener":
+        wf = _wiener_matrices(cell, cfg, port, sf_idx)[: len(syms)]
     return (syms.astype(np.int64)[:, None], freqs.astype(np.int64), ref_conj,
             wf.astype(np.complex64), wt.astype(np.complex64))
 
 
 def chest_dl(grid: torch.Tensor, cell: Cell, sf_idx: int,
-             cfg: ChestDlConfig = ChestDlConfig(), nof_ports: int | None = None):
+             cfg: ChestDlConfig = ChestDlConfig(), nof_ports: int | None = None,
+             last_symbol: int | None = None):
     """Estimate the DL channel from CRS.
 
     grid: (..., nsymb_sf, nre) complex64 received resource grid.
@@ -129,16 +173,15 @@ def chest_dl(grid: torch.Tensor, cell: Cell, sf_idx: int,
       rsrp   (..., nof_ports) float32
       snr    (..., nof_ports) float32
     """
-    if cfg.algorithm != "interpolate":
-        raise NotImplementedError(f"chest algorithm {cfg.algorithm!r} is not ported")
     nof_ports = nof_ports or min(cell.nof_ports, 2)
     ces, noises, rsrps = [], [], []
     for p in range(nof_ports):
         syms, freqs, ref_conj, wf, wt = table(
-            _device_tables, cell, sf_idx, cfg, p, device=grid.device)
+            _device_tables, cell, sf_idx, cfg, p, last_symbol, device=grid.device)
         # LS estimates at pilots: (..., 4, npil)
         ls = grid[..., syms, freqs] * ref_conj
-        # freq interp+smooth: (..., 4, nre); time interp: (..., nsymb, nre)
+        # freq interp+smooth or Wiener MMSE: (..., 4, nre); time interp:
+        # (..., nsymb, nre)
         per_sym = torch.einsum("snp,...sp->...sn", wf, ls)
         ces.append(torch.einsum("ls,...sn->...ln", wt, per_sym))
         # noise: high-pass residual of raw LS pilots, var/1.5 per

@@ -3,7 +3,10 @@
 Counterpart of `srsran_tpu/phy/enb/enb_dl.py` (`lib/src/phy/enb/enb_dl.c`,
 API enb_dl.h:99-122).  `enb_dl_subframe` renders PSS/SSS, PBCH, PCFICH,
 PHICH, PDCCH, PDSCH and CRS into a resource grid on the host with the
-port's writers, then OFDM-modulates it on the device.  `DlSched` is also
+port's writers, then OFDM-modulates it on the device.  With a `TddConfig`
+it renders frame structure 2, which the upstream eNB does not
+(enb_dl.c:658): UL subframes empty, the sync signals at their TDD
+symbols, special subframes only up to the end of the DwPTS.  `DlSched` is also
 what `pipeline_ctrl.enb_ctrl_overlay` renders.
 """
 
@@ -26,6 +29,7 @@ from ..phch.pdsch import DlGrant2, pdsch_encode2_np, pdsch_encode_np
 from ..phch.phich import phich_put_np
 from ..sync.pss import put_pss_grid
 from ..sync.sss import put_sss_grid
+from .. import tdd as tdd_mod
 
 
 @dataclasses.dataclass
@@ -43,20 +47,33 @@ class DlSched:
 
 def enb_dl_subframe(cell: Cell, sf_idx: int, sched: DlSched, mib: Mib | None = None,
                     sfn: int = 0, tdd=None, *, device=None) -> tuple[np.ndarray, torch.Tensor]:
-    """Render one FDD DL subframe.  Returns (grid (nports, nsymb, nre)
+    """Render one DL subframe.  Returns (grid (nports, nsymb, nre)
     complex64 numpy, samples (nports, sf_len) complex64 on `device`, None
-    being the card)."""
-    if tdd is not None:
-        raise NotImplementedError("TDD subframes are not ported yet (ROADMAP Slice 10: "
-                                  "pdsch_re_indices has no TDD arguments)")
+    being the card).
+
+    ``tdd`` (a `TddConfig`): a UL subframe comes out empty, PSS moves to
+    symbol 2 of sf 1/6 and SSS to the last symbol of sf 0/5 (TS 36.211
+    §6.11), and a special subframe carries only its DwPTS symbols."""
     dev = resolve(device)
     nof_ports = max(cell.nof_ports, 1)
     grid = np.zeros((nof_ports, cell.nsymb_per_sf, cell.nof_re_per_symbol), np.complex64)
-    if sf_idx in (0, 5):
-        for p in range(nof_ports):
-            put_pss_grid(grid[p], cell.n_id_2, cell.nof_prb, cell.nsymb_per_slot - 1)
-            put_sss_grid(grid[p], cell.n_id_1, cell.n_id_2, sf_idx, cell.nof_prb,
-                         cell.nsymb_per_slot - 2)
+    ofdm = OfdmConfig.from_cell(cell, normalize=True)
+    sftype = tdd_mod.sf_type(tdd, sf_idx)
+    if sftype == tdd_mod.SfType.U:
+        return grid, ofdm_tx_sf(ofdm, torch.from_numpy(grid).to(dev))
+    last_symbol = tdd_mod.nof_dw(tdd) if sftype == tdd_mod.SfType.S else None
+    for p in range(nof_ports):
+        if tdd is None:
+            if sf_idx in (0, 5):
+                put_pss_grid(grid[p], cell.n_id_2, cell.nof_prb, cell.nsymb_per_slot - 1)
+                put_sss_grid(grid[p], cell.n_id_1, cell.n_id_2, sf_idx, cell.nof_prb,
+                             cell.nsymb_per_slot - 2)
+        else:
+            if sf_idx in (1, 6):
+                put_pss_grid(grid[p], cell.n_id_2, cell.nof_prb, 2)
+            if sf_idx in (0, 5):
+                put_sss_grid(grid[p], cell.n_id_1, cell.n_id_2, sf_idx, cell.nof_prb,
+                             cell.nsymb_per_sf - 1)
     if sf_idx == 0 and mib is not None:
         syms = pbch_encode_np(dataclasses.replace(mib, sfn=sfn), cell, nof_ports)[sfn % 4]
         idx = pbch_re_indices(cell)
@@ -79,8 +96,11 @@ def enb_dl_subframe(cell: Cell, sf_idx: int, sched: DlSched, mib: Mib | None = N
             # two codewords (TM3/TM4); tb = (tb1, tb2)
             pg = pdsch_encode2_np(cell, sf_idx, sched.cfi, grant, tb[0], tb[1])
         else:
-            pg = pdsch_encode_np(cell, sf_idx, sched.cfi, grant, tb)
+            pg = pdsch_encode_np(cell, sf_idx, sched.cfi, grant, tb, tdd=tdd is not None,
+                                 last_symbol=last_symbol)
         grid[: pg.shape[0]] += pg
     put_crs_np(grid, cell, sf_idx)
-    samples = ofdm_tx_sf(OfdmConfig.from_cell(cell, normalize=True), torch.from_numpy(grid).to(dev))
+    if last_symbol is not None:
+        grid[:, last_symbol:, :] = 0  # GP + UpPTS: the eNB is silent past the DwPTS
+    samples = ofdm_tx_sf(ofdm, torch.from_numpy(grid).to(dev))
     return grid, samples

@@ -1,7 +1,8 @@
 """PDSCH: grants, RE mapping, scrambling, host encode and the decode of
 the UE facade.
 
-Counterpart of `srsran_tpu/phy/phch/pdsch.py` (FDD, full subframe).  Host
+Counterpart of `srsran_tpu/phy/phch/pdsch.py` (FDD and TDD: frame
+structure 2's sync positions and the DwPTS data region).  Host
 copies: `DlGrant`, `DlGrant2`, `pdsch_re_indices`, `pdsch_nof_re`,
 `pdsch_cinit`, `pdsch_encode_np` and `pdsch_encode2_np` (every transmit
 scheme).  RE mapping is a host-built flat index table per (cell, sf, cfi,
@@ -63,19 +64,25 @@ class DlGrant:
 
 
 @lru_cache(maxsize=512)
-def pdsch_re_indices(cell: Cell, sf_idx: int, cfi: int, prb: tuple[int, ...]) -> np.ndarray:
+def pdsch_re_indices(cell: Cell, sf_idx: int, cfi: int, prb: tuple[int, ...],
+                     tdd: bool = False, last_symbol: int | None = None) -> np.ndarray:
     """Flat indices (symbol*nre + k) of PDSCH REs, in LTE mapping order
     (frequency-first within each symbol, symbols ascending).
 
     Skips the control region (cfi symbols), CRS of all cell ports, and
-    PSS/SSS and PBCH in the central 6 PRB (FDD positions).
+    PSS/SSS and PBCH in the central 6 PRB.  ``tdd`` moves the sync signals
+    to their frame-structure-2 positions (PSS: symbol 2 of sf 1/6; SSS:
+    last symbol of sf 0/5 — TS 36.211 §6.11).  ``last_symbol`` truncates
+    the data region for TDD special subframes (DwPTS, ra_dl.c:61-62).
     """
     nre = cell.nof_re_per_symbol
     nsymb = cell.nsymb_per_sf
+    if last_symbol is not None:
+        nsymb = min(nsymb, last_symbol)
     nctrl = cfi + (1 if cell.nof_prb < 10 else 0)
     vshift = cell.id % 6
 
-    reserved = np.zeros((nsymb, nre), bool)
+    reserved = np.zeros((cell.nsymb_per_sf, nre), bool)
     # CRS: ports 0/1 on symbols 0 and nsymb_slot-3 of each slot; 4 ports add symbol 1
     nports = max(cell.nof_ports, 1)
     for slot in range(2):
@@ -89,13 +96,21 @@ def pdsch_re_indices(cell: Cell, sf_idx: int, cfi: int, prb: tuple[int, ...]) ->
             for v in (0, 3):
                 reserved[base + 1, (v + vshift) % 6 + 6 * np.arange(2 * cell.nof_prb)] = True
 
-    # PSS/SSS at the end of slot 0 of sf 0/5; PBCH in sf 0, slot 1 symbols
-    # 0..3 — all on the central 72 REs
+    # PSS/SSS: FDD at the end of slot 0 of sf 0/5; TDD PSS on symbol 2 of
+    # sf 1/6, SSS on the last symbol of sf 0/5 (TS 36.211 §6.11.1.2,
+    # §6.11.2.2).  PBCH in sf 0, slot 1 symbols 0..3.  All on the central
+    # 72 REs
     c0 = (cell.nof_prb // 2) * 12 - 36 + (6 * (cell.nof_prb % 2))
     central = np.arange(c0, c0 + 72)
-    if sf_idx in (0, 5):
-        reserved[cell.nsymb_per_slot - 1, central] = True  # PSS
-        reserved[cell.nsymb_per_slot - 2, central] = True  # SSS
+    if not tdd:
+        if sf_idx in (0, 5):
+            reserved[cell.nsymb_per_slot - 1, central] = True  # PSS
+            reserved[cell.nsymb_per_slot - 2, central] = True  # SSS
+    else:
+        if sf_idx in (1, 6):
+            reserved[2, central] = True  # PSS (DwPTS)
+        if sf_idx in (0, 5):
+            reserved[cell.nsymb_per_sf - 1, central] = True  # SSS
     if sf_idx == 0:
         for l in range(4):
             reserved[cell.nsymb_per_slot + l, central] = True
@@ -111,8 +126,9 @@ def pdsch_cinit(rnti: int, sf_idx: int, cell_id: int, q: int = 0) -> int:
     return (rnti << 14) + (q << 13) + (sf_idx << 9) + cell_id
 
 
-def pdsch_nof_re(cell: Cell, sf_idx: int, cfi: int, prb: tuple[int, ...]) -> int:
-    return len(pdsch_re_indices(cell, sf_idx, cfi, prb))
+def pdsch_nof_re(cell: Cell, sf_idx: int, cfi: int, prb: tuple[int, ...],
+                 tdd: bool = False, last_symbol: int | None = None) -> int:
+    return len(pdsch_re_indices(cell, sf_idx, cfi, prb, tdd, last_symbol))
 
 
 # descrambling signs per (c_init, length): one entry per RNTI, subframe and
@@ -126,10 +142,11 @@ def _descramble(llr: torch.Tensor, rnti: int, sf_idx: int, cell_id: int, q: int 
     return scramble_soft(llr, signs)
 
 
-def _extract(rx_grid: torch.Tensor, ce: torch.Tensor, cell: Cell, sf_idx: int, cfi: int, prb):
+def _extract(rx_grid: torch.Tensor, ce: torch.Tensor, cell: Cell, sf_idx: int, cfi: int, prb,
+             tdd: bool = False, last_symbol: int | None = None):
     """(y (nrx, M), h (nrx, nports, M)) at the grant's PDSCH REs."""
-    idx = table(pdsch_re_indices, cell, sf_idx, cfi, tuple(prb), device=rx_grid.device,
-                dtype=torch.int64)
+    idx = table(pdsch_re_indices, cell, sf_idx, cfi, tuple(prb), tdd, last_symbol,
+                device=rx_grid.device, dtype=torch.int64)
     y = rx_grid.reshape(rx_grid.shape[0], -1)[:, idx]
     h = ce.reshape(ce.shape[0], ce.shape[1], -1)[:, :, idx]
     return y, h, idx.numel()
@@ -146,10 +163,10 @@ def pdsch_decode(rx_grid: torch.Tensor, ce: torch.Tensor, noise_est, cell: Cell,
     """Decode one TB on the device of `rx_grid`.
 
     rx_grid: (nrx, nsymb, nre) complex64; ce: (nrx, nports, nsymb, nre).
-    Returns (tb_bits (tbs,) uint8 numpy, crc_ok bool, softbuffers)."""
-    if tdd or last_symbol is not None:
-        raise NotImplementedError("TDD PDSCH is not ported yet (ROADMAP Slice 10)")
-    y, h, n_re = _extract(rx_grid, ce, cell, sf_idx, cfi, grant.prb)
+    ``tdd``/``last_symbol`` select frame structure 2's RE map (see
+    `pdsch_re_indices`).  Returns (tb_bits (tbs,) uint8 numpy, crc_ok bool,
+    softbuffers)."""
+    y, h, n_re = _extract(rx_grid, ce, cell, sf_idx, cfi, grant.prb, tdd, last_symbol)
     nof_layers = 1
     if grant.tx_scheme == "port0":
         sym, csi = predecode_single_mrc(y, h[:, 0], noise_est)
@@ -173,11 +190,12 @@ def pdsch_decode(rx_grid: torch.Tensor, ce: torch.Tensor, noise_est, cell: Cell,
     return dlsch_decode(llr, coding, max_iterations, softbuffers)
 
 
-def pdsch_encode_np(cell: Cell, sf_idx: int, cfi: int, grant: DlGrant,
-                    tb_bits: np.ndarray) -> np.ndarray:
+def pdsch_encode_np(cell: Cell, sf_idx: int, cfi: int, grant: DlGrant, tb_bits: np.ndarray,
+                    tdd: bool = False, last_symbol: int | None = None) -> np.ndarray:
     """Host TX: encode one TB into a (nof_ports, nsymb, nre) complex64 grid
-    (no CRS)."""
-    idx = pdsch_re_indices(cell, sf_idx, cfi, grant.prb)
+    (no CRS).  ``tdd``/``last_symbol`` select frame structure 2's sync
+    positions and the DwPTS data region."""
+    idx = pdsch_re_indices(cell, sf_idx, cfi, grant.prb, tdd, last_symbol)
     nof_layers = 1 if grant.tx_scheme in ("diversity", "diversity4") else grant.nof_layers
     coding = TbCoding(tbs=grant.tbs, g=len(idx) * grant.qm * nof_layers, qm=grant.qm,
                       rv=grant.rv, nof_layers=grant.nof_layers)

@@ -5,7 +5,9 @@ srslte_ue_dl_decode_fft_estimate :383, the blind DCI search :450-694, the
 PDSCH decode :741): OFDM and channel estimation once per subframe, then
 PCFICH → PHICH → PDCCH blind search → grant → PDSCH decode.  Signal work
 runs on the device of the call; the host reads back the CFI, the blind
-search's hypotheses and bits, and the per-subframe measurements.
+search's hypotheses and bits, and the per-subframe measurements.  With a
+`TddConfig` (frame structure 2) UL subframes are skipped, a special
+subframe decodes only its DwPTS, and the DCIs have their TDD sizes.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from ..phch.pdsch import DlGrant, DlGrant2, pdsch_decode, pdsch_decode2, pdsch_r
 from ..phch.phich import phich_decode, phich_re_indices
 from ..phch.ra import dl_mcs_to_mod, dl_tbs, riv_decode, tbs_lookup
 from ..phch.uci import cqi_hl_subband_size
+from .. import tdd as tdd_mod
 from .ue_sync import as_samples
 
 
@@ -64,7 +67,7 @@ def ue_dl_decode_subframe(cell: Cell, samples, sf_idx: int, rnti: int, nrx: int 
                           harq_softbuffers: dict | None = None,
                           phich: tuple[int, int] | None = None, tm: int = 2, dynamic=None,
                           deferred=None, *, device=None) -> UeDlResult:
-    """Process one FDD subframe: samples (nrx, sf_len) complex64 (numpy or a
+    """Process one subframe: samples (nrx, sf_len) complex64 (numpy or a
     tensor) → decoded TBs, on `device` (None: the card).
 
     Mirrors the cc_worker DL pipeline (srsue/src/phy/cc_worker.cc:214-307).
@@ -76,14 +79,24 @@ def ue_dl_decode_subframe(cell: Cell, samples, sf_idx: int, rnti: int, nrx: int 
     ``deferred``: an `apps.windowed_plane.WindowedUeDlPlane` — the grant's
     PDSCH (port-0/diversity, or two codewords on a MIMO plane) is queued
     there instead of decoded, and the result carries ``deferred=True``
-    with no tbs.  ``tdd`` (ROADMAP Slice 10) raises NotImplementedError."""
-    if tdd is not None:
-        raise NotImplementedError("TDD subframes are not ported yet (ROADMAP Slice 10)")
+    with no tbs.  ``tdd`` (a `TddConfig`): UL subframes are skipped, a
+    special subframe decodes only its DwPTS with the 0.75-PRB TBS rule
+    (ra_dl.c:399,430-432), the DCIs are parsed at their TDD sizes, and the
+    PDSCH is decoded here (``dynamic``/``deferred`` stay FDD-only, as the
+    reference's)."""
     dev = resolve(device)
-    x = as_samples(samples, dev)
     res = UeDlResult()
+    last_symbol = None
+    if tdd is not None:
+        sftype = tdd_mod.sf_type(tdd, sf_idx)
+        if sftype == tdd_mod.SfType.U:
+            return res
+        if sftype == tdd_mod.SfType.S:
+            last_symbol = tdd_mod.nof_dw(tdd)
+        dynamic = deferred = None
+    x = as_samples(samples, dev)
     nports_cell = min(max(cell.nof_ports, 1), 2)
-    grid, ce, noise = front_end(cell, x, sf_idx, res)
+    grid, ce, noise = front_end(cell, x, sf_idx, res, last_symbol)
     equalize = equalizer(grid, ce, noise, nports_cell)
     res.cfi = cfi = known_cfi if known_cfi is not None else decode_cfi(cell, sf_idx, equalize, dev)
     if phich is not None:
@@ -96,26 +109,28 @@ def ue_dl_decode_subframe(cell: Cell, samples, sf_idx: int, rnti: int, nrx: int 
     # of one payload length goes through one Viterbi call
     sym_eq = pdcch_symbols(cell, sf_idx, cfi, equalize, dev)
     found = sort_found([(fmt, bits, agg, cce)
-                        for fmt, dci_len in dci_searches(cell, rnti, tm)
+                        for fmt, dci_len in dci_searches(cell, rnti, tm, tdd is not None)
                         for bits, agg, cce in pdcch_blind_search(sym_eq, cell, sf_idx, cfi, rnti,
                                                                  dci_len)])
     res.dcis = [(bits, agg, cce) for _, bits, agg, cce in found]
     for fmt, bits, _agg, cce in found:
         if _decode_grant(res, fmt, bits, cce, grid, ce, noise, cell, sf_idx, cfi, rnti,
                          nports_cell, max_iterations, harq_softbuffers, equalize, dynamic, x,
-                         deferred):
+                         deferred, tdd is not None, last_symbol):
             break  # one DL grant per subframe (dedup across aggregation levels)
     return res
 
 
-def front_end(cell: Cell, x: torch.Tensor, sf_idx: int, res: UeDlResult):
+def front_end(cell: Cell, x: torch.Tensor, sf_idx: int, res: UeDlResult,
+              last_symbol: int | None = None):
     """OFDM and channel estimation of one subframe (nrx, sf_len) on its
-    device, and the measurements into `res` in one read: noise, RSRP, SNR,
-    the per-subband SNR (the frequency-selective CQI input) and, at 2 ports
-    and 2 rx, RI/PMI.  Returns (grid, ce, noise as a float)."""
+    device (the CRS before `last_symbol` only, in a DwPTS), and the
+    measurements into `res` in one read: noise, RSRP, SNR, the per-subband
+    SNR (the frequency-selective CQI input) and, at 2 ports and 2 rx,
+    RI/PMI.  Returns (grid, ce, noise as a float)."""
     dev = x.device
     grid = ofdm_rx_sf(OfdmConfig.from_cell(cell, normalize=True), x)  # (nrx, nsymb, nre)
-    ch = chest_dl(grid, cell, sf_idx, nof_ports=min(cell.nof_ports, 2))
+    ch = chest_dl(grid, cell, sf_idx, nof_ports=min(cell.nof_ports, 2), last_symbol=last_symbol)
     ce = ch["ce"]  # (nrx, nports, nsymb, nre)
     k_sb = cqi_hl_subband_size(cell.nof_prb)
     meas = [ch["noise"].mean(), ch["rsrp"].mean(), ch["snr"].mean()]
@@ -174,17 +189,19 @@ def pdcch_symbols(cell: Cell, sf_idx: int, cfi: int, equalize, device) -> torch.
     return equalize(_idx(pdcch_re_indices, cell, sf_idx, cfi, device=device)[: n * 36])
 
 
-def dci_searches(cell: Cell, rnti: int, tm: int) -> list[tuple[str, int]]:
+def dci_searches(cell: Cell, rnti: int, tm: int, tdd: bool = False) -> list[tuple[str, int]]:
     """(format, payload length) to blind-search: 1A always; for a C-RNTI 1
-    in TM1/2 (when its length differs), 2A in TM3, 2 in TM4 (ue_dl.c:56-87)."""
-    searches = [("1A", Dci1A.nof_bits(cell.nof_prb))]
+    in TM1/2 (when its length differs), 2A in TM3, 2 in TM4 (ue_dl.c:56-87);
+    ``tdd``: the TDD sizes (HARQ and DAI fields, dci.c:142-143)."""
+    searches = [("1A", Dci1A.nof_bits(cell.nof_prb, tdd=tdd))]
     if _is_crnti(rnti) and tm in (1, 2):
-        l1 = Dci1.nof_bits(cell.nof_prb)
+        l1 = Dci1.nof_bits(cell.nof_prb, tdd=tdd)
         if l1 != searches[0][1]:
             searches.append(("1", l1))
     elif _is_crnti(rnti) and tm in (3, 4):
         fmt = "2a" if tm == 3 else "2"
-        searches.append((fmt, Dci2.nof_bits(cell.nof_prb, fmt, min(max(cell.nof_ports, 1), 2))))
+        searches.append((fmt, Dci2.nof_bits(cell.nof_prb, fmt, min(max(cell.nof_ports, 1), 2),
+                                            tdd=tdd)))
     return searches
 
 
@@ -202,14 +219,17 @@ def _mark_used(res: UeDlResult, dci, fmt: str, cce: int):
 
 def _decode_grant(res, fmt, bits, cce, grid, ce, noise, cell, sf_idx, cfi, rnti, nports_cell,
                   max_iterations, harq_softbuffers, equalize, dynamic, samples,
-                  deferred=None) -> bool:
+                  deferred=None, is_tdd: bool = False, last_symbol: int | None = None) -> bool:
     """Parse one found DCI and decode its PDSCH (or queue it on the
     `deferred` plane); True once a decode was attempted (the caller stops
     there).  A DCI whose fields are reserved (a CRC-RNTI false positive)
-    is passed over."""
+    is passed over.  ``is_tdd``/``last_symbol``: the DCI's TDD size, the
+    DwPTS TBS rule and RE map (the two-codeword decode keeps the FDD map,
+    as the reference's does)."""
+    dwpts = last_symbol is not None
     if fmt in ("2", "2a"):
         try:
-            dci = Dci2.unpack(bits, cell.nof_prb, fmt=fmt, nof_ports=nports_cell)
+            dci = Dci2.unpack(bits, cell.nof_prb, fmt=fmt, nof_ports=nports_cell, tdd=is_tdd)
         except ValueError:
             return False
         prb = Dci1(rbg_bitmap=dci.rbg_bitmap).prb_list(cell.nof_prb)
@@ -250,20 +270,21 @@ def _decode_grant(res, fmt, bits, cce, grid, ce, noise, cell, sf_idx, cfi, rnti,
     scheme = "diversity" if nports_cell >= 2 else "port0"
     if fmt == "1":
         try:
-            dci = Dci1.unpack(bits, cell.nof_prb)
+            dci = Dci1.unpack(bits, cell.nof_prb, tdd=is_tdd)
         except ValueError:
             return False
         prb = dci.prb_list(cell.nof_prb)
         if not prb:
             return False
         try:
-            grant = DlGrant(prb=prb, mod=dl_mcs_to_mod(dci.mcs), tbs=dl_tbs(dci.mcs, len(prb)),
-                            rv=dci.rv, rnti=rnti, tx_scheme=scheme)
+            grant = DlGrant(prb=prb, mod=dl_mcs_to_mod(dci.mcs),
+                            tbs=dl_tbs(dci.mcs, len(prb), dwpts=dwpts), rv=dci.rv, rnti=rnti,
+                            tx_scheme=scheme)
         except (ValueError, IndexError):
             return False  # reserved MCS
     else:  # "1A"
         try:
-            dci = Dci1A.unpack(bits, cell.nof_prb)
+            dci = Dci1A.unpack(bits, cell.nof_prb, tdd=is_tdd)
             rb0, l_crb = riv_decode(cell.nof_prb, dci.riv)
         except ValueError:
             return False
@@ -275,8 +296,9 @@ def _decode_grant(res, fmt, bits, cce, grid, ce, noise, cell, sf_idx, cfi, rnti,
                             rv=dci.rv, rnti=rnti, tx_scheme=scheme)
         else:
             try:
-                grant = DlGrant(prb=prb, mod=dl_mcs_to_mod(dci.mcs), tbs=dl_tbs(dci.mcs, l_crb),
-                                rv=dci.rv, rnti=rnti, tx_scheme=scheme)
+                grant = DlGrant(prb=prb, mod=dl_mcs_to_mod(dci.mcs),
+                                tbs=dl_tbs(dci.mcs, l_crb, dwpts=dwpts), rv=dci.rv, rnti=rnti,
+                                tx_scheme=scheme)
             except (ValueError, IndexError):
                 return False  # reserved MCS
 
@@ -297,7 +319,7 @@ def _decode_grant(res, fmt, bits, cce, grid, ce, noise, cell, sf_idx, cfi, rnti,
         tb, ok, sb_out, _ = dynamic.decode(samples, sf_idx, grant, softbuffer=sb)
     else:
         tb, ok, sb_out = pdsch_decode(grid, ce, noise, cell, sf_idx, cfi, grant, max_iterations,
-                                      softbuffers=sb)
+                                      softbuffers=sb, tdd=is_tdd, last_symbol=last_symbol)
     if harq_softbuffers is not None:
         if ok:
             harq_softbuffers.pop(dci.harq_pid, None)
@@ -306,5 +328,6 @@ def _decode_grant(res, fmt, bits, cce, grid, ce, noise, cell, sf_idx, cfi, rnti,
     res.tbs.append((tb, ok))
     _mark_used(res, dci, fmt, cce)
     res.pdsch_symbols = equalize(
-        _idx(pdsch_re_indices, cell, sf_idx, cfi, grant.prb, device=grid.device)).cpu().numpy()
+        _idx(pdsch_re_indices, cell, sf_idx, cfi, grant.prb, is_tdd, last_symbol,
+             device=grid.device)).cpu().numpy()
     return True

@@ -246,9 +246,9 @@ def _build_stage_c_v2(k_bucket: int, b_bucket: int, max_iterations: int, rep: in
 
 
 @lru_cache(maxsize=4096)
-def _padded_re_indices(cell: Cell, sf_idx: int, cfi: int,
-                       prb: tuple[int, ...]) -> tuple[np.ndarray, int, int]:
-    idx = pdsch_re_indices(cell, sf_idx, cfi, prb)
+def _padded_re_indices(cell: Cell, sf_idx: int, cfi: int, prb: tuple[int, ...],
+                       tdd: bool = False) -> tuple[np.ndarray, int, int]:
+    idx = pdsch_re_indices(cell, sf_idx, cfi, prb, tdd=tdd)
     n_re = len(idx)
     bucket = _bucket(n_re, RE_BUCKETS)
     pad = np.zeros(bucket, np.int64)

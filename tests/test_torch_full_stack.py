@@ -9,8 +9,9 @@ against the reference's on the CPU, at 15 PRB.
   IMSIs and packets at the end are identical.
 - Crossed pairs: the reference's eNB with the port's UE and the port's
   eNB with the reference's UE attach and carry a packet each way.
-- The constructors take the card by default (and raise without one);
-  TDD raises NotImplementedError, the kernel TUN wants a UE IP first.
+- The constructors take the card by default (and raise without one); both
+  take TDD, the windowed plane stays FDD-only, the kernel TUN wants a UE IP
+  first.
 - The drivers of `chip_smoke.py` phases 29 (two UEs through EPA fading
   with AWGN) and 30 (the dynamic and windowed data planes) at 15 PRB.
 - Two faults of the reference's eNB that the port repairs (ROADMAP Queue
@@ -28,7 +29,6 @@ import chip_smoke
 from srsran_tpu.apps import full_stack as r_fs
 from srsran_tpu.epc import Hss, Mme, Spgw, Subscriber
 from srsran_tpu.phy.common import Cell
-from srsran_tpu.phy.tdd import TddConfig
 from srsran_tpu.stack.nas_ue import Usim
 from srsran_tpu.stack.security import compute_opc
 from srsran_tpu_torch.apps import full_stack as t_fs
@@ -112,17 +112,20 @@ def test_constructors_take_the_card_by_default():
 
 
 def test_tdd_and_the_tun_are_not_ported():
+    """TDD, once refused, is now taken by both ends (PRACH on subframe 2, as
+    the reference's; `tests/test_torch_tdd.py` runs the attaches), while the
+    windowed data plane stays FDD-only; the kernel TUN is ported and, before
+    the attach, refuses for want of a UE IP as the reference's does."""
     cell = PORT.Cell(nof_prb=6, nof_ports=1, id=1)
     spgw = PORT.Spgw()
     mme = PORT.Mme(PORT.Hss(), spgw)
     usim = PORT.Usim("001010123456789", bytes(16), bytes(16))
-    tdd = TddConfig(1, 7)
-    with pytest.raises(NotImplementedError, match="Slice 10"):
-        t_fs.EnbStack(cell, mme, spgw, tdd_cfg=tdd, device=CPU)
-    with pytest.raises(NotImplementedError, match="Slice 10"):
-        t_fs.UeStack(cell, usim, tdd_cfg=tdd, device=CPU)
-    # the kernel TUN is ported (`io.tun`): before the attach it refuses, as
-    # the reference's does, for want of a UE IP
+    tdd = PORT.TddConfig(1, 7)
+    enb = t_fs.EnbStack(cell, mme, spgw, tdd_cfg=tdd, device=CPU)
+    ue = t_fs.UeStack(cell, usim, tdd_cfg=tdd, device=CPU)
+    assert enb.tdd == ue.tdd == tdd and enb.prach_sf == ue.prach_sf == 2
+    with pytest.raises(AssertionError, match="FDD-only"):
+        t_fs.UeStack(cell, usim, tdd_cfg=tdd, windowed_phy=True, device=CPU)
     with pytest.raises(AssertionError, match="attach first"):
         t_fs.UeStack(cell, usim, device=CPU).attach_tun()
 

@@ -125,6 +125,36 @@ def test_pdsch_re_indices(prb):
     assert t_pdsch.pdsch_cinit(0x1234, 2, 301, 1) == r_pdsch.pdsch_cinit(0x1234, 2, 301, 1)
 
 
+@pytest.mark.parametrize("sf_config", range(7))
+def test_pdsch_re_indices_tdd(sf_config):
+    """Frame structure 2: every D and S subframe of the UL/DL configuration
+    under the special-subframe configurations 0, 4, 7 and 9 (an S subframe
+    cut at its DwPTS), 1, 2 and 4 ports, CFI 1-3; and `pdsch_nof_re`.  A
+    DwPTS with no symbol after the control region has no map in either."""
+    for prb, nports, cell_id in ((6, 1, 0), (25, 2, 7), (100, 4, 301)):
+        ref, port = cells(nof_prb=prb, id=cell_id, nof_ports=nports)
+        for ss_config in (0, 4, 7, 9):
+            rc = r_tdd.TddConfig(sf_config, ss_config)
+            for sf in range(10):
+                kind = r_tdd.sf_type(rc, sf)
+                if kind == r_tdd.SfType.U:
+                    continue
+                last = r_tdd.nof_dw(rc) if kind == r_tdd.SfType.S else None
+                for cfi in (1, 2, 3):
+                    for alloc in (tuple(range(prb)), tuple(range(1, prb, 3))):
+                        if last is not None and cfi + (prb < 10) >= last:
+                            # no data symbol left in the DwPTS: both refuse
+                            for fn, c in ((r_pdsch.pdsch_re_indices, ref),
+                                          (t_pdsch.pdsch_re_indices, port)):
+                                with pytest.raises(ValueError):
+                                    fn(c, sf, cfi, alloc, True, last)
+                            continue
+                        want = r_pdsch.pdsch_re_indices(ref, sf, cfi, alloc, True, last)
+                        np.testing.assert_array_equal(
+                            t_pdsch.pdsch_re_indices(port, sf, cfi, alloc, True, last), want)
+                        assert t_pdsch.pdsch_nof_re(port, sf, cfi, alloc, True, last) == len(want)
+
+
 def test_cbsegm_and_qpp_all_188_sizes():
     assert t_cbsegm.CB_SIZES == r_cbsegm.CB_SIZES and len(t_cbsegm.CB_SIZES) == 188
     for k in t_cbsegm.CB_SIZES:

@@ -42,6 +42,11 @@ def test_import_leaves_jax_out():
         "import srsran_tpu_torch.io.tun, srsran_tpu_torch.io.icmp_ping\n"
         "import srsran_tpu_torch.apps.enb_app, srsran_tpu_torch.apps.ue_app\n"
         "import srsran_tpu_torch.apps.run_lte_demo, srsran_tpu_torch.apps.run_lte_3proc\n"
+        "import srsran_tpu_torch.phy.chest.wiener_dl, srsran_tpu_torch.phy.resampling\n"
+        "import srsran_tpu_torch.examples.pdsch_enodeb, srsran_tpu_torch.examples.cell_search\n"
+        "import srsran_tpu_torch.examples.pdsch_ue, srsran_tpu_torch.examples.synch_file\n"
+        "import srsran_tpu_torch.examples.remote_rx, srsran_tpu_torch.examples.bler_sweep\n"
+        "import srsran_tpu_torch.examples.dynamic_grants, srsran_tpu_torch.examples.windowed_link\n"
         "assert 'zmq' not in sys.modules and 'matplotlib' not in sys.modules\n"
         "import importlib.util as u\n"
         "spec = u.spec_from_file_location('prof', 'tools/profile_torch_dynamic.py')\n"
@@ -76,7 +81,10 @@ def test_every_module_of_the_port_imports_without_jax():
               "runtime.logger", "runtime.metrics", "runtime.trace", "runtime.crash",
               "runtime.state", "runtime.enb_cfg", "runtime.plots", "io", "io.filesource",
               "io.net", "io.radio", "io.rf_zmq", "io.tun", "io.icmp_ping", "apps.enb_app",
-              "apps.ue_app", "apps.run_lte_demo", "apps.run_lte_3proc"):
+              "apps.ue_app", "apps.run_lte_demo", "apps.run_lte_3proc", "phy.chest.wiener_dl",
+              "phy.resampling", "examples", "examples.pdsch_enodeb", "examples.cell_search",
+              "examples.pdsch_ue", "examples.synch_file", "examples.remote_rx",
+              "examples.bler_sweep", "examples.dynamic_grants", "examples.windowed_link"):
         assert f"srsran_tpu_torch.{m}" in mods, m
     code = (
         "import sys, importlib\n"

@@ -76,10 +76,19 @@ def test_chest_dl(prb, ports, smooth, interp):
 
 
 def test_chest_dl_wiener_not_ported():
-    cell = from_reference(r_common.Cell(nof_prb=6))
-    with pytest.raises(NotImplementedError):
-        t_chest.chest_dl(torch.zeros((14, 72), dtype=torch.complex64), cell, 0,
-                         t_chest.ChestDlConfig(algorithm="wiener"))
+    """The "wiener" branch, once not ported, now against the reference: the
+    fixed MMSE matrices, in a full subframe and cut at a DwPTS's
+    last_symbol; products of complex64: rtol 1e-5, atol 1e-5."""
+    cell_ref = r_common.Cell(nof_prb=15, id=5, nof_ports=2)
+    cfg_ref = r_chest.ChestDlConfig(algorithm="wiener")
+    grid = cplx(np.random.default_rng(78), (2, 14, 180))
+    for last in (None, 9):
+        ref = r_chest.chest_dl(jnp.asarray(grid), cell_ref, 6, cfg_ref, nof_ports=2, last_symbol=last)
+        got = t_chest.chest_dl(t(grid), from_reference(cell_ref), 6, from_reference(cfg_ref),
+                               nof_ports=2, last_symbol=last)
+        for key in ("ce", "noise", "rsrp", "snr"):
+            assert got[key].shape == ref[key].shape, key
+            np.testing.assert_allclose(got[key].numpy(), np.asarray(ref[key]), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("mod", list(r_modem.Mod))

@@ -117,9 +117,23 @@ def test_enb_dl_subframe(nof_prb, nof_ports, sf_idx, sfn, mimo):
 
 
 def test_enb_dl_subframe_refuses_tdd():
-    with pytest.raises(NotImplementedError, match="Slice 10"):
-        t_enb_dl.enb_dl_subframe(from_reference(Cell(nof_prb=6)), 0, t_enb_dl.DlSched(),
-                                 tdd=object(), device=CPU)
+    """TDD, once refused, now rendered as the reference renders it: a DwPTS
+    subframe with the PSS and a PDSCH, silent past its last symbol, and a U
+    subframe (grid within 1e-6, samples within 2e-6)."""
+    from srsran_tpu.phy.tdd import TddConfig
+
+    cell, cfg = Cell(nof_prb=6), TddConfig(2, 4)
+    rng = np.random.default_rng(4)
+    grant = r_pdsch.DlGrant(prb=tuple(range(6)), mod=dl_mcs_to_mod(5), tbs=dl_tbs(5, 6, dwpts=True))
+    tb = rng.integers(0, 2, grant.tbs).astype(np.uint8)
+    for sf_idx, grants in ((1, [(grant, tb)]), (2, [])):
+        r_grid, r_samples = enb_dl_subframe(cell, sf_idx, DlSched(cfi=2, grants=grants), tdd=cfg)
+        g_grid, g_samples = t_enb_dl.enb_dl_subframe(
+            from_reference(cell), sf_idx, t_enb_dl.DlSched(cfi=2, grants=[
+                (from_reference(g), b) for g, b in grants]), tdd=from_reference(cfg), device=CPU)
+        np.testing.assert_allclose(g_grid, r_grid, rtol=0, atol=1e-6)
+        np.testing.assert_allclose(g_samples.numpy(), np.asarray(r_samples), rtol=0, atol=2e-6)
+    assert np.abs(g_grid).max() == 0
 
 
 # --- dlsch_decode / pdsch_decode / pdsch_decode2 -------------------------------
@@ -429,10 +443,31 @@ def test_ue_dl_dynamic_equals_static():
 
 
 def test_ue_dl_refuses_what_is_not_ported():
-    cell = from_reference(Cell(nof_prb=6))
+    """TDD, once refused, now decoded as the reference decodes it: a U
+    subframe is skipped, and `dynamic=`/`deferred=` stay unused under TDD
+    (the reference's FDD-only planes; an object that would fail if touched
+    stands in for them) while the DwPTS PDSCH decodes with the reference's
+    bits."""
+    from srsran_tpu.phy.tdd import TddConfig
+
+    cell, cfg = Cell(nof_prb=6, id=9), TddConfig(1, 4)
+    pcell, pcfg = from_reference(cell), from_reference(cfg)
     zero = np.zeros((1, cell.sf_len), np.complex64)
-    with pytest.raises(NotImplementedError, match="Slice 10"):
-        t_decode(cell, zero, 0, 0x46, tdd=object(), device=CPU)
+    got = t_decode(pcell, zero, 2, 0x46, tdd=pcfg, device=CPU)
+    assert got.tbs == [] and got.dcis == [] and got.cfi == 0
+    rng = np.random.default_rng(8)
+    grant = r_pdsch.DlGrant(prb=tuple(range(6)), mod=dl_mcs_to_mod(6), tbs=dl_tbs(6, 6, dwpts=True),
+                            rnti=0x46)
+    tb = rng.integers(0, 2, grant.tbs).astype(np.uint8)
+    dci = Dci1A(riv=riv_encode(6, 0, 6), mcs=6).pack(6, tdd=True)
+    _, samples = enb_dl_subframe(cell, 6, DlSched(cfi=2, dcis=[(dci, 0x46, 4, 0)],
+                                                  grants=[(grant, tb)]), tdd=cfg)
+    rx = awgn(rng, np.asarray(samples), 0.01)
+    ref = r_decode(cell, rx, 6, 0x46, tdd=cfg)
+    got = t_decode(pcell, rx, 6, 0x46, tdd=pcfg, dynamic=object(), deferred=object(), device=CPU)
+    assert [ok for _, ok in got.tbs] == [bool(ok) for _, ok in ref.tbs] == [True]
+    np.testing.assert_array_equal(got.tbs[0][0], np.asarray(ref.tbs[0][0]))
+    np.testing.assert_array_equal(got.tbs[0][0], tb)
 
 
 def test_ue_dl_deferred_queues_on_a_windowed_plane():

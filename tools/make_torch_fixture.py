@@ -100,7 +100,7 @@ Run from the repo root:  JAX_PLATFORMS=cpu python tools/make_torch_fixture.py
 write one file, `main_windows` the three decode windows, `main_gen_windows`
 the three generate windows, `main_ctrl_windows` the two control windows,
 `main_ue_dl_frame` the received frame, `main_enb_ul` the UL subframes,
-`main_stack` the stored attach.)
+`main_stack` the stored attach, `main_stack_tdd` the stored TDD attach.)
 
 `main_stack` runs the reference's `EnbStack`/`UeStack` (100 PRB, cell
 301, MCS 20, SRS and SR on, one UE, no noise, the HSS's RAND state fixed)
@@ -110,6 +110,16 @@ RRC states and the UE's NAS state, and at the end the UE's IP, the MME's
 attached IMSIs and the packets the UE and the SGi received, as JSON
 (`testdata/full_stack_attach_100prb.json`); `chip_smoke.py` phase 28 runs
 the port through the same script on the card and requires every TTI equal.
+
+`main_stack_tdd` is its counterpart under frame structure 2
+(`testdata/full_stack_attach_tdd_100prb.json`, ~35 s): the same cell, MCS
+and subscriber, `TddConfig(1, 4)` on both ends (PRACH on subframe 2, DL on
+D and DwPTS subframes, PUSCH on U subframes), SR on (with SRS and SR both
+on the reference's TDD stack does not attach: ROADMAP Queue 3), and
+tests/test_tdd.py's traffic, 3 DL packets of 48 bytes and 3 UL of 40
+(`chip_smoke.STACK_TDD`), through `chip_smoke.stored_stack_run`.  It
+writes the same per-TTI records and end state, with the TDD configuration
+and the traffic; `chip_smoke.py` phase 35 replays it on the card.
 """
 
 from __future__ import annotations
@@ -1003,11 +1013,13 @@ def reference_stack_modules():
     from srsran_tpu.apps.full_stack import EnbStack, UeStack
     from srsran_tpu.epc import Hss, Mme, Spgw, Subscriber
     from srsran_tpu.phy.common import Cell
+    from srsran_tpu.phy.tdd import TddConfig
     from srsran_tpu.stack.nas_ue import Usim
     from srsran_tpu.stack.security import compute_opc
 
     return SimpleNamespace(EnbStack=EnbStack, UeStack=UeStack, Cell=Cell, Hss=Hss, Mme=Mme,
-                           Spgw=Spgw, Subscriber=Subscriber, Usim=Usim, compute_opc=compute_opc)
+                           Spgw=Spgw, Subscriber=Subscriber, Usim=Usim, compute_opc=compute_opc,
+                           TddConfig=TddConfig)
 
 
 def main_stack(nof_prb: int = 100):
@@ -1024,6 +1036,31 @@ def main_stack(nof_prb: int = 100):
               records=run.records, result=run.result())
     OUT_STACK.write_text(json.dumps(fx, indent=None, separators=(",", ":"), default=list) + "\n")
     print(f"wrote {OUT_STACK}: {run.tti} TTIs, registered at TTI {run.reg_tti}, IP {run.ue.ue_ip}, "
+          f"eNB {run.records[-1]['enb']}, UE {run.records[-1]['ue']}")
+
+
+OUT_STACK_TDD = TESTDATA / "full_stack_attach_tdd_100prb.json"
+
+
+def main_stack_tdd(nof_prb: int = 100):
+    """The stored TDD attach: `main_stack`'s counterpart under frame
+    structure 2 (`chip_smoke.STACK_TDD`: `TddConfig(1, 4)`, SR on,
+    tests/test_tdd.py's traffic), one UE, the reference's stack through
+    `chip_smoke.stored_stack_run`."""
+    import json
+    import sys
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    T = chip_smoke.STACK_TDD
+    fx = dict(nof_prb=nof_prb, enb_kw=T["kw"], ue_kw=T["kw"], tdd=list(T["tdd"]),
+              traffic=[list(T["dl"]), list(T["ul"])], stack=chip_smoke.STACK)
+    run = chip_smoke.stored_stack_run(reference_stack_modules(), fx).run()
+    run.check_traffic("reference TDD stack")
+    fx.update(records=run.records, result=run.result())
+    OUT_STACK_TDD.write_text(json.dumps(fx, indent=None, separators=(",", ":"), default=list) + "\n")
+    print(f"wrote {OUT_STACK_TDD}: {run.tti} TTIs, registered at TTI {run.reg_tti}, IP {run.ue.ue_ip}, "
           f"eNB {run.records[-1]['enb']}, UE {run.records[-1]['ue']}")
 
 
@@ -1064,3 +1101,4 @@ if __name__ == "__main__":
     main_ue_dl_frame()
     main_enb_ul()
     main_stack()
+    main_stack_tdd()
