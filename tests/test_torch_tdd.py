@@ -12,8 +12,8 @@
   DwPTS subframe and on a D subframe: the coded grid within 1e-6, TB bits,
   CRC verdicts, DCIs, CFI identical; softbuffers within 2e-6 of their
   largest magnitude; the measurements within 1e-4 relative.
-- A lockstep attach at 15 PRB under `TddConfig(1, 4)` with SR on: in every
-  TTI both ends' samples within 2e-6 of their largest magnitude and stats,
+- Lockstep attaches at 15 PRB under `TddConfig(1, 4)` and `TddConfig(2,
+  4)` with SR on: in every TTI both ends' samples within 2e-6 of their largest magnitude and stats,
   RRC and NAS states equal; the same IP and packets at the end.  (With SRS
   and SR both on, the reference's stack does not attach under TDD, and the
   port's fails with it TTI by TTI: ROADMAP Queue 3.)
@@ -366,11 +366,13 @@ def test_ue_dl_decode_subframe_tdd_against_reference(sf_config, ss_config, sf_id
         np.testing.assert_allclose(getattr(got, k), getattr(ref, k), rtol=MEAS_RTOL)
 
 
-def test_lockstep_tdd_attach_against_the_reference():
-    """The reference's and the port's stacks under `TddConfig(1, 4)` at 15
-    PRB, SR on, side by side through `chip_smoke.StackRun`."""
+@pytest.mark.parametrize("sf_config", [1, 2])
+def test_lockstep_tdd_attach_against_the_reference(sf_config):
+    """The reference's and the port's stacks under `TddConfig(1, 4)` and
+    `TddConfig(2, 4)` (M = 4: channel-selection ACKs) at 15 PRB, SR on,
+    side by side through `chip_smoke.StackRun`."""
     kw = dict(sr_enabled=True)
-    rcfg = r_tdd.TddConfig(1, 4)
+    rcfg = r_tdd.TddConfig(sf_config, 4)
     r = chip_smoke.stack_pair(REF, 15, enb_kw=dict(kw, tdd_cfg=rcfg), ue_kw=[dict(kw, tdd_cfg=rcfg)])
     tcfg = from_reference(rcfg)
     t = chip_smoke.stack_pair(PORT, 15, enb_kw=dict(kw, tdd_cfg=tcfg), ue_kw=[dict(kw, tdd_cfg=tcfg)],
