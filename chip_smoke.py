@@ -233,7 +233,42 @@ Phases (each prints its own lines; any failure exits non-zero):
      6 PRB and cell 42 (the eNB's 200 TTIs, a payload every 5): at least one
      SDU, each of the UE's SDUs (read from its MAC pcap) a payload the eNB
      wrote; the ring's dropped samples and the SDU count.  The native
-     library is built in phase 2 from `native/` with g++.
+     library is built in phase 2 from `native/` with g++;
+  35-37. (after 34) the stored TDD attach, the 20 MHz TDD link, and the
+     example scripts with the Wiener estimators and the resamplers;
+  38. (after 37, before 25 and 12) more than one device on the one card,
+     whose eight positions of a mesh stand in for eight cards:
+     `multi_carrier_ue_dl` at 100 PRB, MCS 26, 8 carriers (each its own TB
+     and noise) over a 1-position and an 8-position mesh, identical TBs,
+     total_ok 8, each TB the sent one; ms per call and carriers per card, and
+     the weak-scaling curve over 1, 2, 4 and 8 positions (reported); the
+     sharded `WindowedUeDl` at `bench.py` `bench_window_carriers`' shape (100
+     PRB, W = 128 = 8 carriers x 16 TTIs, MCS 8/16/26, noise 0.05) bit for
+     bit the unsharded window (packed results and softbuffer), ms per
+     window both ways; `sharded_resample_fft` (2/1, halo 64) on one 30.72
+     Msps frame over 8 positions against `resample_fft_blocks` within 1e-4
+     and `sharded_fir` against one FIR over the stream within 1e-5; the 2-D
+     (4 carriers x 2 subframes) step of `__graft_entry__.dryrun_multichip` at
+     100 PRB.  With more than one card the carriers also run over distinct
+     cards; with one, that branch prints as skipped;
+  39. eMBMS: PMCH in a mixed-CP MBSFN subframe at 100 PRB (extended CP, 2
+     normal-CP control symbols, the zero guard), MCS 9 and MCS 28 (at the
+     TBS of 0.75 x N_PRB: its own exceeds the region's coded bits), through
+     `ofdm_tx_sf_mbsfn` → AWGN 0.01 → `ofdm_rx_sf_mbsfn` → `pmch_decode`:
+     the guard exactly zero, each TB CRC-ok and the sent one; ms per
+     subframe;
+  40. NB-IoT: `nbiot_acquire_raw` on a 40 ms seeded capture (offset 777, CFO
+     0.02 subcarrier, AWGN), `nbiot_cell_search_scan` over 8 EARFCN captures
+     (4 cells, 4 noise), NPDCCH → NPDSCH on the acquired grids of
+     `npdsch_ue`'s stream, `nprach_detect` on three preambles and on noise,
+     the `cell_search_nbiot` and `npdsch_ue` scripts' `--selftest`; the
+     reference tests' gates; ms per step (host clock);
+  41. sidelink: `pssch_ue` on each stored capture of `tests/vectors/`
+     (the SCIs and TBs the reference script finds on it), the 100 PRB TM2
+     chain whose TB reads c8e4, the four subframes of the 100 PRB UXM
+     capture (4 SCIs, 4 CRC-ok 9528-bit TBs), a seeded PSSCH at 100 PRB MCS
+     20; ms per subframe.  Phase 25 takes the static MAP shapes of 38, 39
+     and 41, phase 12 the sharded windows of 38.
 Every path is driven with the launch counts set to 0 just before and read
 just after.  Prints one JSON line of kernel results, then as its last line
 {"ok": true, "device": {...}}.  TF32 stays off: the channel-estimate
@@ -4282,6 +4317,477 @@ def phase_examples(dev) -> tuple[tuple[int, int], dict, Counter]:
     return launches, times, +shapes
 
 
+# phase 38: more than one device.  A mesh's positions may name one device
+# twice, so eight positions of the one card stand in for an eight-card grid
+# (each position still runs its block of the work as its own calls); a
+# machine with more cards also runs the same paths over distinct cards.
+CARRIERS = dict(prb=100, mcs=26, n=8, sf_idx=2, amp=0.02, cell_id=301)
+# bench.py `bench_window_carriers`: 8 carriers x 16 TTIs as one W = 128 window
+CARRIER_WINDOW = dict(w=128, mcs=(8, 16, 26), amp=0.05, sf_idx=2, positions=8)
+HALO = dict(p=2, q=1, halo=64, n=307200, positions=8, fir_taps=17)
+GRID_2D = (4, 2)  # __graft_entry__.dryrun_multichip's carriers x subframes mesh
+HALO_ATOL = 1e-4  # the sharded resampler against the blockwise one (the reference's bar)
+FIR_ATOL = 1e-5  # the sharded FIR against one FIR over the whole stream, unit amplitude
+
+
+def carriers_tx(cell, grant, n: int, sf_idx: int, rng, amp: float):
+    """n carriers' subframes of one grant, each with a TB and noise of its own:
+    (samples (n, 1, sf_len) complex64 numpy, TBs (n, tbs) uint8)."""
+    from srsran_tpu_torch.phy.ofdm import OfdmConfig
+
+    ofdm = OfdmConfig.from_cell(cell, normalize=True)
+    tbs = np.stack([rng.integers(0, 2, grant.tbs).astype(np.uint8) for _ in range(n)])
+    return np.stack([render(cell, ofdm, sf_idx, grant, tb, rng, amp) for tb in tbs]), tbs
+
+
+def grid_step(mesh, cell, sf_idx: int, cfi: int, grant, x: torch.Tensor):
+    """The 2-D (carriers x subframes) step of `__graft_entry__.dryrun_multichip`
+    on the port: position (c, s) of `mesh` decodes x[c, s] (nrx, sf_len) on its
+    own device through `ue_dl_subframe`; the TBs and verdicts come back in grid
+    order and their sum to the first position's device.  Returns (tb (C, S,
+    tbs), ok (C, S), total_ok ())."""
+    from srsran_tpu_torch.pipeline import ue_dl_subframe
+
+    devs = mesh.devices
+    fns = {d: ue_dl_subframe(cell, sf_idx, cfi, grant, device=d) for d in dict.fromkeys(devs.reshape(-1))}
+    home = devs.reshape(-1)[0]
+    outs = [[fns[devs[c, s]](x[c, s][None].to(devs[c, s])) for s in range(devs.shape[1])]
+            for c in range(devs.shape[0])]
+    tb = torch.stack([torch.cat([o[0].to(home) for o in row]) for row in outs])
+    ok = torch.stack([torch.cat([o[1].to(home) for o in row]) for row in outs])
+    return tb, ok, ok.sum(dtype=torch.int32)
+
+
+def phase_carriers(dev):
+    """Phase 38: `multi_carrier_ue_dl` over 1 and 8 positions, the sharded
+    `WindowedUeDl` window, the halo resampler and FIR, the 2-D step.  Returns
+    ({path: (static, dynamic-K) launches}, times, static launch shapes)."""
+    from srsran_tpu_torch.parallel import carrier_mesh, sharded_fir, sharded_resample_fft
+    from srsran_tpu_torch.parallel.mesh import Mesh, NamedSharding, PartitionSpec
+    from srsran_tpu_torch.phy.common import Cell
+    from srsran_tpu_torch.phy.fec import turbo_cuda
+    from srsran_tpu_torch.phy.ofdm import OfdmConfig
+    from srsran_tpu_torch.phy.phch.pdsch import DlGrant
+    from srsran_tpu_torch.phy.phch.ra import dl_mcs_to_mod, dl_tbs
+    from srsran_tpu_torch.phy.resampling import resample_fft_blocks
+    from srsran_tpu_torch.pipeline import multi_carrier_ue_dl
+    from srsran_tpu_torch.pipeline_window import WindowedUeDl
+
+    C = CARRIERS
+    before = Counter(turbo_cuda.SHAPES)
+    cell = Cell(nof_prb=C["prb"], nof_ports=1, id=C["cell_id"])
+    grant = DlGrant(prb=tuple(range(C["prb"])), mod=dl_mcs_to_mod(C["mcs"]), tbs=dl_tbs(C["mcs"], C["prb"]),
+                    rnti=0x46)
+    rng = np.random.default_rng(38)
+    x_np, sent = carriers_tx(cell, grant, C["n"], C["sf_idx"], rng, C["amp"])
+    x = torch.from_numpy(x_np).to(dev)
+    launches, times = {}, {}
+
+    # multi_carrier_ue_dl: the one card as one position, and as eight
+    check(carrier_mesh().size == torch.cuda.device_count(), "carrier_mesh() does not span the cards")
+    tbs_by = {}
+    for tag, mesh in (("1 position", carrier_mesh(devices=[dev])),
+                      ("8 positions of the card", carrier_mesh(devices=[dev] * C["n"]))):
+        fn = multi_carrier_ue_dl(cell, C["sf_idx"], 1, grant, mesh=mesh)
+        reset_launches()
+        tb, ok, total = fn(x)
+        launches[f"multi_carrier_ue_dl, {tag}"] = read_launches()
+        check(int(total) == C["n"] and total.device == dev and tb.device == dev,
+              f"multi_carrier_ue_dl {tag}: total_ok {int(total)}")
+        check(bool((tb.cpu().numpy() == sent).all()), f"multi_carrier_ue_dl {tag}: a TB differs from the sent one")
+        check(launches[f"multi_carrier_ue_dl, {tag}"][0] > 0, f"multi_carrier_ue_dl {tag}: no MAP launch")
+        tbs_by[tag] = tb
+        ms = batch_ms(lambda: fn(x))
+        times[f"multi_carrier {tag}"] = dict(ms_per_call=ms, carriers_per_card=C["n"] / ms,
+                                             map_launches=list(launches[f"multi_carrier_ue_dl, {tag}"]))
+        print(f"carriers: multi_carrier_ue_dl {C['n']} carriers of {C['prb']} PRB MCS {C['mcs']} "
+              f"(tbs {grant.tbs}) over {tag}: total_ok {int(total)}, every TB the sent one; "
+              f"{ms:.3f} ms per call by CUDA events -> {C['n'] / ms:.2f} carriers per card in real time")
+    check(torch.equal(*tbs_by.values()), "multi_carrier_ue_dl: 1 and 8 positions give different TBs")
+    # the weak-scaling curve of tests/test_scaling.py (reported, not gated)
+    curve = {}
+    for n in (1, 2, 4, 8):
+        fn = multi_carrier_ue_dl(cell, C["sf_idx"], 1, grant, mesh=carrier_mesh(devices=[dev] * n))
+        curve[n] = n * grant.tbs / batch_ms(lambda: fn(x[:n])) / 1e3
+    times["weak_scaling_mbps"] = curve
+    print("carriers: weak scaling over positions of the one card, Mbps: "
+          + ", ".join(f"{n}: {v:.1f}" for n, v in curve.items()))
+    if torch.cuda.device_count() > 1 and C["n"] % torch.cuda.device_count() == 0:
+        mesh = carrier_mesh()
+        fn = multi_carrier_ue_dl(cell, C["sf_idx"], 1, grant, mesh=mesh)
+        reset_launches()
+        tb, ok, total = fn(x)
+        launches["multi_carrier_ue_dl, distinct cards"] = read_launches()
+        check(int(total) == C["n"] and torch.equal(tb, tbs_by["1 position"]),
+              "multi_carrier_ue_dl over distinct cards differs")
+        ms = batch_ms(lambda: fn(x))
+        times["multi_carrier distinct cards"] = dict(cards=mesh.size, ms_per_call=ms)
+        print(f"carriers: over {mesh.size} distinct cards: {ms:.3f} ms per call")
+    else:
+        print(f"carriers: distinct cards skipped ({torch.cuda.device_count()} card on this machine)")
+
+    # the sharded window at bench.py's shape: bit for bit the unsharded one
+    CW = CARRIER_WINDOW
+    w, sfs = CW["w"], [CW["sf_idx"]] * CW["w"]
+    ofdm = OfdmConfig.from_cell(cell, normalize=True)
+    sharding = NamedSharding(carrier_mesh(devices=[dev] * CW["positions"]), PartitionSpec("carriers"))
+    ue = WindowedUeDl(cell, cfi=1, w=w, max_iterations=5)
+    dyn = [0, 0]
+    for mcs in CW["mcs"]:
+        g = DlGrant(prb=tuple(range(C["prb"])), mod=dl_mcs_to_mod(mcs), tbs=dl_tbs(mcs, C["prb"]), rnti=0x46)
+        tb_sent = rng.integers(0, 2, g.tbs).astype(np.uint8)
+        tx = render(cell, ofdm, CW["sf_idx"], g, tb_sent, rng, 0.0)
+        s = awgn(rng, np.tile(tx[None], (w, 1, 1)), CW["amp"])
+        reset_launches()
+        p = ue.dispatch_window(s, sfs, [g] * w, sharding=sharding)
+        res = ue.results(p)
+        got = read_launches()
+        dyn = [a + b for a, b in zip(dyn, got)]
+        p_plain = ue.dispatch_window(s, sfs, [g] * w)
+        check(torch.equal(p.packed, p_plain.packed) and torch.equal(p.softbuffer, p_plain.softbuffer),
+              f"carrier window MCS {mcs}: the sharded window is not bit for bit the unsharded one")
+        note_shape(f"carrier window MCS {mcs}", p.pack)
+        n_ok = sum(ok for _tb, ok, _n in res)
+        check(n_ok >= w * 3 // 4 and all((tb == tb_sent).all() for tb, ok, _n in res if ok),
+              f"carrier window MCS {mcs}: {n_ok}/{w} pass CRC")
+        check(got[1] > 0 and got[0] == 0, f"carrier window MCS {mcs}: map launches {got}")
+        ms_sh = batch_ms(lambda: ue.results(ue.dispatch_window(s, sfs, [g] * w, sharding=sharding)))
+        ms_plain = batch_ms(lambda: ue.results(ue.dispatch_window(s, sfs, [g] * w)))
+        times[f"carrier window MCS {mcs}"] = dict(w=w, crc_ok=n_ok, ms_per_window_sharded=ms_sh,
+                                                  ms_per_window_unsharded=ms_plain,
+                                                  carriers_per_card_sharded=w / ms_sh,
+                                                  map_launches=list(got))
+        print(f"carriers: WindowedUeDl W={w} (8 carriers x 16 TTIs) MCS {mcs} tbs {g.tbs}, noise "
+              f"{CW['amp']}: crc_ok {n_ok}/{w}, sharded over {CW['positions']} positions bit for bit the "
+              f"unsharded window (packed results and softbuffer); {ms_sh:.3f} ms per window sharded, "
+              f"{ms_plain:.3f} ms unsharded (CUDA events) -> {w / ms_sh:.1f} carriers per card")
+    launches["WindowedUeDl sharded"] = tuple(dyn)
+    del ue
+
+    # the sample axis: the halo resampler and FIR over 8 positions
+    H = HALO
+    t = np.arange(H["n"]) / 30.72e6
+    xs = sum(a * np.exp(2j * np.pi * f * t) for f, a in ((1e5, 0.5), (-2.3e6, 0.3), (4.1e6, 0.2)))
+    xs = torch.from_numpy(xs.astype(np.complex64)).to(dev)
+    mesh_s = carrier_mesh(1, samples=H["positions"], devices=[dev] * H["positions"])
+    y = sharded_resample_fft(xs, H["p"], H["q"], mesh_s, halo=H["halo"])
+    y_blk = resample_fft_blocks(xs.reshape(H["positions"], -1), H["p"], H["q"], halo=H["halo"]).reshape(-1)
+    err = float((y - y_blk).abs().max())
+    check(y.shape == y_blk.shape and err <= HALO_ATOL, f"sharded_resample_fft vs blockwise: {err}")
+    ms_res = batch_ms(lambda: sharded_resample_fft(xs, H["p"], H["q"], mesh_s, halo=H["halo"]))
+    taps = np.hamming(H["fir_taps"]).astype(np.float32)
+    taps /= taps.sum()
+    y8 = sharded_fir(xs, taps, mesh_s)
+    y1 = sharded_fir(xs, taps, carrier_mesh(1, samples=1, devices=[dev]))
+    ref = np.convolve(np.concatenate([np.zeros(len(taps) - 1, np.complex64), xs.cpu().numpy()]), taps, "valid")
+    err_fir = float((y8 - y1).abs().max())
+    err_np = float(np.abs(y8.cpu().numpy() - ref).max())
+    check(err_fir <= FIR_ATOL and err_np <= HALO_ATOL, f"sharded_fir: {err_fir} against one FIR, {err_np} numpy")
+    ms_fir = batch_ms(lambda: sharded_fir(xs, taps, mesh_s))
+    times["halo"] = dict(resample_ms=ms_res, resample_vs_blocks=err, fir_ms=ms_fir, fir_vs_whole=err_fir)
+    print(f"carriers: sharded_resample_fft {H['p']}/{H['q']} halo {H['halo']} on one 30.72 Msps frame over "
+          f"{H['positions']} positions: {err:.3g} from resample_fft_blocks, {ms_res:.3f} ms; sharded_fir "
+          f"({H['fir_taps']} taps): {err_fir:.3g} from one FIR over the stream, {ms_fir:.3f} ms")
+
+    # the 2-D (carriers x subframes) step at 100 PRB
+    nc, ns = GRID_2D
+    grid = np.empty(nc * ns, dtype=object)
+    grid[:] = [dev] * (nc * ns)
+    mesh2d = Mesh(grid.reshape(nc, ns), ("carriers", "subframes"))
+    x2 = x.reshape(nc, ns, *x.shape[1:])
+    reset_launches()
+    tb2, ok2, total2 = grid_step(mesh2d, cell, C["sf_idx"], 1, grant, x2)
+    launches["2-D carriers x subframes step"] = read_launches()
+    check(int(total2) == nc * ns and bool((tb2.reshape(C["n"], -1).cpu().numpy() == sent).all()),
+          f"2-D step: total_ok {int(total2)}")
+    ms2 = batch_ms(lambda: grid_step(mesh2d, cell, C["sf_idx"], 1, grant, x2))
+    times["2-D step"] = dict(ms_per_step=ms2, positions=nc * ns)
+    print(f"carriers: 2-D ({nc} carriers x {ns} subframes) step at {C['prb']} PRB: total_ok {int(total2)}, "
+          f"{ms2:.3f} ms per step")
+    shapes = Counter(turbo_cuda.SHAPES)
+    shapes.subtract(before)
+    return launches, times, +shapes
+
+
+# phase 39: eMBMS at 20 MHz, extended CP, the control region of 2 symbols.
+# MCS 28's own TBS (75376) exceeds the 61200 coded bits of the MBSFN region,
+# so that row takes the TBS of 0.75 x N_PRB, the rule of the shortened DwPTS
+# subframe (55056 bits, code rate 0.9)
+EMBMS = dict(prb=100, region=2, sf_idx=1, area_id=11, amp=0.01, rows=((9, False), (28, True)))
+
+
+def phase_embms(dev):
+    """Phase 39: PMCH in a mixed-CP MBSFN subframe through
+    `ofdm_tx_sf_mbsfn` → AWGN → `ofdm_rx_sf_mbsfn` → `pmch_decode`.
+    Returns ((static, dynamic-K) launches, times, static shapes)."""
+    from srsran_tpu_torch.phy.common import CP, Cell, cp_len_norm
+    from srsran_tpu_torch.phy.fec import turbo_cuda
+    from srsran_tpu_torch.phy.ofdm import OfdmConfig, mbsfn_guard_len, ofdm_rx_sf_mbsfn, ofdm_tx_sf_mbsfn
+    from srsran_tpu_torch.phy.phch.pmch import pmch_decode, pmch_encode_np
+    from srsran_tpu_torch.phy.phch.ra import dl_mcs_to_mod, dl_tbs
+
+    E = EMBMS
+    before = Counter(turbo_cuda.SHAPES)
+    cell = Cell(nof_prb=E["prb"], nof_ports=1, id=301, cp=CP.EXT)
+    ofdm = OfdmConfig.from_cell(cell, normalize=True)
+    n = ofdm.symbol_sz
+    g0 = 2 * n + cp_len_norm(0, n) + cp_len_norm(1, n)
+    glen = mbsfn_guard_len(E["region"], n)
+    rng = np.random.default_rng(39)
+    gen = torch.Generator(device=dev).manual_seed(39)
+    total, times = [0, 0], {}
+    for mcs, short in E["rows"]:
+        mod, tbs = dl_mcs_to_mod(mcs), dl_tbs(mcs, E["prb"], dwpts=short)
+        tb = rng.integers(0, 2, tbs).astype(np.uint8)
+        grid = pmch_encode_np(cell, E["sf_idx"], E["area_id"], mod, tbs, tb)
+        grid[:2] = ((rng.integers(0, 2, (2, grid.shape[1])) * 2 - 1) / np.sqrt(2)).astype(np.complex64)
+        tx = ofdm_tx_sf_mbsfn(ofdm, torch.from_numpy(grid).to(dev), E["region"])
+        check(bool((tx[g0 : g0 + glen] == 0).all()) and bool((tx[g0 - 1] != 0) & (tx[g0 + glen] != 0)),
+              f"PMCH MCS {mcs}: the guard is not exactly the zero gap")
+        noise = torch.complex(torch.randn(tx.shape, generator=gen, device=dev),
+                              torch.randn(tx.shape, generator=gen, device=dev))
+        rx = tx + E["amp"] * noise
+
+        def decode():
+            return pmch_decode(ofdm_rx_sf_mbsfn(ofdm, rx, E["region"]), cell, E["sf_idx"], E["area_id"],
+                               mod, tbs)
+
+        reset_launches()
+        tb_hat, ok = decode()
+        got = read_launches()
+        check(ok and bool((tb_hat.cpu().numpy() == tb).all()), f"PMCH MCS {mcs}: TB not decoded")
+        check(got[0] > 0 and got[1] == 0, f"PMCH MCS {mcs}: map launches {got}")
+        total = [a + b for a, b in zip(total, got)]
+        ms = batch_ms(decode)
+        times[f"PMCH MCS {mcs}"] = dict(tbs=tbs, ms_per_subframe=ms, map_launches=list(got))
+        print(f"embms: PMCH MCS {mcs} ({mod.name}, tbs {tbs}) in a {E['prb']} PRB MBSFN subframe, "
+              f"{E['region']} normal-CP symbols + {glen}-sample zero guard + extended CP, AWGN {E['amp']}: "
+              f"CRC ok, the sent TB; {ms:.3f} ms per subframe (demod + decode, CUDA events), "
+              f"{got[0]} MAP launches")
+    shapes = Counter(turbo_cuda.SHAPES)
+    shapes.subtract(before)
+    return tuple(total), times, +shapes
+
+
+# phase 40: NB-IoT, the anchor carrier at 1.92 Msps
+NBIOT = dict(cell=257, cfo=0.02, offset=777, amp=0.02, frames=4,
+             scan=((2500, 11, 0.01, 100), (2502, None, 0, 0), (2504, 200, -0.015, 5000),
+                   (2506, None, 0, 0), (2508, 404, 0.005, 12345), (2510, None, 0, 0),
+                   (2512, 503, -0.02, 17), (2514, None, 0, 0)))
+
+
+def nbiot_capture(ncell: int, rng, cfo: float, offset: int, amp: float, frames: int = 4, mib=None):
+    """Raw 1.92 Msps samples of `frames` anchor frames of cell `ncell` behind
+    a timing offset, CFO (subcarriers), a phase and AWGN; numpy."""
+    from srsran_tpu_torch.examples.cell_search_nbiot import anchor_frame
+    from srsran_tpu_torch.phy.phch.npbch import MibNb
+    from srsran_tpu_torch.phy.ue.ue_sync_nbiot import FFT, nbiot_modulate_np
+
+    tx = nbiot_modulate_np(np.tile(anchor_frame(ncell, mib or MibNb(sfn_msb=5, op_mode=2)), (frames, 1, 1)))
+    n = np.arange(len(tx))
+    rx = np.concatenate([np.zeros(offset, np.complex64),
+                         tx * np.exp(2j * np.pi * cfo * n / FFT) * np.exp(0.7j) * 0.8])
+    return (rx + amp * (rng.standard_normal(len(rx)) + 1j * rng.standard_normal(len(rx)))).astype(np.complex64)
+
+
+def phase_nbiot(dev):
+    """Phase 40: raw acquisition, the EARFCN scan, NPDCCH → NPDSCH, NPRACH,
+    the two example scripts.  Returns times (no MAP kernel on this path: the
+    tail-biting Viterbi)."""
+    from srsran_tpu_torch.examples import cell_search_nbiot, npdsch_ue
+    from srsran_tpu_torch.phy.phch.npbch import MibNb
+    from srsran_tpu_torch.phy.phch.nprach import nprach_detect, nprach_generate_np
+    from srsran_tpu_torch.phy.ue.ue_nbiot import nbiot_ue_rx_data
+    from srsran_tpu_torch.phy.ue.ue_sync_nbiot import SF_LEN, nbiot_acquire_raw, nbiot_cell_search_scan
+
+    N = NBIOT
+    rng = np.random.default_rng(40)
+    mib = MibNb(sfn_msb=5, op_mode=2)
+    rx = nbiot_capture(N["cell"], rng, N["cfo"], N["offset"], N["amp"], N["frames"], mib)
+    reset_launches()
+    res = nbiot_acquire_raw(rx)
+    check(read_launches() == (0, 0), "NB-IoT launched the MAP kernel")
+    check(res is not None and res.cell.n_id_ncell == N["cell"] and res.cell.mib == mib,
+          "NB-IoT raw acquisition failed")
+    check(abs(res.cfo - N["cfo"]) < 0.005 and res.timing % (10 * SF_LEN) == N["offset"] % (10 * SF_LEN),
+          f"NB-IoT raw acquisition: cfo {res.cfo}, timing {res.timing}")
+    check(res.grids.device == dev, "NB-IoT grids are not on the card")
+    times = {"acquire_raw_ms": wall_ms(lambda: nbiot_acquire_raw(rx), 3)}
+    caps, want = {}, []
+    for earfcn, ncell, cfo, offset in N["scan"]:
+        if ncell is None:
+            caps[earfcn] = (0.1 * (rng.standard_normal(len(rx)) + 1j * rng.standard_normal(len(rx)))
+                            ).astype(np.complex64)
+        else:
+            caps[earfcn] = nbiot_capture(ncell, rng, cfo, offset, N["amp"])[: len(rx)]
+            want.append((earfcn, ncell))
+    found = nbiot_cell_search_scan(caps)
+    check([(e, r.cell.n_id_ncell) for e, r in found] == want, f"NB-IoT scan found {found}")
+    times["scan_8_earfcn_ms"] = wall_ms(lambda: nbiot_cell_search_scan(caps), 1)
+    # NPDCCH -> NPDSCH on the acquired grids of the npdsch_ue stream
+    raw, rnti, tb = npdsch_ue.selftest_stream(np.random.default_rng(11))
+    acq = nbiot_acquire_raw(raw)
+    check(acq is not None, "NB-IoT: the NPDSCH stream was not acquired")
+    dci, tb_hat, ok = nbiot_ue_rx_data(acq.grids[1], acq.grids[2:4], acq.cell, rnti, 1, 2)
+    check(dci is not None and ok and np.array_equal(tb_hat, tb), "NB-IoT NPDCCH -> NPDSCH failed")
+    times["npdcch_npdsch_ms"] = wall_ms(
+        lambda: nbiot_ue_rx_data(acq.grids[1], acq.grids[2:4], acq.cell, rnti, 1, 2), 5)
+    for n_init in (0, 5, 11):
+        p = nprach_generate_np(n_init)
+        prx = (p * np.complex64(0.7) + 0.1 * (rng.standard_normal(len(p)) + 1j * rng.standard_normal(len(p)))
+               ).astype(np.complex64)
+        metric, det, _delay = nprach_detect(prx)
+        check(bool(det[n_init]) and int(torch.argmax(metric)) == n_init, f"NPRACH {n_init} not detected")
+    _m, det, _d = nprach_detect((0.1 * (rng.standard_normal(5376) + 1j * rng.standard_normal(5376))
+                                 ).astype(np.complex64))
+    check(not bool(det.any()), "NPRACH detected a preamble in noise")
+    times["nprach_detect_ms"] = wall_ms(lambda: nprach_detect(prx), 10)
+    for name, mod in (("cell_search_nbiot", cell_search_nbiot), ("npdsch_ue", npdsch_ue)):
+        rc, out, s = run_main(mod.main, ["--selftest"])
+        check(rc == 0 and "selftest:" in out and "FAILED" not in out, f"example {name}: rc {rc}\n{out}")
+        times[f"example {name} s"] = s
+        print(f"nbiot: example {name} --selftest ({s:.2f} s): {out.strip().splitlines()[-1]}")
+    print(f"nbiot: raw acquisition of a {N['frames'] * 10} ms capture (cell {N['cell']}, CFO {N['cfo']} "
+          f"subcarriers, offset {N['offset']}): cell, MIB-NB, CFO {res.cfo:+.4f}, timing {res.timing}; "
+          f"{times['acquire_raw_ms']:.2f} ms; scan of 8 EARFCNs ({len(want)} cells): "
+          f"{times['scan_8_earfcn_ms']:.2f} ms; NPDCCH -> NPDSCH {times['npdcch_npdsch_ms']:.2f} ms; "
+          f"nprach_detect {times['nprach_detect_ms']:.3f} ms (host clock, synchronised)")
+    return times
+
+
+# phase 41: sidelink.  Each stored capture through examples/pssch_ue.py with
+# the (SCIs, TBs) that the reference script gives on it (the TM2 captures:
+# the reference script stops at its MIB print, the port's goes on; the data
+# there waits for a later subframe, as test_sidelink_full_chain_golden has it)
+PSSCH_UE_CAPTURES = (
+    ("signal_sidelink_ideal_tm2_p6_c0_s1.92e6.dat", "-p 6 --tm2", (1, 0)),
+    ("signal_sidelink_ideal_tm2_p15_c84_s3.84e6.dat", "-p 15 --tm2", (1, 0)),
+    ("signal_sidelink_ideal_tm2_p25_c168_s7.68e6.dat", "-p 25 --tm2", (1, 0)),
+    ("signal_sidelink_ideal_tm2_p50_c252_s15.36e6.dat", "-p 50 --tm2", (1, 0)),
+    ("signal_sidelink_ideal_tm2_p100_c335_s30.72e6.dat", "-p 100 --tm2", (1, 0)),
+    ("signal_sidelink_ideal_tm2_p50_c252_s15.36e6_ext.dat", "-p 50 --tm2", (0, 0)),
+    ("signal_sidelink_ideal_tm4_p100_c335_size10_num10_cshift0_s30.72e6.dat",
+     "-p 100 --size-sub-channel 10", (1, 0)),
+    ("signal_sidelink_cmw500_f5.92e9_s11.52e6_50prb_slss_id169.dat", "-p 50 --nonstandard-rates", (0, 0)),
+    ("signal_sidelink_cmw500_f5.92e9_s11.52e6_50prb_0offset_1ms.dat",
+     "-p 50 --nonstandard-rates --num-sub-channel 5 --size-sub-channel 10", (1, 1)),
+    ("signal_sidelink_huawei_s11.52e6_50prb_10prb_offset_with_retx.dat",
+     "-p 50 --nonstandard-rates --num-sub-channel 5 --size-sub-channel 10", (2, 0)),
+    ("signal_sidelink_qc9150_f5.92e9_s15.36e6_50prb_20offset.dat",
+     "-p 50 --num-sub-channel 5 --size-sub-channel 10", (1, 0)),
+    ("signal_sidelink_uxm_s15.36e6_50prb_0prb_offset_mcs12.dat", "-p 50", (2, 2)),
+    ("signal_sidelink_uxm_s15.36e6_50prb_0prb_offset_mcs28_padding_5ms.dat", "-p 50", (5, 0)),
+    ("signal_sidelink_uxm_s23.04e6_100prb_1prb_offset_mcs12_padding.dat",
+     "-p 100 --nonstandard-rates --size-sub-channel 10", (4, 4)),
+    ("signal_sidelink_uxm_s30.72e6_100prb_1prb_offset_mcs12_its.dat", "-p 100 --size-sub-channel 10", (1, 0)),
+)
+SIDELINK_SEEDED = dict(prb=100, mcs=20, n_x_id=1234, sf_idx=4, amp=0.02)
+
+
+def phase_sidelink(dev):
+    """Phase 41: `pssch_ue` on every stored capture, the 100 PRB TM2 chain,
+    the four subframes of the 100 PRB UXM capture, a seeded PSSCH at 100 PRB.
+    Returns ((static, dynamic-K) launches, times, static shapes)."""
+    from srsran_tpu_torch.examples import pssch_ue
+    from srsran_tpu_torch.phy.common import Cell
+    from srsran_tpu_torch.phy.fec import turbo_cuda
+    from srsran_tpu_torch.phy.ofdm import OfdmConfig, ofdm_rx_sf, ofdm_tx_sf
+    from srsran_tpu_torch.phy.phch.pscch import pscch_decode, pscch_search_tm34
+    from srsran_tpu_torch.phy.phch.pssch import pssch_decode, pssch_decode_tm34, put_pssch_np
+    from srsran_tpu_torch.phy.phch.ra import riv_decode, tbs_lookup, ul_mcs_to_itbs
+
+    before = Counter(turbo_cuda.SHAPES)
+    times, total = {}, [0, 0]
+
+    def grids(name, cell, n_sf):
+        x = torch.from_numpy(np.fromfile(VECTORS / name, np.complex64)).to(dev)
+        ofdm = OfdmConfig.from_cell(cell, normalize=True, freq_shift_f=-0.5)
+        return ofdm_rx_sf(ofdm, x[: n_sf * cell.sf_len].reshape(n_sf, cell.sf_len))
+
+    reset_launches()
+    for name, args, want in PSSCH_UE_CAPTURES:
+        rc, out, s = run_main(pssch_ue.main, ["-i", str(VECTORS / name)] + args.split())
+        res = json.loads(out.strip().splitlines()[-1])
+        check((res["scis"], res["tbs"]) == want and rc == (0 if want[0] else 1),
+              f"pssch_ue {name}: rc {rc}, {res}, expected {want}")
+        times[f"pssch_ue {name}"] = dict(s=s, ms_per_subframe=s * 1e3 / res["subframes"], **res)
+        print(f"sidelink: pssch_ue {name} {args}: {res['scis']} SCIs, {res['tbs']} TBs in {res['subframes']} "
+              f"subframes, {s:.2f} s ({s * 1e3 / res['subframes']:.1f} ms per subframe, host clock)")
+    got = read_launches()
+    total = [a + b for a, b in zip(total, got)]
+    check(got[0] > 0, "pssch_ue launched no MAP kernel")
+
+    # the TM2 full chain on the 100 PRB capture: SCI-0 in sf 1, its TB in sf 3
+    cell = Cell(nof_prb=100, nof_ports=1, id=0)
+    g = grids("signal_sidelink_ideal_tm2_p100_c335_s30.72e6.dat", cell, 4)
+
+    def tm2_chain():
+        sci, ok = pscch_decode(g[1], cell, prb_idx=0)
+        rb0, l_crb = riv_decode(100, sci.riv)
+        return ok, pssch_decode(g[3], cell, sci.n_sa_id, sci.mcs_idx, rb0, l_crb, sf_idx=0, rv=0)
+
+    reset_launches()
+    ok_sci, (tb, ok) = tm2_chain()
+    got = read_launches()
+    total = [a + b for a, b in zip(total, got)]
+    check(ok_sci and ok and np.packbits(tb.cpu().numpy()).tobytes() == bytes.fromhex("c8e4"),
+          "sidelink TM2 chain: the TB is not c8e4")
+    times["tm2_chain_ms"] = wall_ms(tm2_chain, 5)
+
+    # the 100 PRB UXM capture at 23.04 Msps: 4 SCIs, 4 TBs of 9528 bits
+    cell_u = Cell(nof_prb=100, nof_ports=1, id=0, use_standard_rates=False)
+    gu = grids("signal_sidelink_uxm_s23.04e6_100prb_1prb_offset_mcs12_padding.dat", cell_u, 4)
+
+    def uxm_subframe(sf):
+        hits = pscch_search_tm34(gu[sf], cell_u, [0], 10)
+        if not hits:
+            return None, None, (torch.zeros(0), False)
+        _p, _cs, sci, crc = hits[-1]
+        n_x_id = int("".join(map(str, crc)), 2)
+        return sci, n_x_id, pssch_decode_tm34(gu[sf], cell_u, n_x_id, sci.mcs_idx, 2, 48, sf_idx=sf, rv=0)
+
+    reset_launches()
+    for sf in range(4):
+        sci, n_x_id, (tb, ok) = uxm_subframe(sf)
+        check(sci is not None and sci.mcs_idx == 12 and sci.riv == 40 and n_x_id == 28300,
+              f"UXM 100 PRB sf {sf}: SCI {sci}, N_x_id {n_x_id}")
+        check(ok and len(tb) == 9528, f"UXM 100 PRB sf {sf}: TB not decoded")
+    got = read_launches()
+    total = [a + b for a, b in zip(total, got)]
+    times["uxm_100prb_ms_per_subframe"] = wall_ms(lambda: uxm_subframe(1), 5)
+
+    # a seeded PSSCH at 100 PRB, the widest valid allocation, MCS 20
+    S = SIDELINK_SEEDED
+    rng = np.random.default_rng(41)
+    tbs = tbs_lookup(ul_mcs_to_itbs(S["mcs"]), S["prb"])
+    tb_sent = rng.integers(0, 2, tbs).astype(np.uint8)
+    grid = np.zeros((cell.nsymb_per_sf, cell.nof_re_per_symbol), np.complex64)
+    put_pssch_np(grid, cell, tb_sent, S["n_x_id"], S["mcs"], 0, S["prb"], S["sf_idx"])
+    tx = ofdm_tx_sf(OfdmConfig.from_cell(cell, normalize=True, freq_shift_f=0.5), torch.from_numpy(grid).to(dev))
+    gen = torch.Generator(device=dev).manual_seed(41)
+    rx = tx + S["amp"] * torch.complex(torch.randn(tx.shape, generator=gen, device=dev),
+                                       torch.randn(tx.shape, generator=gen, device=dev))
+    ofdm_rx = OfdmConfig.from_cell(cell, normalize=True, freq_shift_f=-0.5)
+
+    def seeded():
+        return pssch_decode(ofdm_rx_sf(ofdm_rx, rx), cell, S["n_x_id"], S["mcs"], 0, S["prb"], S["sf_idx"])
+
+    reset_launches()
+    tb, ok = seeded()
+    got = read_launches()
+    total = [a + b for a, b in zip(total, got)]
+    check(ok and bool((tb.cpu().numpy() == tb_sent).all()), "seeded PSSCH at 100 PRB not decoded")
+    times["seeded_pssch_ms"] = batch_ms(seeded)
+    print(f"sidelink: TM2 chain on the 100 PRB capture (SCI sf 1 -> TB sf 3, c8e4): {times['tm2_chain_ms']:.2f} ms; "
+          f"UXM 100 PRB 23.04 Msps: 4 SCIs, 4 TBs of 9528 bits, {times['uxm_100prb_ms_per_subframe']:.2f} ms "
+          f"per subframe (host clock); seeded PSSCH {S['prb']} PRB MCS {S['mcs']} (tbs {tbs}): ok, "
+          f"{times['seeded_pssch_ms']:.3f} ms per subframe (CUDA events)")
+    check(total[1] == 0, "sidelink launched the dynamic-K mode")
+    shapes = Counter(turbo_cuda.SHAPES)
+    shapes.subtract(before)
+    return tuple(total), times, +shapes
+
+
 def phase_static_shapes(dev, shapes) -> tuple[float, list]:
     """Phase 25: the static kernel against `map_pass_plain` at every (B, nw,
     lw, T) that phases 22-24 launched it at.  Returns (max_abs_err, [dict
@@ -4671,6 +5177,21 @@ def main() -> int:
     mark("phase 37: the examples, the Wiener estimators and the resamplers")
     by_path["examples"], windows["examples"], example_shapes = phase_examples(dev)
     rx_shapes.update(example_shapes)
+    torch.cuda.empty_cache()
+    # phases 38-41: more than one device, eMBMS, NB-IoT, sidelink
+    mark("phase 38: carriers over a mesh")
+    carrier_paths, windows["carriers"], carrier_shapes = phase_carriers(dev)
+    by_path.update(carrier_paths)
+    rx_shapes.update(carrier_shapes)
+    torch.cuda.empty_cache()
+    mark("phase 39: eMBMS")
+    by_path["PMCH"], windows["eMBMS"], embms_shapes = phase_embms(dev)
+    rx_shapes.update(embms_shapes)
+    mark("phase 40: NB-IoT")
+    windows["NB-IoT"] = phase_nbiot(dev)
+    mark("phase 41: sidelink")
+    by_path["sidelink"], windows["sidelink"], sl_shapes = phase_sidelink(dev)
+    rx_shapes.update(sl_shapes)
     torch.cuda.empty_cache()
     mark("phase 25: the static kernel at the receive chains' and the stack's shapes")
     max_err_rx, rx_rows = phase_static_shapes(dev, {k: v for k, v in rx_shapes.items() if not k[4]})

@@ -163,3 +163,97 @@ def ofdm_tx_sf(cfg: OfdmConfig, grid: torch.Tensor) -> torch.Tensor:
     if shift is not None:
         out = out * shift
     return out.to(torch.complex64)
+
+
+# ---------------------------------------------------------------------------
+# MBSFN mixed-CP subframes (ofdm.c:429-443 ofdm_rx_slot_mbsfn,
+# ofdm.c:543-560 ofdm_tx_slot_mbsfn)
+# ---------------------------------------------------------------------------
+
+
+def mbsfn_guard_len(non_mbsfn_region: int, symbol_sz: int) -> int:
+    """SRSLTE_NON_MBSFN_REGION_GUARD_LENGTH (phy_common.h:162-165): the gap
+    that realigns the normal-CP control region to the extended-CP grid."""
+    if non_mbsfn_region == 1:
+        return cp_len_ext(symbol_sz) - cp_len_norm(0, symbol_sz)
+    return (
+        2 * cp_len_ext(symbol_sz)
+        - cp_len_norm(0, symbol_sz)
+        - cp_len_norm(1, symbol_sz)
+    )
+
+
+def _mbsfn_layout(cfg: OfdmConfig, non_mbsfn_region: int):
+    """Per-symbol (cp_len, fft_window_start) for the 12-symbol mixed
+    subframe: slot 0 = non_mbsfn_region normal-CP symbols + guard +
+    extended-CP symbols; slot 1 = a regular extended-CP slot."""
+    n = cfg.symbol_sz
+    layout = []
+    t = 0
+    for i in range(6):  # slot 0 (mbsfn layout)
+        if i == non_mbsfn_region:
+            t += mbsfn_guard_len(non_mbsfn_region, n)
+        cp = cp_len_norm(i, n) if i < non_mbsfn_region else cp_len_ext(n)
+        layout.append((cp, t + cp))
+        t += cp + n
+    t = cfg.slot_sz
+    for _ in range(6):  # slot 1 (pure extended CP)
+        cp = cp_len_ext(n)
+        layout.append((cp, t + cp))
+        t += cp + n
+    return layout
+
+
+def _mbsfn_window_index(cfg: OfdmConfig, non_mbsfn_region: int) -> np.ndarray:
+    """(12, N) sample index of every FFT window of the mixed subframe."""
+    starts = np.array([s for _cp, s in _mbsfn_layout(cfg, non_mbsfn_region)])
+    return (starts[:, None] + np.arange(cfg.symbol_sz)[None, :]).astype(np.int64)
+
+
+def _mbsfn_tx_index(cfg: OfdmConfig, non_mbsfn_region: int) -> tuple:
+    """(dst, src): the subframe sample each (symbol, CP-extended sample)
+    lands on, and its flat index in the (12, N) IFFT output; the guard is
+    never written."""
+    n = cfg.symbol_sz
+    dst, src = [], []
+    for i, (cp, start) in enumerate(_mbsfn_layout(cfg, non_mbsfn_region)):
+        dst.append(np.arange(start - cp, start + n))
+        src.append(i * n + np.concatenate([np.arange(n - cp, n), np.arange(n)]))
+    return np.concatenate(dst).astype(np.int64), np.concatenate(src).astype(np.int64)
+
+
+def ofdm_rx_sf_mbsfn(cfg: OfdmConfig, samples: torch.Tensor, non_mbsfn_region: int = 2) -> torch.Tensor:
+    """Demodulate an MBSFN subframe: (..., sf_sz) → (..., 12, nof_re); the 12
+    windows are one gather and one FFT.
+
+    The first `non_mbsfn_region` output symbols are the normal-CP control
+    region (CRS/PDCCH of the host cell); the rest is the extended-CP MBSFN
+    region.  `cfg.cp` must be CP.EXT (grid indexing is extended-CP)."""
+    n = cfg.symbol_sz
+    nre = cfg.nof_re
+    x = samples[..., table(_mbsfn_window_index, cfg, non_mbsfn_region, device=samples.device)]
+    bins = torch.fft.fft(x, dim=-1)
+    grid = torch.cat([bins[..., n - nre // 2 :], bins[..., 1 : 1 + nre // 2]], dim=-1)
+    if cfg.normalize:
+        grid = grid * (1.0 / np.sqrt(n))
+    return grid.to(torch.complex64)
+
+
+def ofdm_tx_sf_mbsfn(cfg: OfdmConfig, grid: torch.Tensor, non_mbsfn_region: int = 2) -> torch.Tensor:
+    """Modulate an MBSFN subframe: (..., 12, nof_re) → (..., sf_sz).
+
+    The guard between the control and MBSFN regions stays exactly zero, as
+    in the reference (the TX output buffer is pre-zeroed and skipped)."""
+    n = cfg.symbol_sz
+    nre = cfg.nof_re
+    batch = grid.shape[:-2]
+    bins = grid.new_zeros(batch + (12, n), dtype=torch.complex64)
+    bins[..., 1 : 1 + nre // 2] = grid[..., nre // 2 :]
+    bins[..., n - nre // 2 :] = grid[..., : nre // 2]
+    sym = torch.fft.ifft(bins, dim=-1) * n
+    if cfg.normalize:
+        sym = sym * (1.0 / np.sqrt(n))
+    dst, src = table(_mbsfn_tx_index, cfg, non_mbsfn_region, device=grid.device)
+    out = sym.new_zeros(batch + (cfg.sf_sz,))
+    out[..., dst] = sym.reshape(batch + (12 * n,))[..., src]
+    return out.to(torch.complex64)

@@ -5,6 +5,9 @@ of `srsran_tpu/pipeline.py`.
   port 0, SFBC combining for transmit diversity, 2x2 MMSE for one-codeword
   spatial multiplexing) → soft demod → CSI weighting → descramble →
   de-rate-match → batched turbo decode → CRC.
+* `multi_carrier_ue_dl`: `ue_dl_subframe` over a carriers axis, as a batch
+  on one device or block by block over the positions of a
+  `parallel.carrier_mesh`.
 * `ue_dl_subframe_mimo`: the 2x2 two-codeword (TM3/TM4) decode; both
   codewords' codeblocks decode in one `turbo_decode` per distinct
   (K, CRC polynomial).
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 
 from .device import resolve, table
+from .parallel.mesh import split_rows
 from .phy.chest.chest_dl import chest_dl
 from .phy.chest.chest_ul import chest_ul
 from .phy.chest.refsignal_dl import put_crs_np
@@ -102,6 +106,43 @@ def ue_dl_subframe(cell: Cell, sf_idx: int, cfi: int, grant: DlGrant,
         return tb, ok, _snr_db(res["snr"])
 
     return fn
+
+
+def multi_carrier_ue_dl(cell: Cell, sf_idx: int, cfi: int, grant: DlGrant, mesh=None,
+                        axis: str = "carriers", max_iterations: int = 5, *, device=None):
+    """The carrier pipeline: `ue_dl_subframe` over a leading carriers axis.
+
+    Returns fn(samples (n_carriers, nrx, sf_len) complex64) ->
+      (tb (n_carriers, tbs) uint8, ok (n_carriers,) bool, total_ok () int32).
+    Without a mesh the carriers are the batch axis of one decode on
+    `device`.  With a mesh (`parallel.carrier_mesh`) the positions along
+    `axis` each decode a contiguous block of carriers on their own device,
+    from wherever the samples lie; `tb` and `ok` come back in carrier order
+    and `total_ok` is their sum, all on the first position's device.
+    `device` is for the meshless form only."""
+    if mesh is None:
+        single = ue_dl_subframe(cell, sf_idx, cfi, grant, max_iterations, device=device)
+
+        def all_carriers(samples: torch.Tensor):
+            tb, ok, _snr = single(samples)
+            return tb, ok, ok.sum(dtype=torch.int32)
+
+        return all_carriers
+    if device is not None:
+        raise ValueError("with a mesh the positions name the devices; leave device=None")
+    positions = mesh.axis_devices(axis)
+    per_device = {d: ue_dl_subframe(cell, sf_idx, cfi, grant, max_iterations, device=d)
+                  for d in dict.fromkeys(positions)}
+
+    def sharded(samples: torch.Tensor):
+        blocks = split_rows(samples, positions)
+        outs = [per_device[d](blk) for d, blk in zip(positions, blocks)]
+        home = positions[0]
+        tb = torch.cat([o[0].to(home) for o in outs])
+        ok = torch.cat([o[1].to(home) for o in outs])
+        return tb, ok, ok.sum(dtype=torch.int32)
+
+    return sharded
 
 
 def ue_dl_subframe_mimo(cell: Cell, sf_idx: int, cfi: int, grant: DlGrant2,

@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from .device import resolve, sized_table, table
+from .parallel.mesh import split_rows
 from .phy.chest.chest_dl import ChestDlConfig, _chest_tables, _device_tables
 from .phy.chest.chest_ul import dmrs_symbols, time_interp_weights
 from .phy.chest.refsignal_dl import put_crs_np
@@ -171,25 +172,47 @@ def _dequantize(samples_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
+def _banded_tables(cell: Cell, port: int):
+    """The CRS estimate's tables for the window front end: pilot positions,
+    the frequency filter as the columns and weights of each output row's
+    nonzeros (idx, val (4, nre, J), J the most of any row; zero weights pad,
+    in ascending column order) and the time interpolation (nsymb, 4)."""
+    syms, freqs, _ref, wf, wt = _device_tables(cell, 0, ChestDlConfig(), port)
+    nz = np.abs(wf) > 0
+    order = np.argsort(~nz, axis=-1, kind="stable")[..., : int(nz.sum(-1).max())]
+    val = np.take_along_axis(wf, order, -1) * np.take_along_axis(nz, order, -1)
+    return syms, freqs, order.astype(np.int64), val.astype(np.complex64), wt
+
+
 def _build_win_a(cell: Cell, nof_ports: int, device):
     """Front end for W subframes: OFDM demod and the CRS channel estimate (1
     or 2 ports), batched over the window.
 
     The only subframe-dependent input is the conjugated CRS sequence, (W,
     nof_ports, 4, npil) complex64, so one function serves all ten subframe
-    indices.  Returns (grid (W, nrx, nsymb, nre), ce (W, nrx, nof_ports,
+    indices.  The filters run as elementwise products and sums in a fixed
+    order (the frequency filter over its few nonzeros per row), so a row's
+    result does not depend on how many rows share the call: a window split
+    over devices (`WindowedUeDl._front_sharded`) decodes bit for bit as
+    the whole.  Returns (grid (W, nrx, nsymb, nre), ce (W, nrx, nof_ports,
     nsymb, nre), noise (W,))."""
     ofdm = OfdmConfig.from_cell(cell, normalize=True)
-    tabs = [table(_device_tables, cell, 0, ChestDlConfig(), p, device=device)
-            for p in range(nof_ports)]
+    tabs = [table(_banded_tables, cell, p, device=device) for p in range(nof_ports)]
 
     def fn(samples_q, scale, ref_conj):
         grid = ofdm_rx_sf(ofdm, _dequantize(samples_q, scale))
         ces, noise = [], 0.0
-        for p, (syms, freqs, _ref, wf, wt) in enumerate(tabs):
+        for p, (syms, freqs, idx, val, wt) in enumerate(tabs):
             ls = grid[..., syms, freqs] * ref_conj[:, None, p]  # (W, nrx, 4, npil)
-            per_sym = torch.einsum("snp,...sp->...sn", wf, ls)
-            ces.append(torch.einsum("ls,...sn->...ln", wt, per_sym))
+            taps = torch.gather(ls, -1, idx.reshape(4, -1).expand(ls.shape[:-1] + (-1,)))
+            taps = taps.reshape(ls.shape[:-1] + idx.shape[1:])  # (W, nrx, 4, nre, J)
+            per_sym = taps[..., 0] * val[..., 0]
+            for j in range(1, idx.shape[-1]):
+                per_sym = per_sym + taps[..., j] * val[..., j]
+            ce = wt[:, 0, None] * per_sym[..., 0, None, :]
+            for k in range(1, wt.shape[1]):
+                ce = ce + wt[:, k, None] * per_sym[..., k, None, :]
+            ces.append(ce)
             resid = ls[..., 1:-1] - 0.5 * (ls[..., 2:] + ls[..., :-2])
             noise = noise + torch.mean(resid.abs() ** 2, dim=(1, 2, 3)) / 1.5
         return grid, torch.stack(ces, dim=2).to(torch.complex64), noise / nof_ports
@@ -735,6 +758,8 @@ class _WindowedDecoder:
     subclass builds the plan (`_plan`): an ordered (name, fn) chain in which
     each fn takes the previous stage's output, and the window's pack."""
 
+    _SHARDS = False  # whether dispatch_window takes a sharding
+
     def __init__(self, cell: Cell, w: int, max_iterations: int, ingest: str, device):
         if ingest not in _INGEST:
             raise ValueError(f"ingest {ingest!r} is not one of {tuple(_INGEST)}")
@@ -762,8 +787,9 @@ class _WindowedDecoder:
         return self._dev(samples_q), self._dev(scale)
 
     def _check(self, sf_indices, grants, sharding=None):
-        if sharding is not None:
-            raise NotImplementedError("sharding the window axis over devices is not ported")
+        if sharding is not None and not self._SHARDS:
+            raise NotImplementedError(
+                f"{type(self).__name__} does not shard its window axis over devices")
         if len(sf_indices) != self.w or len(grants) != self.w:
             raise ValueError(f"a window takes {self.w} subframe indices and grants, got "
                              f"{len(sf_indices)} and {len(grants)}")
@@ -781,9 +807,11 @@ class _WindowedDecoder:
         this object's device); sf_indices, grants: length-W lists.  Results
         stay on the device until `results`.  softbuffer: None, the dense
         softbuffer of an earlier window with the same codeblock layout, or a
-        `make_softbuffer` list.  sharding: only None (one device)."""
+        `make_softbuffer` list.  sharding: None (this object's device), or a
+        `parallel.mesh.NamedSharding` whose leading axis splits the W rows
+        over its positions for stage A (`WindowedUeDl`)."""
         self._check(sf_indices, grants, sharding)
-        return self._run(*self._plan(samples, sf_indices, grants, softbuffer))
+        return self._run(*self._plan(samples, sf_indices, grants, softbuffer, sharding=sharding))
 
     def dispatch_window_from(self, abc, sf_indices, grants, softbuffer=None) -> PendingWindow:
         """Decode a window of grants from a stored front-end pass over the
@@ -839,6 +867,7 @@ class WindowedUeDl(_WindowedDecoder):
     device (and raises when there is none); the tests pass "cpu"."""
 
     _SCHEMES = ("port0", "diversity")
+    _SHARDS = True
 
     def __init__(self, cell: Cell, cfi: int = 1, w: int = 32, max_iterations: int = 5,
                  scheme: str = "port0", ingest: str = "int8", *, device=None):
@@ -849,6 +878,7 @@ class WindowedUeDl(_WindowedDecoder):
         self.scheme = scheme
         self.nof_ports = 1 if scheme == "port0" else 2
         self._a = _build_win_a(cell, self.nof_ports, self.device)
+        self._a_on = {self.device: self._a}  # stage A per position device
 
     def _b_for(self, qms: tuple):
         # keyed on the window's Qm set: a uniform window demodulates once
@@ -883,19 +913,47 @@ class WindowedUeDl(_WindowedDecoder):
         rows = [self._idx(*k)[0] for k in keys]
         return torch.stack(rows + [rows[0]] * (ncls - len(rows))), cls_re, n_re
 
-    def _front(self, samples, sf_indices, abc):
+    def _front(self, samples, sf_indices, abc, sharding=None):
         """Stage A of the plan: the stored pass, or the upload and the
-        front end."""
+        front end (on this object's device, or split over `sharding`)."""
         if abc is not None:
             return lambda _prev: abc
-        sq, sc = self._upload(samples)
         refs = torch.stack([self._ref(s) for s in sf_indices])
+        if sharding is not None:
+            return self._front_sharded(samples, refs, sharding.positions())
+        sq, sc = self._upload(samples)
         return lambda _prev: self._a(sq, sc, refs)
 
-    def _plan(self, samples, sf_indices, grants, softbuffer=None, abc=None):
+    def _front_sharded(self, samples, refs, devices):
+        """Stage A over the positions `devices`: each takes a contiguous block
+        of the W rows with their ingest scales, uploaded (or copied, for
+        device ingest) straight to its device, and runs the front end there;
+        the grids, channel estimates and noise come back to this object's
+        device in row order for stages B and C.  Every row's arithmetic is
+        the unsharded one's, so the window decodes bit for bit alike."""
+        samples_q, scale = _quantize_ingest(samples, self.ingest)
+        if isinstance(samples_q, torch.Tensor):
+            if samples_q.device != self.device:
+                raise ValueError(f"samples are on {samples_q.device}, expected {self.device}")
+        else:
+            samples_q = torch.from_numpy(np.ascontiguousarray(samples_q))
+        blocks = list(zip(split_rows(samples_q, devices),
+                          split_rows(torch.from_numpy(scale), devices),
+                          split_rows(refs, devices)))
+        for d in devices:
+            if d not in self._a_on:
+                self._a_on[d] = _build_win_a(self.cell, self.nof_ports, d)
+
+        def stage_a(_prev):
+            outs = [self._a_on[d](*blk) for d, blk in zip(devices, blocks)]
+            return tuple(torch.cat([o[i].to(self.device) for o in outs]) for i in range(3))
+
+        return stage_a
+
+    def _plan(self, samples, sf_indices, grants, softbuffer=None, abc=None, sharding=None):
         """Staged (name, fn) chain and the window's pack.  abc: optional
         (grid, ce, noise) of a front-end pass over the same W TTIs; stage A
-        is then skipped."""
+        is then skipped.  sharding: see `dispatch_window`."""
         w = self.w
         idx_cls, cls_re, n_res = self._re_classes(sf_indices, grants)
         signs = torch.stack([self._signs(g.rnti, s) for s, g in zip(sf_indices, grants)])
@@ -908,7 +966,7 @@ class WindowedUeDl(_WindowedDecoder):
         bfn = self._b_for(tuple(sorted({g.qm for g in grants})))
         cfn = self._c_for(pack.key)
         stages = [
-            ("A", self._front(samples, sf_indices, abc)),
+            ("A", self._front(samples, sf_indices, abc, sharding)),
             ("B", lambda a: bfn(a[0], a[1], a[2], idx_cls, bp[:, 2], bp[:, 0], bp[:, 1], signs)),
             ("C", lambda llr: cfn(llr, pdev[3 * w:], *tabs, soft)),
         ]
@@ -931,7 +989,10 @@ class WindowedUeDlMimo(WindowedUeDl):
             self._b_cache[qms] = _build_win_b_mimo(qms)
         return self._b_cache[qms]
 
-    def _plan(self, samples, sf_indices, grants, softbuffer=None, abc=None):
+    def _plan(self, samples, sf_indices, grants, softbuffer=None, abc=None, sharding=None):
+        """As `WindowedUeDl._plan`; a sharding is accepted and ignored, as the
+        reference's `WindowedUeDlMimo._plan` does: the window runs on this
+        object's device."""
         w = self.w
         idx_cls, cls_re, n_res = self._re_classes(sf_indices, grants)
         signs1, signs2 = (torch.stack([self._signs(g.rnti, s, q)
@@ -994,10 +1055,10 @@ class WindowedEnbUl(_WindowedDecoder):
     def _signs(self, rnti: int, sf_idx: int):
         return table(_signs_np, pusch_cinit(rnti, sf_idx, self.cell.id), device=self.device)
 
-    def _plan(self, samples, sf_indices, grants, softbuffer=None, abc=None):
+    def _plan(self, samples, sf_indices, grants, softbuffer=None, abc=None, sharding=None):
         """Staged (name, fn) chain and the window's pack.  abc: optional
         stored SC-FDMA grid (W, nrx, nsymb, nre) of an uplink front-end pass;
-        stage A is then skipped."""
+        stage A is then skipped.  sharding: never set (`_check` refuses it)."""
         w, dev = self.w, self.device
         dmrs = torch.stack([table(_win_ul_dmrs, self.cell, g.nof_prb, device=dev) for g in grants])
         signs = torch.stack([self._signs(g.rnti, s) for s, g in zip(sf_indices, grants)])

@@ -605,3 +605,100 @@ def test_tdd_tables_and_harq_timing():
         np.testing.assert_array_equal(t_tdd.ul_sf_mask(tc), r_tdd.ul_sf_mask(rc))
         np.testing.assert_array_equal(t_tdd.dl_sf_mask(tc), r_tdd.dl_sf_mask(rc))
         np.testing.assert_array_equal(t_tdd.dl_sf_mask(tc, False), r_tdd.dl_sf_mask(rc, False))
+
+
+def test_mbsfn_and_pmch_tables():
+    """MBSFN RS positions and sequence and the PMCH REs at every width and
+    a few subframes and areas; the guard length and mixed-CP layout."""
+    import srsran_tpu.phy.phch.pmch as r_pmch
+    import srsran_tpu_torch.phy.phch.pmch as t_pmch
+
+    for prb in (6, 15, 25, 50, 75, 100):
+        ref, cell = cells(nof_prb=prb, id=1, cp=1)
+        for a, b in zip(t_pmch.mbsfn_rs_positions(cell), r_pmch.mbsfn_rs_positions(ref)):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(t_pmch.pmch_re_indices(cell), r_pmch.pmch_re_indices(ref))
+        for sf, area in ((0, 0), (3, 77), (9, 255)):
+            np.testing.assert_array_equal(t_pmch.mbsfn_rs_sequence(cell, sf, area),
+                                          r_pmch.mbsfn_rs_sequence(ref, sf, area))
+            assert t_pmch.pmch_cinit(sf, area) == r_pmch.pmch_cinit(sf, area)
+        cfg = t_ofdm.OfdmConfig.from_cell(cell)
+        for region in (1, 2):
+            assert t_ofdm.mbsfn_guard_len(region, cfg.symbol_sz) == r_ofdm.mbsfn_guard_len(region, cfg.symbol_sz)
+            assert t_ofdm._mbsfn_layout(cfg, region) == r_ofdm._mbsfn_layout(
+                r_ofdm.OfdmConfig.from_cell(ref), region)
+
+
+def test_nbiot_tables():
+    """NPSS, NSSS (and its 2016-row hypothesis matrix), NRS, the NPBCH and
+    NPDSCH REs, `NB_TBS`, the NPRACH hop pattern, the 128-point layout and
+    the NPSS replica."""
+    import srsran_tpu.phy.phch.npbch as r_npbch
+    import srsran_tpu.phy.phch.npdsch as r_npdsch
+    import srsran_tpu.phy.phch.nprach as r_nprach
+    import srsran_tpu.phy.sync.nbiot as r_nbiot
+    import srsran_tpu.phy.ue.ue_sync_nbiot as r_usn
+    import srsran_tpu_torch.phy.phch.npbch as t_npbch
+    import srsran_tpu_torch.phy.phch.npdsch as t_npdsch
+    import srsran_tpu_torch.phy.phch.nprach as t_nprach
+    import srsran_tpu_torch.phy.sync.nbiot as t_nbiot
+    import srsran_tpu_torch.phy.ue.ue_sync_nbiot as t_usn
+
+    np.testing.assert_array_equal(t_nbiot.npss_freq_np(), r_nbiot.npss_freq_np())
+    np.testing.assert_array_equal(t_nbiot.NPSS_COVER, r_nbiot.NPSS_COVER)
+    np.testing.assert_array_equal(t_nbiot._nsss_hypothesis_matrix(), r_nbiot._nsss_hypothesis_matrix())
+    for nid in (0, 1, 5, 42, 123, 257, 311, 503):
+        for a, b in zip(t_npbch.nrs_positions(nid), r_npbch.nrs_positions(nid)):
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(t_npbch.npbch_re_indices(nid), r_npbch.npbch_re_indices(nid))
+        np.testing.assert_array_equal(t_npdsch.npdsch_re_indices(nid), r_npdsch.npdsch_re_indices(nid))
+        for sf in range(10):
+            np.testing.assert_array_equal(t_npbch.nrs_sequence(nid, sf), r_npbch.nrs_sequence(nid, sf))
+            assert t_npdsch.npdsch_cinit(0x85, sf, nid) == r_npdsch.npdsch_cinit(0x85, sf, nid)
+            assert t_npdsch.npdcch_cinit(sf, nid) == r_npdsch.npdcch_cinit(sf, nid)
+    assert t_npdsch.NB_TBS == r_npdsch.NB_TBS and t_npdsch.NB_I_SF_TO_N == r_npdsch.NB_I_SF_TO_N
+    for n_init in range(24):
+        np.testing.assert_array_equal(t_nprach._hop_pattern(n_init), r_nprach._hop_pattern(n_init))
+    assert (t_nprach.N_SC, t_nprach.N_GROUPS, t_nprach.N_SYM, t_nprach.FFT) == (
+        r_nprach.N_SC, r_nprach.N_GROUPS, r_nprach.N_SYM, r_nprach.FFT)
+    assert t_usn.SYM_STARTS == r_usn.SYM_STARTS and t_usn.NPSS_START == r_usn.NPSS_START
+    np.testing.assert_array_equal(t_usn._sc_map(), r_usn._sc_map())
+    np.testing.assert_array_equal(t_usn.npss_time_np(), r_usn.npss_time_np())
+
+
+def test_sidelink_tables():
+    """PSSS/SSSS, the PSBCH, PSCCH and PSSCH DMRS (TM1/2 and TM3/4), the
+    c_init rule, the SCI sizes; the PSSS time replicas (rendered by each
+    package's modulator) within 1e-6."""
+    import srsran_tpu.phy.phch.psbch as r_psbch
+    import srsran_tpu.phy.phch.pscch as r_pscch
+    import srsran_tpu.phy.phch.pssch as r_pssch
+    import srsran_tpu.phy.sync.sidelink as r_sl
+    import srsran_tpu_torch.phy.phch.psbch as t_psbch
+    import srsran_tpu_torch.phy.phch.pscch as t_pscch
+    import srsran_tpu_torch.phy.phch.pssch as t_pssch
+    import srsran_tpu_torch.phy.sync.sidelink as t_sl
+
+    for r in (0, 1):
+        np.testing.assert_array_equal(t_sl.psss_seq_np(r), r_sl.psss_seq_np(r))
+    for nid in (0, 1, 84, 167, 168, 169, 252, 301, 335):
+        for tm12 in (True, False):
+            np.testing.assert_array_equal(t_sl.ssss_seq_np(nid, tm12), r_sl.ssss_seq_np(nid, tm12))
+        np.testing.assert_array_equal(t_psbch.psbch_dmrs_np(nid), r_psbch.psbch_dmrs_np(nid))
+        np.testing.assert_array_equal(t_psbch.psbch_dmrs_tm34_np(nid), r_psbch.psbch_dmrs_tm34_np(nid))
+    np.testing.assert_array_equal(t_pscch.pscch_dmrs_np(), r_pscch.pscch_dmrs_np())
+    for cs in (0, 3, 6, 9):
+        np.testing.assert_array_equal(t_pscch.pscch_dmrs_tm34_np(cs), r_pscch.pscch_dmrs_tm34_np(cs))
+    for n_x_id, prb in ((0, 1), (255, 4), (23387, 8), (28300, 48), (65535, 100)):
+        np.testing.assert_array_equal(t_pssch.pssch_dmrs_np(n_x_id, prb), r_pssch.pssch_dmrs_np(n_x_id, prb))
+        for sf in (0, 3, 9):
+            np.testing.assert_array_equal(t_pssch.pssch_dmrs_tm34_np(n_x_id, prb, sf),
+                                          r_pssch.pssch_dmrs_tm34_np(n_x_id, prb, sf))
+            assert t_pssch.pssch_cinit(n_x_id, sf) == r_pssch.pssch_cinit(n_x_id, sf)
+    for prb in (6, 15, 25, 50, 100):
+        assert t_pscch.sci0_len(prb) == r_pscch.sci0_len(prb)
+        for std in (True, False):
+            for r in (0, 1):
+                np.testing.assert_allclose(t_sl._psss_replica_time(r, prb, std),
+                                           r_sl._psss_replica_time(r, prb, std), atol=1e-6)

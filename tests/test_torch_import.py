@@ -47,6 +47,14 @@ def test_import_leaves_jax_out():
         "import srsran_tpu_torch.examples.pdsch_ue, srsran_tpu_torch.examples.synch_file\n"
         "import srsran_tpu_torch.examples.remote_rx, srsran_tpu_torch.examples.bler_sweep\n"
         "import srsran_tpu_torch.examples.dynamic_grants, srsran_tpu_torch.examples.windowed_link\n"
+        "import srsran_tpu_torch.parallel, srsran_tpu_torch.phy.phch.pmch\n"
+        "import srsran_tpu_torch.phy.sync.nbiot, srsran_tpu_torch.phy.phch.npbch\n"
+        "import srsran_tpu_torch.phy.phch.npdsch, srsran_tpu_torch.phy.phch.nprach\n"
+        "import srsran_tpu_torch.phy.ue.ue_sync_nbiot, srsran_tpu_torch.phy.ue.ue_nbiot\n"
+        "import srsran_tpu_torch.phy.sync.sidelink, srsran_tpu_torch.phy.phch.psbch\n"
+        "import srsran_tpu_torch.phy.phch.pscch, srsran_tpu_torch.phy.phch.pssch\n"
+        "import srsran_tpu_torch.examples.cell_search_nbiot, srsran_tpu_torch.examples.npdsch_ue\n"
+        "import srsran_tpu_torch.examples.pssch_ue\n"
         "assert 'zmq' not in sys.modules and 'matplotlib' not in sys.modules\n"
         "import importlib.util as u\n"
         "spec = u.spec_from_file_location('prof', 'tools/profile_torch_dynamic.py')\n"
@@ -84,7 +92,12 @@ def test_every_module_of_the_port_imports_without_jax():
               "apps.ue_app", "apps.run_lte_demo", "apps.run_lte_3proc", "phy.chest.wiener_dl",
               "phy.resampling", "examples", "examples.pdsch_enodeb", "examples.cell_search",
               "examples.pdsch_ue", "examples.synch_file", "examples.remote_rx",
-              "examples.bler_sweep", "examples.dynamic_grants", "examples.windowed_link"):
+              "examples.bler_sweep", "examples.dynamic_grants", "examples.windowed_link",
+              "parallel", "parallel.mesh", "parallel.halo", "phy.phch.pmch", "phy.sync.nbiot",
+              "phy.phch.npbch", "phy.phch.npdsch", "phy.phch.nprach", "phy.ue.ue_sync_nbiot",
+              "phy.ue.ue_nbiot", "phy.sync.sidelink", "phy.phch.psbch", "phy.phch.pscch",
+              "phy.phch.pssch", "examples.cell_search_nbiot", "examples.npdsch_ue",
+              "examples.pssch_ue"):
         assert f"srsran_tpu_torch.{m}" in mods, m
     code = (
         "import sys, importlib\n"

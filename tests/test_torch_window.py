@@ -51,6 +51,7 @@ import srsran_tpu_torch.phy.fec.rate_match_dev as t_rmd
 import srsran_tpu_torch.phy.fec.turbo_dyn as t_dyn
 import srsran_tpu_torch.pipeline_window as t_pw
 from srsran_tpu_torch.convert import from_reference, softbuffer_from_reference
+from srsran_tpu_torch.parallel.mesh import NamedSharding, PartitionSpec, carrier_mesh
 
 torch.set_num_threads(1)
 
@@ -631,19 +632,97 @@ def test_constructors_take_the_card_by_default(cls):
     assert getattr(t_pw, cls)(cell, w=2, device="cpu").device == torch.device("cpu")
 
 
+def cpu_sharding(n):
+    mesh = carrier_mesh(devices=["cpu"] * n)
+    return NamedSharding(mesh, PartitionSpec("carriers"))
+
+
+def scaling_mix(rng, w=8):
+    """`tests/test_scaling.py`'s window: 15 PRB, MCS 2-8 over the subframe
+    indices, noise 0.02."""
+    cell = Cell(nof_prb=15, nof_ports=1, id=11)
+    ofdm = OfdmConfig.from_cell(cell, normalize=True)
+    mix = []
+    for i in range(w):
+        mcs = 2 + (i % 7)
+        g = DlGrant(prb=tuple(range(15)), mod=dl_mcs_to_mod(mcs), tbs=dl_tbs(mcs, 15), rnti=0x46)
+        tb = rng.integers(0, 2, g.tbs).astype(np.uint8)
+        grid = pdsch_encode_np(cell, i % 10, 1, g, tb)
+        put_crs_np(grid, cell, i % 10)
+        mix.append((awgn(rng, np.asarray(ofdm_tx_sf(ofdm, grid)), 0.02), i % 10, g, tb))
+    return cell, mix
+
+
+def assert_same_window(a, b):
+    assert torch.equal(a.packed, b.packed) and torch.equal(a.softbuffer, b.softbuffer)
+    assert a.tbs == b.tbs
+
+
 def test_sharding_and_bad_arguments_raise(dl_engines):
+    """A sharded dispatch (8 positions of the CPU, one row of int8 ingest
+    each) is bit for bit the unsharded one: the packed results and the
+    softbuffer; then the bad arguments raise."""
     ue = dl_engines.port
+    cell, mix8 = scaling_mix(np.random.default_rng(1))
+    samples8, sfs8 = np.stack([m[0] for m in mix8]), [m[1] for m in mix8]
+    grants8 = [from_reference(m[2]) for m in mix8]
+    eng = t_pw.WindowedUeDl(from_reference(cell), w=8, max_iterations=3, device="cpu")
+    plain = eng.dispatch_window(samples8, sfs8, grants8)
+    assert_same_window(eng.dispatch_window(samples8, sfs8, grants8, sharding=cpu_sharding(8)), plain)
+    assert all(ok for _tb, ok, _n in eng.results(plain))
     mix = dl_mix(CELL50, np.random.default_rng(1), W)
     samples, sfs = np.stack([m[0] for m in mix]), [m[1] for m in mix]
     grants = [from_reference(m[2]) for m in mix]
-    with pytest.raises(NotImplementedError, match="sharding"):
-        ue.dispatch_window(samples, sfs, grants, sharding=object())
     with pytest.raises(ValueError, match="window takes"):
         ue.dispatch_window(samples[:2], sfs[:2], grants[:2])
     with pytest.raises(ValueError, match="scheme"):
         t_pw.WindowedUeDl(ue.cell, scheme="spatialmux", device="cpu")
     with pytest.raises(ValueError, match="ingest"):
         t_pw.WindowedEnbUl(ue.cell, ingest="int4", device="cpu")
+
+
+def test_enb_ul_refuses_sharding(ul_engines):
+    win = ul_mix(CELL50, np.random.default_rng(9))
+    with pytest.raises(NotImplementedError, match="WindowedEnbUl does not shard"):
+        ul_engines.port.dispatch_window(np.stack([m[0] for m in win]), [m[1] for m in win],
+                                        [from_reference(m[2]) for m in win],
+                                        sharding=cpu_sharding(4))
+
+
+@pytest.mark.parametrize("kind", ["port0", "diversity", "mimo"])
+def test_sharded_window_bit_exact(windows, kind):
+    """W = 4 over 4 positions of the CPU: port-0, 2-port diversity (two CRS
+    estimates a row) and MIMO, which accepts a sharding and ignores it as
+    the reference does; each bit for bit the unsharded dispatch."""
+    eng, win = windows[kind]
+    grants = [from_reference(g) for g in win["grants"]]
+    plain = eng.port.dispatch_window(win["samples"], win["sfs"], grants)
+    sharded = eng.port.dispatch_window(win["samples"], win["sfs"], grants, sharding=cpu_sharding(4))
+    assert_same_window(sharded, plain)
+
+
+def test_windowed_plane_sharded_bit_exact():
+    """`tests/test_scaling.py::test_windowed_plane_sharded_bit_exact` on the
+    port beside the reference: the reference's window sharded over JAX's 8
+    virtual devices and the port's over 8 positions of the CPU decode every
+    TB to the sent bits, and the port's sharded window is bit for bit its
+    unsharded one (float32 ingest, as there)."""
+    import jax
+    from jax.sharding import Mesh, NamedSharding as JNamedSharding, PartitionSpec as JP
+
+    cell, mix = scaling_mix(np.random.default_rng(5))
+    samples, sfs = np.stack([m[0] for m in mix]), [m[1] for m in mix]
+    ref = r_pw.WindowedUeDl(cell, cfi=1, w=8, ingest="float32")
+    mesh = Mesh(np.asarray(jax.devices()[:8]), ("carriers",))
+    res_ref = ref.results(ref.dispatch_window(samples, sfs, [m[2] for m in mix],
+                                              sharding=JNamedSharding(mesh, JP("carriers"))))
+    port = t_pw.WindowedUeDl(from_reference(cell), cfi=1, w=8, ingest="float32", device="cpu")
+    grants = [from_reference(m[2]) for m in mix]
+    sharded = port.dispatch_window(samples, sfs, grants, sharding=cpu_sharding(8))
+    assert_same_window(sharded, port.dispatch_window(samples, sfs, grants))
+    for (tb_p, ok_p, n_p), (tb_r, ok_r, n_r), m in zip(port.results(sharded), res_ref, mix):
+        assert ok_p and ok_r and n_p == n_r
+        assert np.array_equal(tb_p, tb_r) and np.array_equal(tb_p, m[3])
 
 
 def test_window_with_high_repetition(dl_engines):
