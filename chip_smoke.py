@@ -58,7 +58,7 @@ Phases (each prints its own lines; any failure exits non-zero):
      `testdata/enb_ul_dynamic_20mhz.npz`, stage keys, ms per TTI; and two
      transmit-diversity and two spatial-multiplexing grants through
      `DynamicUeDl` behind the 2x2 channel;
-  12. (run last, after phases 13-21 and 30-31, whose windows give it its shapes) the
+  12. (run last, after phases 13-21, 30-31 and 43, whose windows give it its shapes) the
      kernel's dynamic-K mode at every launch shape those phases gave it:
      each dense-slot bucket N that a window of this run reached (N x K_max
      6144, K_i the window's own per-slot sizes, 40 in the unused slots),
@@ -268,7 +268,30 @@ Phases (each prints its own lines; any failure exits non-zero):
      chain whose TB reads c8e4, the four subframes of the 100 PRB UXM
      capture (4 SCIs, 4 CRC-ok 9528-bit TBs), a seeded PSSCH at 100 PRB MCS
      20; ms per subframe.  Phase 25 takes the static MAP shapes of 38, 39
-     and 41, phase 12 the sharded windows of 38.
+     and 41, phase 12 the sharded windows of 38;
+  42. (after 41, before 25 and 12) NR: the PDSCH DM-RS (`dmrs_nr.put_sf`,
+     `get_sf`) at 52, 106 and 270 PRB for every valid configuration at
+     durations 14, 12 and 9 over subframes 0-19 on batches of 64 seeded
+     grids: `put_sf` bit for bit the same call on CPU tensors, `get_sf` of
+     h·grid + noise within 1e-6 of it, a flat channel back as h within
+     1e-5; ms per batch.  The coreless NR link (`NrAirLink`, host only):
+     MIB and SIB1, the RRC setup, NAS both ways, 50 x 300 B DRB SDUs each
+     way, the release; every byte back; TTIs to connect, ms per step.  The
+     TTCN-3 system interface over localhost TCP with the port's `UeStack`
+     on the card at 100 PRB: cell_cfg, attach, RAR, Msg3, the setup, the
+     C-RNTI read back;
+  43. (after 42, before 25 and 12) the grid-form rate match:
+     `turbo_rm_positions_dev` for all 188 K x rv 0-3 (F = 0, and one filler
+     case) against the host's `turbo_rm_indices`; a W = 8 window of 100 PRB
+     grants at CFI 1, MCS 0-28 (B_CB 13, the codeblocks of MCS 28), codeword
+     LLRs from the host encoder plus seeded noise, through
+     `codeword_scatter_dev` and `codeword_d_fill_dev` (the two softbuffers
+     within 1e-5), `qpp_dev`, `turbo_decode_dyn(perm_groups=)` and
+     `tb_reassembly_gather_dev` with the TB CRC: every TB back and the
+     sent one, bits, posteriors and iterations identical to the per-row
+     form, the dynamic-K kernel launched and bit for bit its plain version
+     on the window's first pass; ms per window by CUDA events and on the
+     host clock.  Phase 12 takes its N = 8 x B_CB.
 Every path is driven with the launch counts set to 0 just before and read
 just after.  Prints one JSON line of kernel results, then as its last line
 {"ok": true, "device": {...}}.  TF32 stays off: the channel-estimate
@@ -4788,6 +4811,427 @@ def phase_sidelink(dev):
     return tuple(total), times, +shapes
 
 
+# phase 42: NR — the DM-RS on the card, the coreless NR link over VNF, the
+# TTCN-3 system interface.  The widths are 10, 20 and 50 MHz at the module's
+# 15 kHz numerology (270 PRB its widest).
+DMRS = dict(widths=(52, 106, 270), durations=(14, 12, 9), ttis=20, batch=64, n_id=77, n_scid=1,
+            h=0.8 - 0.6j, amp=0.05)
+DMRS_GET_ATOL = 1e-6  # get_sf on the card against the same call on the CPU
+DMRS_FLAT_ATOL = 1e-5  # a flat channel h comes back as h (the reference test's bar)
+NR_LINK = dict(cell_id=7, n_sdus=50, sdu_bytes=300, seed=42, max_connect=100, max_ttis=600)
+TTCN3 = dict(pci=7, nof_prb=100, preamble=17, crnti=0x46)
+
+
+def dmrs_configs(nof_prb: int, durations=DMRS["durations"]) -> list:
+    """Every valid type A `DmrsPdschConfig` at these durations: both
+    configuration types, single and double symbol, additional positions 0-3,
+    dmrs-TypeA-Position 2 and 3."""
+    from srsran_tpu_torch.phy.phch.dmrs_nr import DmrsPdschConfig, symbols_idx
+
+    out = []
+    for duration in durations:
+        for typ in (1, 2):
+            for length in (1, 2):
+                for additional_pos in range(4):
+                    for typea_pos in (2, 3):
+                        cfg = DmrsPdschConfig(nof_prb=nof_prb, typeA_pos=typea_pos,
+                                              additional_pos=additional_pos, length=length,
+                                              duration=duration, type=typ, n_id=DMRS["n_id"],
+                                              n_scid=DMRS["n_scid"])
+                        try:
+                            symbols_idx(cfg)
+                        except ValueError:
+                            continue
+                        out.append(cfg)
+    return out
+
+
+def crandn(shape, gen: torch.Generator, device) -> torch.Tensor:
+    return torch.complex(torch.randn(shape, generator=gen, device=device),
+                         torch.randn(shape, generator=gen, device=device))
+
+
+def dmrs_run(device, widths=DMRS["widths"], batch: int = DMRS["batch"], ttis: int = DMRS["ttis"],
+             timed: bool = True) -> dict:
+    """`put_sf` and `get_sf` for every valid configuration over subframes
+    0..ttis-1 on batches of seeded grids (batch, 14, 12·nof_prb) on `device`.
+    Each call is held to the same call on CPU tensors: `put_sf` bit for bit
+    on one grid of the batch (a different one each call), and every grid of
+    the batch carrying that grid's pilots over the rest of its own seeded
+    grid; `get_sf` of h·grid + noise within DMRS_GET_ATOL on that grid, and
+    of h·grid (a flat channel) within DMRS_FLAT_ATOL of h on the whole batch.
+    Returns per width the cases, the largest errors and, if timed, the ms
+    per batch."""
+    from srsran_tpu_torch.phy.phch.dmrs_nr import get_sf, put_sf, sc_idx, symbols_idx
+
+    h = DMRS["h"]
+    out = {}
+    for nof_prb in widths:
+        gen = torch.Generator(device=device).manual_seed(nof_prb)
+        base = crandn((batch, 14, 12 * nof_prb), gen, device)
+        noise = DMRS["amp"] * crandn(base.shape, gen, device)
+        base_cpu = base.cpu()
+        cfgs = dmrs_configs(nof_prb)
+        flat_err = torch.zeros((), device=device)
+        get_err, n = 0.0, 0
+        for cfg in cfgs:
+            syms, k = np.asarray(symbols_idx(cfg))[:, None], sc_idx(cfg)
+            for tti in range(ttis):
+                i = n % batch
+                grid = put_sf(cfg, tti, base.clone())
+                rx = h * grid + noise
+                ls = get_sf(cfg, tti, rx)
+                flat_err = torch.maximum(flat_err, (get_sf(cfg, tti, h * grid) - h).abs().max())
+                want = base.clone()
+                want[..., syms, k] = grid[i, syms, k]
+                ref_put = put_sf(cfg, tti, base_cpu[i].clone())
+                ref_get = get_sf(cfg, tti, rx[i].cpu())
+                check(bool(torch.equal(grid[i].cpu(), ref_put)) and bool(torch.equal(grid, want)),
+                      f"put_sf at {nof_prb} PRB, {cfg}, tti {tti}: not the CPU call's grid")
+                check(tuple(ls.shape) == (batch, len(syms), len(k)) and ls.dtype == torch.complex64,
+                      f"get_sf shape {tuple(ls.shape)} at {nof_prb} PRB")
+                get_err = max(get_err, float((ls[i].cpu() - ref_get).abs().max()))
+                n += 1
+        flat_err = float(flat_err)
+        check(get_err <= DMRS_GET_ATOL, f"get_sf at {nof_prb} PRB: {get_err} from the CPU call")
+        check(flat_err <= DMRS_FLAT_ATOL, f"get_sf at {nof_prb} PRB: a flat channel back {flat_err} from h")
+        row = dict(configs=len(cfgs), cases=n, grid_mb=base.numel() * 8 / 1e6, get_err=get_err,
+                   flat_err=flat_err)
+        if timed:
+            # the densest pilots: 4 symbols of configuration type 1
+            cfg = next(c for c in cfgs if c.type == 1 and c.length == 1 and c.additional_pos == 3
+                       and c.duration == 14)
+            rx = h * put_sf(cfg, 3, base.clone()) + noise
+            row["put_ms"] = batch_ms(lambda: put_sf(cfg, 3, rx))
+            row["get_ms"] = batch_ms(lambda: get_sf(cfg, 3, rx))
+        out[f"{nof_prb} PRB"] = row
+    return out
+
+
+def nr_link_run() -> dict:
+    """The coreless NR link (`NrAirLink`, host only): MIB and SIB1, the RRC
+    setup, NAS both ways, NR_LINK's seeded DRB SDUs each way, the release.
+    Delivered bytes must equal the bytes sent."""
+    from srsran_tpu_torch.apps.nr_stack import GnbStackNr, NrAirLink, UeStackNr
+
+    L = NR_LINK
+    n_sdus, sdu_bytes = L["n_sdus"], L["sdu_bytes"]
+    gnb, ue = GnbStackNr(cell_id=L["cell_id"]), UeStackNr()
+    link = NrAirLink(gnb, ue)
+    t0 = time.perf_counter()
+    while not (ue.connected and gnb.connected):
+        check(link.tti < L["max_connect"], f"NR: not connected after {link.tti} TTIs")
+        link.step()
+    connect_ttis = link.tti
+    _, (_, sib1) = ue.sib1["message"]
+    check(ue.mib["message"][1]["cell_barred"] == "not_barred"
+          and sib1["cell_access_related_info"]["plmn_id_list"][0]["cell_id"] == L["cell_id"],
+          "NR: MIB or SIB1 not acquired")
+    check(gnb.rx_nas == [b"\x7e\x00\x41"], f"NR: the setup complete's NAS {gnb.rx_nas}")
+    rng = np.random.default_rng(L["seed"])
+    dl = [rng.bytes(sdu_bytes) for _ in range(n_sdus)]
+    ul = [rng.bytes(sdu_bytes) for _ in range(n_sdus)]
+    gnb.write_nas(b"\x7e\x02\xaa\xbb")
+    ue.write_nas(b"\x7e\x03\xcc")
+    for a, b in zip(dl, ul):
+        gnb.write_drb(a)
+        ue.write_drb(b)
+    t_data, tti_data = time.perf_counter(), link.tti
+    while ue.rx_drb != dl or gnb.rx_drb != ul or not ue.rx_nas or len(gnb.rx_nas) < 2:
+        check(link.tti < L["max_ttis"], f"NR: {len(ue.rx_drb)}/{n_sdus} DL and {len(gnb.rx_drb)}/"
+              f"{n_sdus} UL SDUs after {link.tti} TTIs")
+        link.step()
+    data_ttis, data_s = link.tti - tti_data, time.perf_counter() - t_data
+    check(ue.rx_nas == [b"\x7e\x02\xaa\xbb"] and gnb.rx_nas[1:] == [b"\x7e\x03\xcc"], "NR: NAS transfer")
+    gnb.send_release()
+    link.run(10)
+    check(ue.released and not ue.connected, "NR: the release did not reach the UE")
+    wall = time.perf_counter() - t0
+    return dict(connect_ttis=connect_ttis, data_ttis=data_ttis, ttis=link.tti,
+                ms_per_step=wall * 1e3 / link.tti, data_ms_per_step=data_s * 1e3 / data_ttis,
+                dl_bytes=sum(map(len, ue.rx_drb)), ul_bytes=sum(map(len, gnb.rx_drb)))
+
+
+def ttcn3_run(device, nof_prb: int = TTCN3["nof_prb"]) -> dict:
+    """The TTCN-3 system interface over localhost TCP with the port's
+    `UeStack` on `device`: cell_cfg, attach (the preamble), the RAR, Msg3 (an
+    RRC connection request on CCCH), contention resolution with the setup,
+    the setup complete on SRB1, and the C-RNTI read back."""
+    import socket
+
+    from srsran_tpu_torch.apps.full_stack import LCID_SRB1
+    from srsran_tpu_torch.apps.ttcn3 import SystemInterface
+    from srsran_tpu_torch.stack import rrc
+    from srsran_tpu_torch.stack.mac import LCID_CCCH, LCID_CON_RES
+    from srsran_tpu_torch.stack.mac_pdu import DL_CE_SIZES, UL_CE_SIZES, mac_pack, mac_unpack
+
+    T = TTCN3
+    srv = SystemInterface(device=device)
+    srv.serve_background()
+    sock = socket.create_connection(("127.0.0.1", srv.port), timeout=60)
+    f = sock.makefile("rwb")
+    times = {}
+
+    def rpc(**msg):
+        t0 = time.perf_counter()
+        f.write((json.dumps(msg) + "\n").encode())
+        f.flush()
+        reply = json.loads(f.readline())
+        times[msg["cmd"]] = times.get(msg["cmd"], 0.0) + (time.perf_counter() - t0) * 1e3
+        check(reply.get("event") != "error", f"TTCN-3 {msg['cmd']}: {reply}")
+        return reply
+
+    try:
+        check(rpc(cmd="cell_cfg", pci=T["pci"], nof_prb=nof_prb)["event"] == "cell_ready", "cell_cfg")
+        check(srv.phy.stack.device == torch.device(device), "the UeStack is not on the device")
+        r = rpc(cmd="attach")
+        check(r["event"] == "prach" and r["preamble"] == T["preamble"], f"attach: {r}")
+        check(rpc(cmd="rar", rapid=T["preamble"], temp_crnti=T["crnti"])["crnti"] == T["crnti"], "RAR")
+        sdus = dict(mac_unpack(bytes.fromhex(rpc(cmd="ul_pdu", size=64)["data"]), ce_sizes=UL_CE_SIZES))
+        check(LCID_CCCH in sdus and rrc.unpack_ul_ccch(sdus[LCID_CCCH])[0] == "rrc_conn_request", "Msg3")
+        dl = mac_pack([(LCID_CON_RES, rrc.contention_resolution_id(sdus[LCID_CCCH])),
+                       (LCID_CCCH, rrc.pack_conn_setup())], 128, ce_sizes=DL_CE_SIZES)
+        check(rpc(cmd="dl_pdu", data=dl.hex())["rrc_state"] >= 3, "the setup did not connect")
+        ul = dict(mac_unpack(bytes.fromhex(rpc(cmd="ul_pdu", size=128)["data"]), ce_sizes=UL_CE_SIZES))
+        check(LCID_SRB1 in ul, "no setup complete on SRB1")
+        st = rpc(cmd="status")
+        check(st["rrc_state"] >= 3 and st["crnti"] == T["crnti"], f"status: {st}")
+        check(rpc(cmd="ip_rx")["data"] is None, "an IP packet out of nowhere")
+    finally:
+        f.close()
+        sock.close()
+        srv.close()
+    return dict(crnti=st["crnti"], rrc_state=st["rrc_state"], rpc_ms=times)
+
+
+def phase_nr(dev) -> dict:
+    """Phase 42: the NR DM-RS on the card at 52, 106 and 270 PRB, the
+    coreless NR link, the TTCN-3 system interface at 100 PRB.  Returns
+    times (no MAP kernel on these paths)."""
+    dmrs = dmrs_run(dev)
+    for width, r in dmrs.items():
+        print(f"nr: DM-RS at {width}: {r['configs']} configurations x {DMRS['ttis']} subframes on "
+              f"batches of {DMRS['batch']} grids ({r['grid_mb']:.1f} MB), put_sf bit for bit the CPU's, "
+              f"get_sf within {r['get_err']:.3g} of it, the flat channel back within {r['flat_err']:.3g}; "
+              f"put_sf {r['put_ms']:.4f} ms, get_sf {r['get_ms']:.4f} ms per batch (CUDA events, "
+              f"4 symbols of type 1)")
+    link = nr_link_run()
+    print(f"nr: the coreless link connected in {link['connect_ttis']} TTIs; {NR_LINK['n_sdus']} x "
+          f"{NR_LINK['sdu_bytes']} B each way in {link['data_ttis']} TTIs, every byte back; released; "
+          f"{link['ms_per_step']:.3f} ms per step ({link['data_ms_per_step']:.3f} with the data, host)")
+    ttcn3 = ttcn3_run(dev)
+    print(f"nr: TTCN-3 over localhost TCP, UeStack on {dev} at {TTCN3['nof_prb']} PRB: C-RNTI "
+          f"{ttcn3['crnti']:#x} read back, RRC state {ttcn3['rrc_state']}; ms per command "
+          + ", ".join(f"{k} {v:.1f}" for k, v in ttcn3["rpc_ms"].items()))
+    return dict(dmrs=dmrs, link=link, ttcn3=ttcn3)
+
+
+# phase 43: the grid-form rate match and `turbo_decode_dyn(perm_groups=)` on a
+# W = 8 window of 100 PRB grants at CFI 1, MCS 0-28 (the largest, 13
+# codeblocks of K 6144), codeword LLRs of the port's host encoder as BPSK
+# at noise sigma
+PERM_GROUPS = dict(prb=100, cfi=1, mcs=(0, 4, 8, 12, 16, 20, 24, 28), k_max=6144, rv=0, sigma=0.3,
+                   max_iterations=6, rep=8, seed=43, filler=(512, 28))
+RM_FORMS_ATOL = 1e-5  # the scatter and gather softbuffers (the reference test's bar)
+
+
+def rm_positions_check(device) -> int:
+    """`turbo_rm_positions_dev` for all 188 sizes at F = 0 and for one
+    filler case, rv 0-3, against the host's `turbo_rm_indices`.  Returns
+    the number of (K, F, rv) cases."""
+    from srsran_tpu_torch.phy.fec.cbsegm import CB_SIZES
+    from srsran_tpu_torch.phy.fec.rate_match import turbo_rm_indices
+    from srsran_tpu_torch.phy.fec.rate_match_dev import turbo_rm_positions_dev
+
+    k_max = PERM_GROUPS["k_max"]
+    cases = [(k, 0) for k in CB_SIZES] + [PERM_GROUPS["filler"]]
+    ks = torch.tensor([k for k, _ in cases], device=device)
+    fs = torch.tensor([f for _, f in cases], device=device)
+    dump = 3 * (k_max + 4)
+    for rv in range(4):
+        pos, n_valid = turbo_rm_positions_dev(ks, fs, rv, k_max)
+        pos, n_valid = pos.cpu().numpy(), n_valid.cpu().numpy()
+        for i, (k, f) in enumerate(cases):
+            idx = turbo_rm_indices(k, 3 * (k + 4) - 2 * f, rv, f)
+            want = idx // (k + 4) * (k_max + 4) + idx % (k + 4)
+            check(n_valid[i] == len(want) and np.array_equal(pos[i, : len(want)], want)
+                  and bool((pos[i, len(want):] == dump).all()),
+                  f"turbo_rm_positions_dev K={k} F={f} rv={rv}: not the host's positions")
+    return 4 * len(cases)
+
+
+def perm_groups_window(device, nof_prb: int = PERM_GROUPS["prb"], mcs=PERM_GROUPS["mcs"]):
+    """A window of len(mcs) transport blocks (row w: MCS mcs[w] on every PRB
+    of subframe w % 10 at CFI 1), codeword LLRs from the host encoder plus
+    seeded noise, and its plan on `device`.  Returns a namespace with the
+    rows and `run(per_row=False)`, the chain: the softbuffers by
+    `codeword_scatter_dev` and by `codeword_d_fill_dev` (both returned), the
+    QPP tables by `qpp_dev`, `turbo_decode_dyn(perm_groups=)` (or, per_row,
+    the same tables resolved row by row), the TBs by
+    `tb_reassembly_gather_dev` and the TB CRC."""
+    from srsran_tpu_torch.phy.common import LTE_CRC24A, Cell
+    from srsran_tpu_torch.phy.crc import crc_compute
+    from srsran_tpu_torch.phy.fec.cbsegm import F1, F2, cb_size_index, cbsegm
+    from srsran_tpu_torch.phy.fec.rate_match_dev import (codeword_d_fill_dev, codeword_scatter_dev,
+                                                          ncb_max, qpp_dev, tb_reassembly_gather_dev)
+    from srsran_tpu_torch.phy.fec.turbo_dyn import crc_table_ab, turbo_decode_dyn
+    from srsran_tpu_torch.phy.phch.pdsch import pdsch_nof_re
+    from srsran_tpu_torch.phy.phch.ra import dl_mcs_to_mod, dl_tbs
+    from srsran_tpu_torch.phy.phch.sch import FILLER_LLR, TbCoding, dlsch_encode_np
+
+    P = PERM_GROUPS
+    k_max, rv = P["k_max"], P["rv"]
+    cell = Cell(nof_prb=nof_prb, nof_ports=1, id=301)
+    rng = np.random.default_rng(P["seed"])
+    prb = tuple(range(nof_prb))
+    rows = []
+    for w, m in enumerate(mcs):
+        mod, tbs = dl_mcs_to_mod(m), dl_tbs(m, nof_prb)
+        cfg = TbCoding(tbs=tbs, g=pdsch_nof_re(cell, w % 10, P["cfi"], prb) * mod.bits_per_symbol,
+                       qm=mod.bits_per_symbol, rv=rv)
+        tb = rng.integers(0, 2, tbs).astype(np.uint8)
+        cw = dlsch_encode_np(tb, cfg).astype(np.float32)
+        llr = (2 * cw - 1 + P["sigma"] * rng.standard_normal(cw.size)).astype(np.float32)
+        rows.append(SimpleNamespace(mcs=m, tbs=tbs, g=cfg.g, segm=cbsegm(tbs), es=cfg.e_sizes(), tb=tb,
+                                    llr=llr))
+    nw, b_cb = len(rows), max(r.segm.C for r in rows)
+    g_max, tbs_max = max(r.g for r in rows), max(r.tbs for r in rows)
+    dflat = 3 * (k_max + 4)
+    cb_k, cb_e, cb_f, cls = (np.zeros((nw, b_cb), np.int64) for _ in range(4))
+    valid = np.zeros((nw, b_cb), bool)
+    k3 = np.zeros((nw, 3), np.int64)
+    llr_pad = np.zeros((nw, g_max + ncb_max(k_max)), np.float32)
+    for w, r in enumerate(rows):
+        s = r.segm
+        # layout classes: codeblock 0 (with the filler bits), K-, K+
+        k3[w] = (s.cb_sizes[0], s.K_minus or s.K_plus, s.K_plus)
+        llr_pad[w, : r.g] = r.llr
+        for c, k in enumerate(s.cb_sizes):
+            cb_k[w, c], cb_e[w, c], cb_f[w, c], valid[w, c] = k, r.es[c], s.F if c == 0 else 0, True
+            cls[w, c] = 0 if c == 0 else (1 if c < s.C_minus else 2)
+    f12 = np.array([[F1[cb_size_index(k)], F2[cb_size_index(k)]] for k in k3.reshape(-1)], np.int64)
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    cb_k_t, cb_e_t, cb_f_t, valid_t, cls_t, llr_t, k3_t, f12_t = map(
+        t, (cb_k, cb_e, cb_f, valid, cls, llr_pad, k3, f12))
+    crc_ab = t(crc_table_ab(k_max))
+    is_b = t(np.repeat([r.segm.C > 1 for r in rows], b_cb))
+    k_vec = torch.where(valid_t, cb_k_t, 40).reshape(-1)  # unused slots: the smallest size
+    pos = torch.arange(k_max + 4, device=device)
+
+    def run(per_row: bool = False):
+        soft_s, soft_g = [], []
+        for w, r in enumerate(rows):
+            tgt = codeword_scatter_dev(cb_k_t[w], cb_e_t[w], cb_f_t[w], valid_t[w], rv, k_max, g_max)
+            soft_s.append(torch.zeros(b_cb * dflat + 1, device=device).index_add_(
+                0, tgt, llr_t[w, :g_max])[:-1].reshape(b_cb, 3, k_max + 4))
+            off, fills = 0, []
+            for c in range(b_cb):
+                if c < r.segm.C:
+                    fills.append(codeword_d_fill_dev(llr_t[w], off, r.es[c], int(cb_k[w, c]),
+                                                     int(cb_f[w, c]), rv, k_max, P["rep"]))
+                    off += r.es[c]
+                else:
+                    fills.append(torch.zeros(3, k_max + 4, device=device))
+            soft_g.append(torch.stack(fills))
+        soft_s, soft_g = torch.stack(soft_s), torch.stack(soft_g)  # (W, B_CB, 3, K_max+4)
+        d = soft_g.reshape(nw * b_cb, 3, k_max + 4).clone()
+        pin = pos[None, :] < cb_f_t.reshape(-1, 1)  # filler bits are known zeros
+        d[:, 0] = torch.where(pin, float(FILLER_LLR), d[:, 0])
+        per, inv = qpp_dev(k3_t.reshape(-1), f12_t[:, 0], f12_t[:, 1], k_max)
+        per3, inv3 = per.reshape(nw, 3, k_max), inv.reshape(nw, 3, k_max)
+        if per_row:
+            w_idx = torch.arange(nw, device=device)[:, None]
+            perms = dict(per=per3[w_idx, cls_t].reshape(-1, k_max),
+                         inv=inv3[w_idx, cls_t].reshape(-1, k_max))
+        else:
+            perms = dict(per=None, inv=None, perm_groups=(per3, inv3, cls_t))
+        bits, post, n_it = turbo_decode_dyn(d, k_vec, valid=valid_t.reshape(-1), k_max=k_max,
+                                            max_iterations=P["max_iterations"], crc_table=crc_ab,
+                                            crc_is_b=is_b, **perms)
+        flat = torch.cat([bits.reshape(nw, -1), bits.new_zeros((nw, 1))], dim=1)
+        tbs_hat, ok = [], []
+        for w, r in enumerate(rows):
+            tb_idx, crc_idx = tb_reassembly_gather_dev(cb_k_t[w], cb_f_t[w], valid_t[w],
+                                                       is_b[w * b_cb:(w + 1) * b_cb], r.tbs, k_max,
+                                                       tbs_max)
+            tb_hat = flat[w][tb_idx][tbs_max - r.tbs:]
+            tbs_hat.append(tb_hat)
+            ok.append(bool(torch.equal(crc_compute(tb_hat, LTE_CRC24A), flat[w][crc_idx])))
+        return SimpleNamespace(soft_s=soft_s, soft_g=soft_g, d=d, bits=bits, post=post, n_it=n_it,
+                               tbs=tbs_hat, ok=ok)
+
+    return SimpleNamespace(rows=rows, w=nw, b_cb=b_cb, k_vec=k_vec, run=run)
+
+
+def check_perm_groups(win, res, res_row) -> int:
+    """Phase 43's gates on one run of the window and the per-row form's run
+    beside it.  Returns the number of TBs whose CRC passed."""
+    err = float((res.soft_s - res.soft_g).abs().max())
+    check(err <= RM_FORMS_ATOL, f"perm_groups window: the scatter and gather softbuffers {err} apart")
+    check(torch.equal(res.bits, res_row.bits) and torch.equal(res.post, res_row.post)
+          and torch.equal(res.n_it, res_row.n_it), "perm_groups differs from the per-row form")
+    below_k = torch.arange(res.bits.shape[1], device=res.bits.device)[None, :] < win.k_vec[:, None]
+    check(bool(torch.isfinite(res.post[below_k]).all()), "perm_groups window: non-finite posteriors")
+    for w, r in enumerate(win.rows):
+        check(not res.ok[w] or bool((res.tbs[w].cpu().numpy() == r.tb).all()),
+              f"perm_groups window row {w} (MCS {r.mcs}): a CRC-passing TB differs from the sent one")
+    return sum(res.ok)
+
+
+def phase_perm_groups(dev) -> tuple[tuple[int, int], dict]:
+    """Phase 43: `turbo_rm_positions_dev` over every size, then the W = 8
+    window of 100 PRB grants through the grid-form chain and
+    `turbo_decode_dyn(perm_groups=)`: every TB back and the sent one, the
+    per-row form identical, the kernel bit for bit its plain version on the
+    window's first pass; its N = W·B_CB shape goes to phase 12.  Returns
+    ((static, dynamic-K) launches, times)."""
+    from srsran_tpu_torch.phy.fec import turbo_cuda
+    from srsran_tpu_torch.phy.fec.turbo import _beta_tail, dstream_tails, map_pass_plain, pass_layout
+
+    P = PERM_GROUPS
+    t0 = time.perf_counter()
+    n_pos = rm_positions_check(dev)
+    pos_s = time.perf_counter() - t0
+    win = perm_groups_window(dev)
+    reset_launches()
+    res = win.run()
+    launches = read_launches()
+    res_row = win.run(per_row=True)
+    n_ok = check_perm_groups(win, res, res_row)
+    check(n_ok == win.w, f"perm_groups window: {n_ok}/{win.w} TBs pass their CRC")
+    check(launches[0] == 0 and launches[1] > 0, f"perm_groups window: map launches {launches}")
+    # the kernel at this shape against its plain version on the window's
+    # first decoder-1 pass (no extrinsic yet)
+    k_max, n = P["k_max"], win.w * win.b_cb
+    below_k = torch.arange(k_max, device=dev)[None, :] < win.k_vec[:, None]
+    tail_cols = (win.k_vec[:, None, None] + torch.arange(4, device=dev)).expand(n, 3, 4)
+    lx1_t, lz1_t, _, _ = dstream_tails(torch.gather(res.d, 2, tail_cols))
+    lx, lz = (torch.where(below_k, res.d[:, s, :k_max], 0.0).contiguous() for s in (0, 1))
+    beta_k, k_i32 = _beta_tail(lx1_t, lz1_t), win.k_vec.to(torch.int32)
+    got = turbo_cuda.map_pass(lx, lz, beta_k, *pass_layout(k_max), k_vec=k_i32)
+    ref = map_pass_plain(lx, lz, beta_k, k_max, k_i32)
+    check(torch.equal(got[below_k], ref[below_k]), f"dyn kernel not bit for bit plain at N={n}")
+    tags = WINDOW_SHAPES.setdefault(n, {}).setdefault(tuple(win.k_vec.tolist()), [])
+    if "perm_groups window" not in tags:
+        tags.append("perm_groups window")
+    win.run()  # warm
+    ms = cuda_ms(win.run, 3)
+    host_ms = wall_ms(win.run, 3)
+    rows = win.rows
+    times = dict(positions_cases=n_pos, positions_s=pos_s, w=win.w, b_cb=win.b_cb, n=n,
+                 mcs=[r.mcs for r in rows], tbs=[r.tbs for r in rows], codeblocks=[r.segm.C for r in rows],
+                 n_iters=res.n_it.reshape(win.w, win.b_cb).max(dim=1).values.tolist(),
+                 map_launches=list(launches), ms_per_window=ms, host_ms_per_window=host_ms)
+    print(f"perm_groups: turbo_rm_positions_dev equals the host's turbo_rm_indices at {n_pos} (K, F, rv) "
+          f"cases ({pos_s:.1f} s with the host's); the W = {win.w} window of {P['prb']} PRB grants, MCS "
+          f"{times['mcs']}, tbs {times['tbs']}, {times['codeblocks']} codeblocks (B_CB {win.b_cb}, N {n}): "
+          f"the scatter and gather softbuffers agree, {n_ok}/{win.w} TBs back and the sent ones, "
+          f"iterations {times['n_iters']}, the per-row form identical, {launches[1]} dynamic-K launches, "
+          f"the kernel bit for bit plain at N={n}; {ms:.3f} ms per window by CUDA events, {host_ms:.3f} ms "
+          f"host wall")
+    return launches, times
+
+
 def phase_static_shapes(dev, shapes) -> tuple[float, list]:
     """Phase 25: the static kernel against `map_pass_plain` at every (B, nw,
     lw, T) that phases 22-24 launched it at.  Returns (max_abs_err, [dict
@@ -5192,6 +5636,13 @@ def main() -> int:
     mark("phase 41: sidelink")
     by_path["sidelink"], windows["sidelink"], sl_shapes = phase_sidelink(dev)
     rx_shapes.update(sl_shapes)
+    torch.cuda.empty_cache()
+    # phases 42-43: NR, the grid-form rate match and perm_groups
+    mark("phase 42: NR")
+    windows["NR"] = phase_nr(dev)
+    torch.cuda.empty_cache()
+    mark("phase 43: the grid-form rate match and perm_groups")
+    by_path["perm_groups window"], windows["perm_groups window"] = phase_perm_groups(dev)
     torch.cuda.empty_cache()
     mark("phase 25: the static kernel at the receive chains' and the stack's shapes")
     max_err_rx, rx_rows = phase_static_shapes(dev, {k: v for k, v in rx_shapes.items() if not k[4]})

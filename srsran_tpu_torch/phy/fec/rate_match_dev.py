@@ -1,18 +1,21 @@
 """Turbo de-rate-matching with the index arithmetic done on the device
 (TS 36.212 §5.1.4.1).
 
-Counterpart of the part of `srsran_tpu/phy/fec/rate_match_dev.py` that the
-dynamic-grant decode reaches.  The static path (`rate_match.py`) builds one
-host index vector per (K, E, rv, filler) and caches it; here the sub-block
-interleaver, the <NULL>-skipping circular buffer and the rv start are
-closed-form index arithmetic on a few integers per codeblock that arrive as
-data, so one set of shapes serves every (K, E, rv, filler).
+Counterpart of `srsran_tpu/phy/fec/rate_match_dev.py`.  The static path
+(`rate_match.py`) builds one host index vector per (K, E, rv, filler) and
+caches it; here the sub-block interleaver, the <NULL>-skipping circular
+buffer and the rv start are closed-form index arithmetic on a few integers
+per codeblock that arrive as data, so one set of shapes serves every
+(K, E, rv, filler).
 
 A transport block has at most 3 codeblock layouts (codeblock 0 with its
 filler bits, K-, K+): the per-position tables are built per layout variant,
 batched over a leading variant axis, and each codeblock picks its variant's
-row.  Modulo on possibly negative operands is `torch.remainder` (floor
-modulo) throughout; indices are int64.
+row.  The grid-form helpers work on one transport block's codeblocks
+(`turbo_rm_positions_dev`, `codeword_scatter_dev`, `codeword_d_fill_dev`,
+`tb_reassembly_gather_dev`), each on the device of its inputs.  Modulo and
+division on possibly negative operands are floor operations
+(`torch.remainder`, `//` on tensors) throughout; indices are int64.
 """
 
 from __future__ import annotations
@@ -37,10 +40,11 @@ def _perm_tables():
     return RM_PERM_TC, inv_perm
 
 
-def _valid_rank_dev(k: torch.Tensor, f: torch.Tensor, k_max: int):
-    """Validity mask and inclusive rank over the circular buffer, in
-    unrotated order.  k, f: (V,) int64 codeblock size and filler count.
-    Returns (valid (V, NCB) bool, rank_incl (V, NCB), r, kp, nd, ncb (V, 1))."""
+def _buffer_dev(k: torch.Tensor, f: torch.Tensor, k_max: int):
+    """The circular buffer in unrotated order.  k, f: (V,) int64 codeblock
+    size and filler count.  Returns (valid (V, NCB) bool, w_flat (V, NCB) —
+    the flat d-stream index stream * (k_max+4) + position of each buffer
+    entry —, r, kp, nd, ncb (V, 1))."""
     NCB = ncb_max(k_max)
     perm, _ = table(_perm_tables, device=k.device)
     k, f = k[:, None], f[:, None]
@@ -64,8 +68,110 @@ def _valid_rank_dev(k: torch.Tensor, f: torch.Tensor, k_max: int):
     dpos = y - nd
     # filler bits are <NULL> in streams 0 and 1
     valid = (y >= nd) & (m < ncb) & ~((stream < 2) & (dpos < f))
-    rank_incl = torch.cumsum(valid.to(torch.int64), dim=1)
-    return valid, rank_incl, r, kp, nd, ncb
+    w_flat = stream * (k_max + 4) + torch.clamp(dpos, min=0)
+    return valid, w_flat, r, kp, nd, ncb
+
+
+def _valid_rank_dev(k: torch.Tensor, f: torch.Tensor, k_max: int):
+    """Validity mask and inclusive rank over the circular buffer, in
+    unrotated order.  k, f: (V,) int64 codeblock size and filler count.
+    Returns (valid (V, NCB) bool, rank_incl (V, NCB), r, kp, nd, ncb (V, 1))."""
+    valid, _w_flat, r, kp, nd, ncb = _buffer_dev(k, f, k_max)
+    return valid, torch.cumsum(valid.to(torch.int64), dim=1), r, kp, nd, ncb
+
+
+def _as_int64(x, device) -> torch.Tensor:
+    return torch.as_tensor(x, device=device).to(torch.int64)
+
+
+def turbo_rm_positions_dev(k, f, rv, k_max: int):
+    """The circular-buffer position table of codeblocks, on the device of k.
+
+    k, f: integer tensors of one shape S (0-d for one codeblock) — size and
+    filler bits; rv: an integer or a tensor of shape S.  k_max: the static
+    bound.  Returns (pos_valid S + (NCB_MAX,) int64, n_valid S int64):
+    pos_valid[..., m] is the flat d-stream index (stream * (k_max+4) +
+    position) of the m-th transmitted bit when the buffer is read from
+    k0(rv) on, <NULL> and filler positions skipped; entries from n_valid on
+    are the dump index 3*(k_max+4).  n_valid = 3*(k+4) - 2*f is the number
+    of distinct transmitted positions."""
+    k = torch.as_tensor(k)
+    shape, dev = k.shape, k.device
+    NCB = ncb_max(k_max)
+    k, f = k.reshape(-1).to(torch.int64), _as_int64(f, dev).reshape(-1)
+    valid, w_flat, r, kp, nd, ncb = _buffer_dev(k, f, k_max)
+    # rv start: ncb = 96r, so ceil(ncb / (8r)) = 12 and k0 = r * (24*rv + 2)
+    k0 = r * (24 * _as_int64(rv, dev).reshape(-1, 1) + 2)
+    m = torch.arange(NCB, device=dev)[None, :]
+    rot = torch.remainder(k0 + m, ncb)
+    v_rot = torch.gather(valid, 1, rot) & (m < ncb)  # exactly one sweep
+    rank = torch.cumsum(v_rot.to(torch.int64), dim=1) - 1
+    tgt = torch.where(v_rot, rank, NCB)  # the spare column NCB is dropped
+    pos = torch.full((k.shape[0], NCB + 1), 3 * (k_max + 4), dtype=torch.int64, device=dev)
+    pos.scatter_(1, tgt, torch.gather(w_flat, 1, rot))
+    n_valid = 3 * (k + 4) - 2 * f
+    return pos[:, :NCB].reshape(*shape, NCB), n_valid.reshape(shape)
+
+
+def _segment_of(u: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
+    """The segment each position u falls in, for segments ending at the
+    inclusive-scan `bounds` (B,): the count of bounds <= u, at most B - 1."""
+    seg = (u[:, None] >= bounds[None, :]).sum(dim=1)
+    return torch.clamp(seg, max=bounds.shape[0] - 1)
+
+
+def codeword_scatter_dev(cb_k, cb_e, cb_f, cb_valid, rv, k_max: int, g_max: int):
+    """Scatter targets of one transport block's de-rate-match, on the
+    device of cb_k.
+
+    cb_k/cb_e/cb_f: (B,) integer per-codeblock size, rate-matched length
+    and filler count; cb_valid: (B,) bool; rv: an integer or 0-d tensor.
+    Returns (G_MAX,) int64: codeword position g goes to flat index
+    cb * 3*(k_max+4) + d-stream index of the (B, 3, k_max+4) softbuffer;
+    positions past the codeword, or mapping to <NULL>, get the dump index
+    B * 3*(k_max+4)."""
+    dev = cb_k.device
+    bsz = cb_k.shape[0]
+    dflat = 3 * (k_max + 4)
+    cb_k, cb_e, cb_f = (_as_int64(x, dev) for x in (cb_k, cb_e, cb_f))
+    pos_valid, n_valid = turbo_rm_positions_dev(cb_k, cb_f, rv, k_max)  # (B, NCB), (B,)
+    n_valid = torch.where(cb_valid, torch.clamp(n_valid, min=1), 1)
+    bounds = torch.cumsum(torch.where(cb_valid, cb_e, 0), dim=0)
+    g = torch.arange(g_max, device=dev)
+    cb = _segment_of(g, bounds)
+    start = torch.cat([bounds.new_zeros(1), bounds[:-1]])
+    mm = torch.remainder(g - start[cb], n_valid[cb])
+    pos = pos_valid[cb, mm]
+    # a position past the codeword, or one at its codeblock's own dump slot
+    keep = (g < bounds[-1]) & (pos < dflat)
+    return torch.where(keep, cb * dflat + pos, bsz * dflat)
+
+
+def codeword_d_fill_dev(llr_pad, off, e, k, f, rv, k_max: int, rep: int):
+    """De-rate-match one codeblock by gathers, on the device of llr_pad.
+
+    llr_pad: (G + NCB_MAX,) codeword LLRs, zero-padded (shared by the
+    transport block's codeblocks).  off/e/k/f: integers or 0-d tensors —
+    this codeblock's codeword offset, rate-matched length, size and filler
+    count; rv likewise.  rep: the static bound on the repetition folds
+    ceil(e / n_valid); a codeblock that needs more raises ValueError (one
+    read of e, k, f when they are tensors).
+    Returns (3, k_max+4) accumulated d-stream LLRs: position p holds the sum
+    of every transmitted bit that maps to it (the HARQ `+=` of the
+    rate-matching receiver); <NULL>, filler and beyond-K positions are 0.
+    The work is a cumsum, the strided folds the codeblock needs (at most
+    `rep`) and two gather passes (`codeword_d_fill_grouped_dev` over one
+    codeblock)."""
+    dev = llr_pad.device
+    e_, k_, f_ = (int(x) for x in torch.stack([_as_int64(x, dev) for x in (e, k, f)]).tolist())
+    need = -(-e_ // max(3 * (k_ + 4) - 2 * f_, 1))
+    if need > rep:
+        raise ValueError(f"codeword_d_fill_dev: e={e_} needs {need} repetition folds of a "
+                         f"K={k_} codeblock (filler {f_}), more than rep={rep}")
+    one = lambda x: _as_int64(x, dev).reshape(1)  # noqa: E731
+    cls = torch.zeros(1, dtype=torch.int64, device=dev)
+    return codeword_d_fill_grouped_dev(llr_pad, one(off), one(e), cls, one(k), one(f),
+                                       _as_int64(rv, dev), k_max, rep, folds=need)[0]
 
 
 def _j0_variant_dev(k: torch.Tensor, f: torch.Tensor, rv: torch.Tensor, k_max: int):
@@ -232,3 +338,32 @@ def tx_table_np(k: int, f: int, rv: int, k_max: int):
     sel = ok & (j0 < ncb_max(k_max))
     tx[j0[sel]] = p[sel].astype(np.int32)
     return tx, n_valid
+
+
+def tb_reassembly_gather_dev(cb_k, cb_f, cb_valid, crc_is_b, tbs, k_max: int, tbs_max: int):
+    """Transport-block gather indices on the device of cb_k: the
+    concatenation of the codeblocks' bits, inverted.
+
+    cb_k/cb_f: (B,) integer codeblock sizes and filler counts; cb_valid,
+    crc_is_b: (B,) bool; tbs: an integer or 0-d tensor.  Codeblock i gives
+    bits [f_i, k_i - 24·crc_is_b_i); the last 24 bits of the concatenation
+    are the TB CRC.  Returns (tb_idx (tbs_max,) int64 — a left-padded
+    gather into the flat (B*k_max,) decoded bits, the dump index B*k_max at
+    the pad positions —, crc_idx (24,) int64 — the received CRC24A bits)."""
+    dev = cb_k.device
+    bsz = cb_k.shape[0]
+    cb_k, cb_f = _as_int64(cb_k, dev), _as_int64(cb_f, dev)
+    tbs = _as_int64(tbs, dev)
+    nbits = torch.where(cb_valid, cb_k - cb_f - 24 * crc_is_b.to(torch.int64), 0)
+    bounds = torch.cumsum(nbits, dim=0)
+    start = torch.cat([bounds.new_zeros(1), bounds[:-1]])
+
+    def src_of(u):
+        cb = _segment_of(u, bounds)
+        local = u - start[cb] + cb_f[cb]
+        return cb * k_max + torch.clamp(local, 0, k_max - 1)
+
+    u = torch.arange(tbs_max, device=dev) - (tbs_max - tbs)
+    tb_idx = torch.where(u >= 0, src_of(torch.clamp(u, min=0)), bsz * k_max)
+    crc_idx = src_of(tbs + torch.arange(24, device=dev))
+    return tb_idx, crc_idx

@@ -10,8 +10,9 @@ data:
   whose window holds position K swaps its backward carry for the
   tail-derived beta there (the MAP kernel's dynamic-K mode, its `k_vec` input).
 * The QPP interleaver and its inverse are inputs, (B, K_max) per-row gather
-  indices, identity beyond K — given row by row, or as a table of the batch's
-  distinct sizes with a class index per row (`class_perms`).
+  indices, identity beyond K — given row by row, as a table of the batch's
+  distinct sizes with a class index per row (`class_perms`), or as three
+  layouts per transport block of a window (`perm_groups`).
 * CRC early stop uses the leading-zeros invariance of CRCs with zero
   initial value: each row's bits are rolled to the tail of the K_max buffer
   and multiplied with one fixed (K_max, 48) CRC24A|CRC24B matrix.
@@ -63,7 +64,7 @@ def crc_ok_ab(bits: torch.Tensor, k_vec, crc_table, crc_is_b) -> torch.Tensor:
 
 
 def turbo_decode_dyn(d_llr, k_vec, per, inv, valid, k_max: int, max_iterations: int = 5,
-                     crc_table=None, crc_is_b=None, class_perms=None):
+                     crc_table=None, crc_is_b=None, perm_groups=None, class_perms=None):
     """Decode a batch of dynamic-size codeblocks.
 
     d_llr: (B, 3, K_max+4) d-stream LLRs — each codeblock's data in columns
@@ -74,6 +75,12 @@ def turbo_decode_dyn(d_llr, k_vec, per, inv, valid, k_max: int, max_iterations: 
     crc_table: optional (K_max, 48) float32, columns [:24] the CRC24A
     matrix and [24:] CRC24B (`crc_table_ab`); crc_is_b: (B,) bool selects
     the polynomial that gates a row's early stop.
+    perm_groups: optional (per3 (W, 3, K_max), inv3 (W, 3, K_max), cls (W, B_CB))
+    in place of per/inv, for a window of W transport blocks of B_CB codeblock
+    slots each (B = W·B_CB) with at most 3 codeblock layouts a block: row
+    (w, b) takes `per3[w, cls[w, b]]`.  The tables are resolved to per-row
+    indices once, so the bits, posteriors and n_iters equal those of the
+    call with these per/inv.
     class_perms: optional (perC (NCLS, K_max), invC (NCLS, K_max), cls (B,)),
     all int64, in place of per/inv: every row takes one of NCLS permutation
     tables shared by the whole batch, so `perC[cls]` is the per-row index and
@@ -88,7 +95,12 @@ def turbo_decode_dyn(d_llr, k_vec, per, inv, valid, k_max: int, max_iterations: 
     b = d_llr.shape[0]
     dev = d_llr.device
     k_vec = k_vec.to(torch.int64)
-    if class_perms is not None:
+    if perm_groups is not None:
+        per3, inv3, cls = perm_groups
+        cls = cls.to(torch.int64)
+        w_idx = torch.arange(cls.shape[0], device=cls.device)[:, None]
+        per, inv = (t[w_idx, cls].reshape(b, k_max).to(torch.int64) for t in (per3, inv3))
+    elif class_perms is not None:
         per_c, inv_c, cls = class_perms
         per, inv = per_c[cls], inv_c[cls]
     in_mask = torch.arange(k_max, device=dev)[None, :] < k_vec[:, None]  # (B, K_max)

@@ -1,5 +1,6 @@
 """The port's host stack (`srsran_tpu_torch/{stack,epc,runtime,io}`,
-`phy/tdd.py`, `native.py`) against the reference's on the CPU.
+`phy/tdd.py`, `native.py`, `apps/{nr_stack,ttcn3}.py`) against the
+reference's on the CPU.
 
 Each module of the port is a copy of the reference's with its imports
 pointed into the port: its AST, without import statements and the module
@@ -67,13 +68,17 @@ HOST_COPIES = ["stack/security.py", "stack/asn1/__init__.py", "stack/asn1/per.py
                "runtime/logger.py", "runtime/metrics.py", "runtime/trace.py", "runtime/crash.py",
                "runtime/pcap.py", "runtime/state.py", "runtime/enb_cfg.py", "runtime/plots.py",
                "native.py", "io/__init__.py", "io/filesource.py", "io/net.py", "io/radio.py",
-               "io/rf_zmq.py", "io/tun.py", "io/icmp_ping.py"]
+               "io/rf_zmq.py", "io/tun.py", "io/icmp_ping.py", "stack/mac_nr.py",
+               "stack/rlc_nr.py", "stack/pdcp_nr.py", "stack/vnf.py", "stack/asn1/rrc_nr.py",
+               "stack/asn1/ngap.py", "apps/nr_stack.py", "apps/ttcn3.py"]
 # module-level names, and functions of a class, that the port replaces on
 # purpose, with the reason: (module, class or None, name) -> reason.  A name
 # is left out of both sides, so one that only the port has is listed too.
 _NATIVE_BUILD = ("the port builds the library from native/sample_ring.cpp and its own "
                  "csrc/log_backend.cpp (a flush that waits for the file) into "
                  "srsran_tpu_torch/_build/ (a hashed name, an atomic rename), never into native/")
+_TTCN3_DEVICE = ("the port's UeStack runs on the card when device=None, so the fake PHY and "
+                 "the SYS server take device= and pass it through to UeStack(cell, usim, device=)")
 EXCLUDED = {
     ("runtime/state.py", None, "ue_sync_state"):
         "the port's UeSync.buf is a complex64 tensor on its device: read to the host",
@@ -83,6 +88,9 @@ EXCLUDED = {
         "builds the port's EnbStack and passes device= (None: the card) through",
     ("runtime/logger.py", None, "set_log_file"):
         "no Python sink in place of a native backend that fails to build: it raises",
+    **{("apps/ttcn3.py", cls, name): _TTCN3_DEVICE
+       for cls, name in (("Ttcn3UePhy", "__init__"), ("Ttcn3UePhy", "cell_cfg"),
+                         ("SystemInterface", "__init__"))},
     **{("native.py", None, name): _NATIVE_BUILD
        for name in ("_LIB_PATH", "_PKG", "SOURCES", "BUILD_DIR", "CXXFLAGS", "_cpu_flags",
                     "build")},
