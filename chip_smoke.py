@@ -189,7 +189,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      `Channel`s (the common DL, each UE's UL) with AWGN 0.01; both attach
      with AS security on, distinct C-RNTIs and IPs, two PRACH detections;
      20 TTIs of 1400-byte DL packets a UE a TTI, 20 of 1000-byte UL ones,
-     every packet through in order and intact; warm medians over the
+     every packet through in order and intact, no PUCCH ACK or SR read
+     where its UE sent none (`PucchWatch`); warm medians over the
      attached TTIs of ms per TTI of each end (host clock, synchronised, and
      CUDA events) and their DL/UL halves, the real-time factors, host
      synchronisations, kernels and busy share of one TTI, MAP launches per
@@ -235,7 +236,15 @@ Phases (each prints its own lines; any failure exits non-zero):
      wrote; the ring's dropped samples and the SDU count.  The native
      library is built in phase 2 from `native/` with g++;
   35-37. (after 34) the stored TDD attach, the 20 MHz TDD link, and the
-     example scripts with the Wiener estimators and the resamplers;
+     example scripts with the Wiener estimators and the resamplers.  The
+     TDD link (36) runs three times: `TddConfig(2, 4)` with one UE and
+     blind UL grants, then two UEs each, `TddConfig(2, 4)` with SRs and
+     `TddConfig(1, 4)` with SRS and SRs; each run keeps its UEs attached
+     (none released), receives DL HARQ ACKs from each UE with no PUCCH ACK
+     read as DTX and no PUCCH ACK or SR read where none was sent, an SR
+     from each UE where SRs are on, SRS measurements where the UEs sound,
+     and gates frame structure 2 (PRACH on subframe 2, UEs silent outside
+     U subframes, the eNB silent in U and past the DwPTS);
   38. (after 37, before 25 and 12) more than one device on the one card,
      whose eight positions of a mesh stand in for eight cards:
      `multi_carrier_ue_dl` at 100 PRB, MCS 26, 8 carriers (each its own TB
@@ -300,6 +309,7 @@ einsums and the CRC products keep full fp32.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -2907,11 +2917,18 @@ STACK_LINK = dict(preambles=(11, 29), attach_delays=(0, 40), doppler_hz=5.0, amp
                   traffic_ttis=20, dl_bytes=1400, ul_bytes=1000, max_attach=300, max_drain=200)
 # phases 35-36: frame structure 2.  The stored TDD attach: configuration 1,
 # special subframe 4, with tests/test_tdd.py's traffic (3 DL packets of 48
-# B, 3 UL of 40 B); the attached link: configuration 2 (M = 4 association
-# sets: multiplexed ACKs), special subframe 4
+# B, 3 UL of 40 B); the attached link: special subframe 4, configuration 2
+# (M = 4 association sets: multiplexed ACKs) and configuration 1
 FIXTURE_STACK_TDD = TESTDATA / "full_stack_attach_tdd_100prb.json"
 STACK_TDD = dict(tdd=(1, 4), kw=dict(sr_enabled=True), dl=(3, 48), ul=(3, 40))
-STACK_LINK_TDD = dict(tdd=(2, 4), n_ues=1)
+# phase 36's link: configuration 2, one UE, neither SRs nor SRS (blind UL
+# grants); then in `runs` that link again and two more, two UEs each: (a)
+# configuration 2 with SRs, (b) configuration 1 (subframe 3 is U: the UEs
+# sound) with SRS and SRs
+STACK_LINK_TDD = dict(tdd=(2, 4), n_ues=1, kw={})
+STACK_LINK_TDD["runs"] = (dict(STACK_LINK_TDD, tag="1 UE"),
+                          dict(tag="a", tdd=(2, 4), n_ues=2, kw=dict(sr_enabled=True)),
+                          dict(tag="b", tdd=(1, 4), n_ues=2, kw=dict(srs_enabled=True, sr_enabled=True)))
 # phase 30: the stored attach's script on the other data planes
 STACK_PLANES = (("dynamic", dict(dynamic_phy=True)),
                 ("windowed", dict(windowed_phy=True, phy_window=4)))
@@ -3113,8 +3130,76 @@ class Timed:
         setattr(obj, method, timed)
 
 
+class PucchWatch:
+    """What each UE sent on PUCCH format 1 and what the eNB read there, for
+    `stack_link_run`'s gates.  While it is entered, the port's
+    `full_stack.ue_ul_encode` and `full_stack._pucch1_decodes` are
+    wrapped: a UE's subframe, sent inside `ue(i)`, is held against the
+    eNB's decodes of it in its next TTI.  `counts` per UE: `ack_dtx`, an ACK
+    sent, every resource of its ACK read as DTX; `sr_miss`, an SR sent and
+    read as DTX; `false_alarm`, an ACK read where the UE sent no ACK, or an
+    SR where it sent no PUCCH (an ACK a UE sends on its own SR resource,
+    which the dynamic resources reach on wide cells, reads as its SR too:
+    the eNB grants a UE that is sending)."""
+
+    DTX = 0.25  # the eNB's DTX threshold of a format-1 metric
+
+    def __init__(self, ues):
+        self.ues = ues
+        self.counts = [dict(ack_dtx=0, sr_miss=0, false_alarm=0) for _ in ues]
+        self.sent = [None] * len(ues)  # (n_pucch, nof_bits) of each UE's last subframe
+        self.cur = None
+
+    def __enter__(self):
+        from srsran_tpu_torch.apps import full_stack as fs
+
+        self.fs, self.orig = fs, (fs.ue_ul_encode, fs._pucch1_decodes)
+        encode, decodes = self.orig
+
+        def ue_ul_encode(*a, pucch1=None, **k):
+            if self.cur is not None and pucch1 is not None:
+                self.sent[self.cur] = (pucch1[0].n_pucch, len(pucch1[1]))
+            return encode(*a, pucch1=pucch1, **k)
+
+        def pucch1_decodes(*a, **k):
+            out = decodes(*a, **k)
+            self.judge(out)
+            return out
+
+        fs.ue_ul_encode, fs._pucch1_decodes = ue_ul_encode, pucch1_decodes
+        return self
+
+    def __exit__(self, *exc):
+        self.fs.ue_ul_encode, self.fs._pucch1_decodes = self.orig
+
+    @contextlib.contextmanager
+    def ue(self, i: int):
+        self.cur, self.sent[i] = i, None
+        try:
+            yield
+        finally:
+            self.cur = None
+
+    def judge(self, out: dict):
+        """`_pucch1_decodes`'s {(rnti, n_pucch, nof_bits): (bits, metric)}
+        against what the UEs sent."""
+        for i, ue in enumerate(self.ues):
+            read = [(b > 0, m > self.DTX) for (r, _n, b), (_bits, m) in out.items() if r == ue.crnti]
+            if not read:
+                continue
+            sent = self.sent[i]
+            c = self.counts[i]
+            for is_ack in (True, False):
+                was_sent = sent is not None and (sent[1] > 0) == is_ack
+                hits = [d for a, d in read if a == is_ack]
+                if any(hits) and not (was_sent if is_ack else sent is not None):
+                    c["false_alarm"] += 1
+                elif hits and was_sent and not any(hits):
+                    c["ack_dtx" if is_ack else "sr_miss"] += 1
+
+
 def stack_link_run(device, nof_prb: int = 100, traffic_ttis: int = STACK_LINK["traffic_ttis"],
-                   on_step=None, tdd=None, n_ues: int = 2) -> dict:
+                   on_step=None, tdd=None, n_ues: int = 2, kw=None) -> dict:
     """Phase 29's link: an `EnbStack` (STACK's cell and MCS) and two
     `UeStack`s (preambles 11 and 29, the second 40 TTIs later) through
     `StackAir`.  After both register (and 10 TTIs for the second's Attach
@@ -3123,16 +3208,26 @@ def stack_link_run(device, nof_prb: int = 100, traffic_ttis: int = STACK_LINK["t
     packet a UE a TTI — then until everything is through (packet sizes
     scaled by nof_prb / 100).  Gates: both UEs
     registered with AS security on, distinct C-RNTIs and IPs, two PRACH
-    detections, every packet delivered in order and intact.  `on_step(tti,
+    detections, every packet delivered in order and intact, and no PUCCH
+    format 1 read where its UE sent none: no ACK where the UE sent no ACK,
+    no SR where it sent no PUCCH (read by `PucchWatch`).  `on_step(tti,
     phase)` runs after each TTI ("attach", "dl", "ul", "drain").  `n_ues`:
-    the first 1 or 2 of those UEs.  `tdd`:
+    the first 1 or 2 of those UEs.  `kw`: the stack keywords of both ends
+    (`sr_enabled=`, `srs_enabled=`).  With SRs on, no blind UL grant
+    reaches a UE with nothing to send, and the eNB releases a UE it has not
+    heard for `ul_inactivity_timeout` TTIs: so while the second UE
+    attaches, each registered UE sends a 20 B UL packet (through an SR)
+    every half of that, and these packets are gated as the others.  `tdd`:
     (UL/DL configuration, special-subframe configuration) of frame
     structure 2 on every end, with its gates too: each PRACH detected on
     subframe 2, no UE energy outside U subframes, no eNB energy in a U
-    subframe or past a DwPTS, DL HARQ ACKs received.  Returns the run's
-    record: per TTI the host ms (synchronised) and CUDA-event ms of
-    `EnbStack.run_tti` and of each `UeStack.run_tti`, the subframe index,
-    and the split of each end into its DL and UL halves."""
+    subframe or past a DwPTS, DL HARQ ACKs received from each UE (counted
+    at the eNB's scheduler), and no ACK that a UE sent on PUCCH read as
+    DTX.  Returns the run's record: per TTI the host ms (synchronised) and
+    CUDA-event ms of `EnbStack.run_tti` and of each `UeStack.run_tti`, the
+    subframe index, the split of each end into its DL and UL halves, and
+    per UE the ACKs received and the PUCCH format-1 counts of
+    `PucchWatch`."""
     from srsran_tpu_torch.phy import tdd as tdd_mod
     from srsran_tpu_torch.phy.ofdm import OfdmConfig
 
@@ -3143,7 +3238,7 @@ def stack_link_run(device, nof_prb: int = 100, traffic_ttis: int = STACK_LINK["t
     cuda = torch.device(device).type == "cuda"
     m = port_stack_modules()
     cfg = None if tdd is None else m.TddConfig(*tdd)
-    tdd_kw = {} if cfg is None else dict(tdd_cfg=cfg)
+    tdd_kw = dict(kw or {}, **({} if cfg is None else dict(tdd_cfg=cfg)))
     s = stack_pair(m, nof_prb, n_ues=n_ues, enb_kw=tdd_kw,
                    ue_kw=[dict(preamble=p, attach_delay=d, **tdd_kw)
                           for p, d in zip(L["preambles"], L["attach_delays"])], device=device)
@@ -3155,8 +3250,17 @@ def stack_link_run(device, nof_prb: int = 100, traffic_ttis: int = STACK_LINK["t
     for i, ue in enumerate(ues):
         timed.wrap(ue, "_process_dl", f"ue{i} dl decode")
         timed.wrap(ue, "_build_ul", f"ue{i} ul encode")
+    acks = Counter()  # DL HARQ ACKs the eNB's scheduler received, by C-RNTI
+    ack_info = enb.sched.ack_info
+
+    def counted(rnti, pid, ack, *a, **k):
+        acks[rnti] += bool(ack)
+        return ack_info(rnti, pid, ack, *a, **k)
+
+    enb.sched.ack_info = counted
+    watch = PucchWatch(ues)
     rec = dict(enb_ms=[], enb_event_ms=[], ue_ms=[[] for _ in ues], ue_event_ms=[[] for _ in ues],
-               phase=[], sf=[], prach_sf=[], cell=s.cell, stack=s, timed=timed)
+               phase=[], sf=[], prach_sf=[], cell=s.cell, stack=s, timed=timed, pucch=watch.counts)
     dl_sent = [[] for _ in ues]
     ul_sent = {}
     ul = [None] * len(ues)
@@ -3197,7 +3301,8 @@ def stack_link_run(device, nof_prb: int = 100, traffic_ttis: int = STACK_LINK["t
         if enb.stats["prach_detected"] > prach:  # in the UEs' subframe of TTI tti - 1
             rec["prach_sf"].append((tti - 1) % 10)
         for i, (ue, y) in enumerate(zip(ues, air.dl(x, len(ues)))):
-            ul[i] = clocked(ue.run_tti, y, rec["ue_ms"][i], rec["ue_event_ms"][i])
+            with watch.ue(i):
+                ul[i] = clocked(ue.run_tti, y, rec["ue_ms"][i], rec["ue_event_ms"][i])
         if cfg is not None:
             tdd_gates(tti, x, ul)
         rec["phase"].append(phase)
@@ -3205,27 +3310,19 @@ def stack_link_run(device, nof_prb: int = 100, traffic_ttis: int = STACK_LINK["t
         if on_step is not None:
             on_step(len(rec["phase"]) - 1, phase)
 
-    while not all(stack_registered(u) for u in ues) and len(rec["phase"]) < L["max_attach"]:
-        one_tti("attach")
-    check(all(stack_registered(u) for u in ues),
-          f"stack link: UEs not registered after {len(rec['phase'])} TTIs: "
-          f"{[(u.rrc_state, u.nas.state) for u in ues]}")
-    for _ in range(10):  # the second UE's Attach Complete reaches the MME
-        one_tti("attach")
-    rec["attached_tti"] = len(rec["phase"])
-    rng = np.random.default_rng(STACK["seed"] + 29)
-    for _ in range(traffic_ttis):
+    keep_alive = enb.ul_inactivity_timeout // 2 if (kw or {}).get("sr_enabled") else 0
+    alive_at = [None] * len(ues)
+
+    def attach_tti():
         for i, ue in enumerate(ues):
-            p = rng.integers(0, 256, dl_bytes, dtype=np.uint8).tobytes()
-            spgw.sgi_tx(ue.ue_ip, p)
-            dl_sent[i].append(p)
-        one_tti("dl")
-    for _ in range(traffic_ttis):
-        for i, ue in enumerate(ues):
-            p = rng.integers(0, 256, ul_bytes, dtype=np.uint8).tobytes()
-            ue.send_ip_packet(p)
-            ul_sent.setdefault(ue.ue_ip, []).append(p)
-        one_tti("ul")
+            if keep_alive and stack_registered(ue) and (
+                    alive_at[i] is None or len(rec["phase"]) - alive_at[i] >= keep_alive):
+                p = bytes([0xA0 + i]) * 20
+                ue.send_ip_packet(p)
+                ul_sent.setdefault(ue.ue_ip, []).append(p)
+                alive_at[i] = len(rec["phase"])
+        one_tti("attach")
+
     def through():
         got_ul = {}
         for ip, p in spgw.sgi_rx:
@@ -3233,8 +3330,30 @@ def stack_link_run(device, nof_prb: int = 100, traffic_ttis: int = STACK_LINK["t
         return (all(len(u.ip_rx) >= len(d) for u, d in zip(ues, dl_sent))
                 and all(len(got_ul.get(ip, ())) >= len(v) for ip, v in ul_sent.items()), got_ul)
 
-    while not through()[0] and len(rec["phase"]) < rec["attached_tti"] + 2 * traffic_ttis + L["max_drain"]:
-        one_tti("drain")
+    with watch:
+        while not all(stack_registered(u) for u in ues) and len(rec["phase"]) < L["max_attach"]:
+            attach_tti()
+        check(all(stack_registered(u) for u in ues),
+              f"stack link: UEs not registered after {len(rec['phase'])} TTIs: "
+              f"{[(u.rrc_state, u.nas.state) for u in ues]}")
+        for _ in range(10):  # the second UE's Attach Complete reaches the MME
+            attach_tti()
+        rec["attached_tti"] = len(rec["phase"])
+        rng = np.random.default_rng(STACK["seed"] + 29)
+        for _ in range(traffic_ttis):
+            for i, ue in enumerate(ues):
+                p = rng.integers(0, 256, dl_bytes, dtype=np.uint8).tobytes()
+                spgw.sgi_tx(ue.ue_ip, p)
+                dl_sent[i].append(p)
+            one_tti("dl")
+        for _ in range(traffic_ttis):
+            for i, ue in enumerate(ues):
+                p = rng.integers(0, 256, ul_bytes, dtype=np.uint8).tobytes()
+                ue.send_ip_packet(p)
+                ul_sent.setdefault(ue.ue_ip, []).append(p)
+            one_tti("ul")
+        while not through()[0] and len(rec["phase"]) < rec["attached_tti"] + 2 * traffic_ttis + L["max_drain"]:
+            one_tti("drain")
     got_ul = through()[1]
     for i, ue in enumerate(ues):
         check(ue.cipher_alg == ue.integ_alg == 2, f"stack link: UE {i} has no AS security")
@@ -3245,9 +3364,15 @@ def stack_link_run(device, nof_prb: int = 100, traffic_ttis: int = STACK_LINK["t
     check(len({u.crnti for u in ues}) == len({u.ue_ip for u in ues}) == len(ues),
           "stack link: the UEs share a C-RNTI or an IP")
     check(enb.stats["prach_detected"] == len(ues), f"stack link: PRACH detections {enb.stats}")
+    rec["dl_acks"] = [acks[u.crnti] for u in ues]
+    check(all(c["false_alarm"] == 0 for c in watch.counts),
+          f"stack link: PUCCH format 1 read where the UE sent none, by UE: {watch.counts}")
     if cfg is not None:
         check(rec["prach_sf"] == [2] * len(ues), f"stack link: PRACH detected on subframes {rec['prach_sf']}")
         check(enb.stats.get("dl_ack", 0) > 0, f"stack link: no DL HARQ ACK received {enb.stats}")
+        check(min(rec["dl_acks"]) > 0, f"stack link: DL HARQ ACKs received by UE: {rec['dl_acks']}")
+        check(all(c["ack_dtx"] == 0 for c in watch.counts),
+              f"stack link: ACKs sent on PUCCH and read as DTX, by UE: {watch.counts}")
     check(sorted(s.mme.attached_imsis) == sorted(imsi for imsi, _k, _o in STACK_UES[:len(ues)]),
           f"stack link: MME attached {s.mme.attached_imsis}")
     rec.update(dl_bits=8 * sum(len(p) for d in dl_sent for p in d),
@@ -3371,14 +3496,16 @@ def phase_stack_link(dev) -> tuple[tuple[int, int], dict, Counter]:
                  dl_mbps_wall=rec["dl_bits"] / (span * step_ms * 1e-3) / 1e6,
                  ul_mbps_wall=rec["ul_bits"] / (span * step_ms * 1e-3) / 1e6,
                  enb_stats=dict(enb.stats), ue_stats=[dict(u.stats) for u in ues],
-                 crntis=[u.crnti for u in ues], ips=[u.ue_ip for u in ues])
+                 crntis=[u.crnti for u in ues], ips=[u.ue_ip for u in ues], dl_acks=rec["dl_acks"],
+                 pucch=rec["pucch"])
     print(f"stack link: 100 PRB cell {STACK['cell_id']} MCS {STACK['mcs']}, 2 UEs (preambles "
           f"{L['preambles']}, delays {L['attach_delays']}), EPA {L['doppler_hz']} Hz, AWGN {L['amp']}: "
           f"both registered with AS security by TTI {rec['attached_tti'] - 10}, C-RNTIs "
           f"{times['crntis']}, IPs {times['ips']}, {enb.stats['prach_detected']} PRACH detections; "
           f"{L['traffic_ttis']} TTIs of {L['dl_bytes']} B DL a UE, {L['traffic_ttis']} of "
           f"{L['ul_bytes']} B UL a UE, every packet through in order within {n_traffic} TTIs "
-          f"(dl {dl_ttis}); eNB {enb.stats}; UEs {[u.stats for u in ues]}; {launches} map launches")
+          f"(dl {dl_ttis}); DL HARQ ACKs by UE {rec['dl_acks']}; PUCCH format 1 by UE {rec['pucch']}; "
+          f"eNB {enb.stats}; UEs {[u.stats for u in ues]}; {launches} map launches")
     print(f"stack link: per attached TTI (median of {len(att)}): EnbStack.run_tti {enb_ms:.2f} ms host "
           f"/ {enb_ev:.2f} ms events, UeStack.run_tti {[round(v, 2) for v in ue_ms]} ms host / "
           f"{[round(v, 2) for v in ue_ev]} ms events (attach TTIs: UE 0 {attach_ue_ms:.2f} ms); halves "
@@ -3394,79 +3521,94 @@ def phase_stack_link(dev) -> tuple[tuple[int, int], dict, Counter]:
 
 
 def phase_stack_link_tdd(dev) -> tuple[tuple[int, int], dict, Counter]:
-    """Phase 36: the 20 MHz attached link under frame structure 2
-    (`STACK_LINK_TDD`), one UE (with two, the reference's own stack
-    releases the first UE during the DL traffic: ROADMAP Queue 3), timed by
-    subframe type.  Returns ((static, dynamic-K) launches, times dict, the
-    run's launches by kernel shape)."""
+    """Phase 36: the 20 MHz attached link under frame structure 2 in each
+    run of `STACK_LINK_TDD` (one UE with blind UL grants, then two UEs with
+    SRs, and with SRS and SRs), timed by subframe type.  Gates beyond
+    `stack_link_run`'s: no UE released, an SR from each UE in the runs with
+    SRs, SRS measured in the runs that sound, static MAP launches and no
+    dynamic-K one.  Returns
+    ((static, dynamic-K) launches over the runs, times by run, the runs'
+    launches by kernel shape)."""
     from srsran_tpu_torch.phy import tdd as tdd_mod
     from srsran_tpu_torch.phy.fec import turbo_cuda
 
-    T = STACK_LINK_TDD
-    reset_launches()
-    before = Counter(turbo_cuda.SHAPES)
-    rec = stack_link_run(dev, 100, tdd=T["tdd"], n_ues=T["n_ues"])
-    launches = read_launches()
-    shapes = Counter(turbo_cuda.SHAPES)
-    shapes.subtract(before)
-    check(launches[0] > 0 and launches[1] == 0, f"TDD link: map launches {launches}")
-    mark("phase 36: the TDD link ran; its host syncs, kernels and times")
-    med = lambda v: sorted(v)[len(v) // 2] if v else None  # noqa: E731
-    s = rec["stack"]
-    enb, ues = s.enb, s.ues
-    cfg = enb.tdd
-    att = [i for i, p in enumerate(rec["phase"]) if p != "attach"]
-    by_type = {}
-    for kind in tdd_mod.SfType:
-        idx = [i for i in att if tdd_mod.sf_type(cfg, rec["sf"][i]) == kind]
-        by_type[kind.name] = dict(ttis=len(idx), enb_ms=med([rec["enb_ms"][i] for i in idx]),
-                                  enb_event_ms=med([rec["enb_event_ms"][i] for i in idx]),
-                                  ue_ms=[med([v[i] for i in idx]) for v in rec["ue_ms"]],
-                                  ue_event_ms=[med([v[i] for i in idx]) for v in rec["ue_event_ms"]])
-    # host syncs, kernels and device time of a frame (10 TTIs: every subframe
-    # type), per TTI; the profiler's own cost grows with the frame's 30,000
-    # kernels, so one frame each
-    air = StackAir(s.cell, len(ues), dev)
-    ul = [None] * len(ues)
+    total, shapes, times = [0, 0], Counter(), {}
+    for T in STACK_LINK_TDD["runs"]:
+        tag = f"TDD link ({T['tag']})"
+        reset_launches()
+        before = Counter(turbo_cuda.SHAPES)
+        rec = stack_link_run(dev, 100, tdd=T["tdd"], n_ues=T["n_ues"], kw=T["kw"])
+        launches = read_launches()
+        run_shapes = Counter(turbo_cuda.SHAPES)
+        run_shapes.subtract(before)
+        shapes.update(+run_shapes)
+        total = [t + n for t, n in zip(total, launches)]
+        s = rec["stack"]
+        enb, ues = s.enb, s.ues
+        check(launches[0] > 0 and launches[1] == 0, f"{tag}: map launches {launches}")
+        check(enb.stats["ue_released"] == 0, f"{tag}: UEs released {enb.stats}")
+        if T["kw"].get("sr_enabled"):
+            check(all(u.stats.get("sr_sent", 0) > 0 for u in ues),
+                  f"{tag}: SRs sent by UE {[u.stats.get('sr_sent', 0) for u in ues]}")
+        if T["kw"].get("srs_enabled"):
+            check(enb.stats.get("srs_meas", 0) > 0, f"{tag}: no SRS measured {enb.stats}")
+        mark(f"phase 36: {tag} ran; its host syncs, kernels and times")
+        med = lambda v: sorted(v)[len(v) // 2] if v else None  # noqa: E731
+        cfg = enb.tdd
+        att = [i for i, p in enumerate(rec["phase"]) if p != "attach"]
+        by_type = {}
+        for kind in tdd_mod.SfType:
+            idx = [i for i in att if tdd_mod.sf_type(cfg, rec["sf"][i]) == kind]
+            by_type[kind.name] = dict(ttis=len(idx), enb_ms=med([rec["enb_ms"][i] for i in idx]),
+                                      enb_event_ms=med([rec["enb_event_ms"][i] for i in idx]),
+                                      ue_ms=[med([v[i] for i in idx]) for v in rec["ue_ms"]],
+                                      ue_event_ms=[med([v[i] for i in idx]) for v in rec["ue_event_ms"]])
+        # host syncs, kernels and device time of a frame (10 TTIs: every
+        # subframe type), per TTI; the profiler's own cost grows with the
+        # frame's kernels, so one frame each
+        air = StackAir(s.cell, len(ues), dev)
+        ul = [None] * len(ues)
 
-    def frame():
-        for _ in range(10):
-            x = enb.run_tti(air.ul(ul) if any(u is not None for u in ul) else None)
-            for i, (ue, y) in enumerate(zip(ues, air.dl(x, len(ues)))):
-                ul[i] = ue.run_tti(y)
+        def frame():
+            for _ in range(10):
+                x = enb.run_tti(air.ul(ul) if any(u is not None for u in ul) else None)
+                for i, (ue, y) in enumerate(zip(ues, air.dl(x, len(ues)))):
+                    ul[i] = ue.run_tti(y)
 
-    for ue in ues:
-        for _ in range(4):
-            s.spgw.sgi_tx(ue.ue_ip, bytes(STACK_LINK["dl_bytes"]))
-            ue.send_ip_packet(bytes(STACK_LINK["ul_bytes"]))
-    rec["timed"].on = False
-    syncs = stack_steps_synced(frame, dev) / 10
-    host_ms = wall_ms(frame, 2) / 10
-    kernels, dev_ms = (v / 10 for v in profile_kernels(frame))
-    span = len(att)
-    times = dict(by_type=by_type, host_syncs_per_tti=syncs, kernels_per_tti=kernels,
-                 device_ms_per_tti=dev_ms, step_host_ms=host_ms, busy=dev_ms / host_ms,
-                 map_launches=launches[0], ttis=len(rec["phase"]), attached_tti=rec["attached_tti"],
-                 prach_sf=rec["prach_sf"], dl_mbps_air=rec["dl_bits"] / (span * 1e-3) / 1e6,
-                 ul_mbps_air=rec["ul_bits"] / (span * 1e-3) / 1e6, enb_stats=dict(enb.stats),
-                 ue_stats=[dict(u.stats) for u in ues], crntis=[u.crnti for u in ues],
-                 ips=[u.ue_ip for u in ues])
-    print(f"TDD link: 100 PRB cell {STACK['cell_id']} MCS {STACK['mcs']}, TddConfig{T['tdd']}, "
-          f"{len(ues)} UE, EPA {STACK_LINK['doppler_hz']} Hz, AWGN {STACK_LINK['amp']}: registered "
-          f"with AS security by TTI {rec['attached_tti'] - 10}, PRACH on subframes {rec['prach_sf']}, "
-          f"C-RNTIs {times['crntis']}, IPs {times['ips']}; every packet through in order by TTI "
-          f"{len(rec['phase'])}; no UE energy outside U subframes, no eNB energy in U or past the "
-          f"DwPTS; eNB {enb.stats}; UE {[u.stats for u in ues]}; {launches[0]} static map launches")
-    for kind, v in by_type.items():
-        if v["ttis"]:
-            print(f"TDD link: {kind} subframes (median of {v['ttis']} attached TTIs): EnbStack.run_tti "
-                  f"{v['enb_ms']:.2f} ms host / {v['enb_event_ms']:.2f} ms events, UeStack.run_tti "
-                  f"{[round(x, 2) for x in v['ue_ms']]} ms host / "
-                  f"{[round(x, 2) for x in v['ue_event_ms']]} ms events")
-    print(f"TDD link: per TTI over a frame: {host_ms:.2f} ms host (two frames), {kernels:.0f} kernels, {dev_ms:.3f} ms "
-          f"of device time (busy {dev_ms / host_ms:.1%}), host syncs {syncs}; IP payload DL "
-          f"{times['dl_mbps_air']:.2f} Mbps / UL {times['ul_mbps_air']:.2f} Mbps of air time")
-    return launches, times, +shapes
+        for ue in ues:
+            for _ in range(4):
+                s.spgw.sgi_tx(ue.ue_ip, bytes(STACK_LINK["dl_bytes"]))
+                ue.send_ip_packet(bytes(STACK_LINK["ul_bytes"]))
+        rec["timed"].on = False
+        syncs = stack_steps_synced(frame, dev) / 10
+        host_ms = wall_ms(frame, 2) / 10
+        kernels, dev_ms = (v / 10 for v in profile_kernels(frame))
+        span = len(att)
+        times[T["tag"]] = t = dict(
+            tdd=T["tdd"], kw=T["kw"], by_type=by_type, host_syncs_per_tti=syncs,
+            kernels_per_tti=kernels, device_ms_per_tti=dev_ms, step_host_ms=host_ms,
+            busy=dev_ms / host_ms, map_launches=launches[0], ttis=len(rec["phase"]),
+            attached_tti=rec["attached_tti"], prach_sf=rec["prach_sf"],
+            dl_mbps_air=rec["dl_bits"] / (span * 1e-3) / 1e6, ul_mbps_air=rec["ul_bits"] / (span * 1e-3) / 1e6,
+            dl_acks=rec["dl_acks"], pucch=rec["pucch"], enb_stats=dict(enb.stats),
+            ue_stats=[dict(u.stats) for u in ues], crntis=[u.crnti for u in ues], ips=[u.ue_ip for u in ues])
+        print(f"{tag}: 100 PRB cell {STACK['cell_id']} MCS {STACK['mcs']}, TddConfig{T['tdd']} {T['kw']}, "
+              f"{len(ues)} UEs, EPA {STACK_LINK['doppler_hz']} Hz, AWGN {STACK_LINK['amp']}: registered "
+              f"with AS security by TTI {rec['attached_tti'] - 10}, PRACH on subframes {rec['prach_sf']}, "
+              f"C-RNTIs {t['crntis']}, IPs {t['ips']}, none released; every packet through in order by "
+              f"TTI {len(rec['phase'])}; DL HARQ ACKs by UE {t['dl_acks']}; PUCCH format 1 by UE "
+              f"{t['pucch']}; no UE energy outside U subframes, no eNB energy in U or past the DwPTS; eNB "
+              f"{enb.stats}; UEs {[u.stats for u in ues]}; {launches[0]} static map launches")
+        for kind, v in by_type.items():
+            if v["ttis"]:
+                print(f"{tag}: {kind} subframes (median of {v['ttis']} attached TTIs): EnbStack.run_tti "
+                      f"{v['enb_ms']:.2f} ms host / {v['enb_event_ms']:.2f} ms events, UeStack.run_tti "
+                      f"{[round(x, 2) for x in v['ue_ms']]} ms host / "
+                      f"{[round(x, 2) for x in v['ue_event_ms']]} ms events")
+        print(f"{tag}: per TTI over a frame: {host_ms:.2f} ms host (two frames), {kernels:.0f} kernels, "
+              f"{dev_ms:.3f} ms of device time (busy {dev_ms / host_ms:.1%}), host syncs {syncs}; IP payload "
+              f"DL {t['dl_mbps_air']:.2f} Mbps / UL {t['ul_mbps_air']:.2f} Mbps of air time")
+    return tuple(total), times, +shapes
 
 
 def stack_planes_run(device, nof_prb: int = 100, on_run=None) -> dict:

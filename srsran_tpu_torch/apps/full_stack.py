@@ -108,9 +108,12 @@ def _is_sr_sf(enabled: bool, tdd_cfg, tti: int) -> bool:
 
 
 def _is_srs_sf(enabled: bool, tdd_cfg, tti: int) -> bool:
-    """Cell-specific SRS subframe: sf 3 each frame (a U subframe in every
-    TDD config); PUSCH there uses the shortened format."""
-    return enabled and tti % 10 == SRS_SF
+    """Cell-specific SRS subframe: sf 3 each frame; PUSCH there uses the
+    shortened format.  Under TDD only where sf 3 is a U subframe (not in
+    configurations 2 and 5, where it is D: no sounding there)."""
+    if not enabled or tti % 10 != SRS_SF:
+        return False
+    return tdd.sf_type(tdd_cfg, SRS_SF) == tdd.SfType.U if tdd_cfg is not None else True
 
 
 def _pusch_delay(tdd_cfg, tti: int) -> int | None:
@@ -128,6 +131,64 @@ def _read_pucch(bits: torch.Tensor, metric: torch.Tensor) -> tuple[float, np.nda
     host = torch.cat([metric.reshape(1).to(torch.float32),
                       bits.to(torch.float32)]).cpu().numpy()
     return float(host[0]), host[1:].astype(int)
+
+
+# The most of a format-1 signal's metric that another resource of its PRB
+# reads (the cyclic shifts and covers leak under EPA's delay spread, and
+# the noise): at most 1.3e-3 over 400 EPA 5 Hz subframes with AWGN 0.01 at
+# 15 PRB, 4.6e-4 at 100 PRB, for every pair of resources (`PYTHONPATH=.
+# python tests/test_torch_pucch_dtx.py`), bounded here with a margin of 3
+PUCCH_LEAK = 1 / 256
+
+
+def _pucch1_decodes(cell: Cell, sf_idx: int, grid, wanted: dict, device) -> dict:
+    """The format-1 decodes of one UL subframe.  `wanted` maps each RNTI to
+    the (n_pucch, nof_bits) it may answer on; returns {(rnti, n_pucch,
+    nof_bits): (bits, metric)}.
+
+    A metric is the energy of its resource's DMRS over the energy of its
+    PRB, which holds every UE's format-1 signal code-multiplexed beside it:
+    a UE faded 9 dB below another would read as DTX.  So where resources
+    that only other RNTIs may use share the PRB, the share of the PRB's
+    energy they explain (metric / 2 each: a format-1 signal fills every RE
+    of its PRB, over two slots) leaves the denominator first, and the
+    metric is judged against what is left.  An empty resource beside them
+    reads at most PUCCH_LEAK of their metrics, 2 * PUCCH_LEAK * share: the
+    denominator's floor 16 * PUCCH_LEAK * share keeps that at half the DTX
+    threshold, and a UE still reads as present down to 21 dB (1/128) under
+    them.  Where no other RNTI's resource shares the PRB, nothing
+    changes.
+
+    The dynamic HARQ-ACK resources (n_CCE + 2i) reach the SR resources
+    (`_sr_resource`) on wide cells.  An SR resource that is also another
+    RNTI's HARQ-ACK resource of the subframe reads as no SR (metric 0): its
+    energy may be that UE's ACK, and the UE whose SR it is sends it again
+    at the next occasion.  (An ACK on its own UE's SR resource still reads
+    as that UE's SR too, as the reference reads it.)"""
+    from ..phy.phch.pucch import PucchConfig, _f1_covers, pucch_f1_prb
+
+    def prb(n: int) -> tuple[int, int]:
+        return tuple(pucch_f1_prb(n, 2 * sf_idx + s, cell.nof_prb, covers=_f1_covers(cell))
+                     for s in (0, 1))
+
+    raw = {}
+    for rnti, res in wanted.items():
+        for n, nbits in res:
+            bits, metric = enb_ul_decode_pucch(cell, sf_idx, grid, PucchConfig(n_pucch=n), "1", nbits,
+                                               device=device)
+            raw[rnti, n, nbits] = (bits, float(metric))
+    out = {}
+    for (rnti, n, nbits), (bits, m) in raw.items():
+        own = {n2 for n2, _b in wanted[rnti]}
+        others = {n2: m2 for (r2, n2, _b), (_bits, m2) in raw.items()
+                  if r2 != rnti and n2 not in own and prb(n2) == prb(n)}
+        if others:
+            share = sum(others.values()) / 2
+            m = m / max(1.0 - share, 16 * PUCCH_LEAK * share)
+        if nbits == 0 and any(n2 == n and b2 > 0 and r2 != rnti for r2, n2, b2 in raw):
+            m = 0.0
+        out[rnti, n, nbits] = (bits, m)
+    return out
 
 
 def _pack_rar(rapid: int, ta: int, grant20: int, temp_crnti: int) -> bytes:
@@ -637,6 +698,15 @@ class EnbStack:
         self.tti += 1
         return dl
 
+    def _heard(self, rnti: int):
+        """A PUCCH of `rnti` was detected: the UE is on the air, and the UL
+        inactivity release waits, as for a PUSCH that passed its CRC.  (A
+        UE that only receives sends no PUSCH once SRs replace the blind UL
+        grants, and its HARQ-ACKs are then all the UL it has.)"""
+        ue = self.ues.get(rnti)
+        if ue is not None:
+            ue.last_ul_ok_tti = self.tti
+
     def _in_meas_gap(self, tti: int) -> bool:
         """True when connected UEs are away on a measurement gap (the
         eNB configured the gaps, so it knows not to schedule then)."""
@@ -769,7 +839,12 @@ class EnbStack:
             if not e["on_pusch"]:
                 pucch_by_rnti.setdefault(e["rnti"], []).append(e)
         sc_acks = self.pending_dl_ack_scell.pop(tti, [])
-        if pucch_by_rnti or sc_acks:
+        # scheduling requests (proc_sr.cc / mac.cc sr_detected): on-off
+        # keyed PUCCH format 1 on each UE's dedicated SR resource, none
+        # before Msg4
+        sr_rntis = ([r for r, u in self.ues.items() if u.rrc_state >= self.RRC_SETUP_SENT]
+                    if _is_sr_sf(self.sr_enabled, self.tdd, tti) else [])
+        if pucch_by_rnti or sc_acks or sr_rntis:
             from ..phy.phch.pucch import PucchConfig, tdd_channel_selection_decode
 
             rx_grid_ack = enb_ul_fft(self.cell, samples[None], device=self.device)
@@ -799,23 +874,32 @@ class EnbStack:
                     self.sched.ack_info(rnti_f3, e["pid"],
                                         bool(det and b3[0] == 1))
             das = tdd.das_set(self.tdd, tti % 10) if self.tdd is not None else ()
+            chan_sel = self.tdd is not None and 1 < len(das) <= 4
+            # every format-1 resource of the subframe, decoded before any
+            # is judged: the UEs' ACKs and SRs share the band-edge PRB
+            wanted: dict[int, set] = {r: {(_sr_resource(r), 0)} for r in sr_rntis}
+            pos_by_rnti = {}
             for rnti, entries in pucch_by_rnti.items():
-                if self.tdd is not None and 1 < len(das) <= 4:
-                    # channel selection: blind-decode every candidate
-                    # resource (format 1b), strongest DMRS metric wins
+                if chan_sel:
+                    # channel selection: every candidate resource (format
+                    # 1b) is a hypothesis, position i on n_pucch + 2i
+                    pos_by_rnti[rnti] = {das.index(tti - e["dl_tti"]): e for e in entries}
+                    res = {(e["n_pucch"] + 2 * i, 2) for i, e in pos_by_rnti[rnti].items()}
+                else:
+                    res = {(entries[-1]["n_pucch"], 1)}
+                wanted[rnti] = wanted.get(rnti, set()) | res
+            pucch1 = _pucch1_decodes(self.cell, sf_idx, rx_grid_ack, wanted, self.device)
+            for rnti, entries in pucch_by_rnti.items():
+                if chan_sel:
+                    # the strongest DMRS metric wins
                     best = (-1.0, None, None)  # (metric, res position, bits)
-                    pos_of = {}
-                    for e in entries:
-                        pos_of[das.index(tti - e["dl_tti"])] = e
+                    pos_of = pos_by_rnti[rnti]
                     for i, e in sorted(pos_of.items()):
-                        cfgp = PucchConfig(n_pucch=e["n_pucch"] + 2 * i)
-                        bits, metric = enb_ul_decode_pucch(
-                            self.cell, sf_idx, rx_grid_ack, cfgp, "1", 2,
-                            device=self.device)
-                        m = float(metric)
+                        bits, m = pucch1[rnti, e["n_pucch"] + 2 * i, 2]
                         if m > best[0]:
                             best = (m, i, bits)
                     if best[0] > 0.25 and best[1] is not None:
+                        self._heard(rnti)
                         mask = tdd_channel_selection_decode(
                             best[1], int(best[2][0]), int(best[2][1]), len(das))
                     else:
@@ -826,10 +910,11 @@ class EnbStack:
                         key = "dl_ack" if a else "dl_nack"
                         self.stats[key] = self.stats.get(key, 0) + 1
                     continue
-                cfgp = PucchConfig(n_pucch=entries[-1]["n_pucch"])
-                bits, metric = enb_ul_decode_pucch(self.cell, sf_idx, rx_grid_ack, cfgp, "1", 1,
-                                                   device=self.device)
-                detected = float(metric) > 0.25  # DTX threshold
+                # FDD single ACK (format 1a), or the bundled TDD bit
+                bits, metric = pucch1[rnti, entries[-1]["n_pucch"], 1]
+                detected = metric > 0.25  # DTX threshold
+                if detected:
+                    self._heard(rnti)
                 ack = detected and int(bits[0]) == 1
                 for e in entries:
                     self.sched.ack_info(rnti, e["pid"], ack)
@@ -918,22 +1003,11 @@ class EnbStack:
                     if u.rrc_state >= self.RRC_ACTIVE:
                         u.srs_snr_db = snr
                 self.stats["srs_meas"] = self.stats.get("srs_meas", 0) + 1
-        # scheduling requests (proc_sr.cc / mac.cc sr_detected): on-off
-        # keyed PUCCH format 1 on each UE's dedicated SR resource
-        if _is_sr_sf(self.sr_enabled, self.tdd, tti):
-            from ..phy.phch.pucch import PucchConfig
-
-            rx_grid_sr = enb_ul_fft(self.cell, samples[None], device=self.device)
-            for rnti_sr, u in self.ues.items():
-                if u.rrc_state < self.RRC_SETUP_SENT:
-                    continue  # no dedicated SR resource before Msg4
-                _b, metric = enb_ul_decode_pucch(
-                    self.cell, sf_idx, rx_grid_sr,
-                    PucchConfig(n_pucch=_sr_resource(rnti_sr)), "1", 0,
-                    device=self.device)
-                if float(metric) > 0.25:
-                    self.sched.ul_bsr(rnti_sr, 128)  # grant enough for a BSR
-                    self.stats["sr_detected"] = self.stats.get("sr_detected", 0) + 1
+        for rnti_sr in sr_rntis:
+            if pucch1[rnti_sr, _sr_resource(rnti_sr), 0][1] > 0.25:
+                self._heard(rnti_sr)
+                self.sched.ul_bsr(rnti_sr, 128)  # grant enough for a BSR
+                self.stats["sr_detected"] = self.stats.get("sr_detected", 0) + 1
         # scheduled PUSCH
         if tti in self.pending_ul:
             rnti, grant = self.pending_ul.pop(tti)
@@ -1005,25 +1079,38 @@ class EnbStack:
             if (isinstance(sb_in, tuple) and len(sb_in) == 2
                     and sb_in[0] in ("dyn", "win")):
                 sb_in = None  # device-layout softbuffer: host path restarts
-            for wc in (cqi_hyps if (not dtx and out is None) else []):
-                uci_exp = None
-                if wc or exp_acks or sc_exp:
-                    ri_exp = (0,) if (wc and self.tm >= 3) else ()
-                    if wc and self.subband_cqi:
-                        from ..phy.phch.uci import cqi_hl_nof_subbands
+            # the UE shortens its PUSCH on the SRS subframe once it is
+            # RRC_ACTIVE: from the RRCConnectionReconfiguration on, whose
+            # Complete makes this end RRC_ACTIVE.  Until then either format
+            # may come, and a PUSCH there that fails its CRC shortened is
+            # decoded again at full length from the same softbuffer (the
+            # other format's LLRs sit at other positions).  When both fail,
+            # the full length's softbuffer is kept: the format this end's
+            # state says the UE used.
+            window = srs_sf and ue_ctx.rrc_state < self.RRC_ACTIVE
+            shorts = (True, False) if window else (srs_sf,)
+            for short in (shorts if not dtx and out is None else ()):
+                for wc in cqi_hyps:
+                    uci_exp = None
+                    if wc or exp_acks or sc_exp:
+                        ri_exp = (0,) if (wc and self.tm >= 3) else ()
+                        if wc and self.subband_cqi:
+                            from ..phy.phch.uci import cqi_hl_nof_subbands
 
-                        n_cqi = 4 + 2 * cqi_hl_nof_subbands(
-                            self.cell.nof_prb)
-                    else:
-                        n_cqi = (6 if self.tm == 4 else 4) if wc else 0
-                    uci_exp = UciCfg(
-                        cqi_bits=(0,) * n_cqi,
-                        ack=(0,) * (len(exp_acks) + len(sc_exp)),
-                        ri=ri_exp)
-                out = enb_ul_decode_pusch(self.cell, sf_idx, rx_grid, grant,
-                                          softbuffers=sb_in, uci=uci_exp,
-                                          shortened=srs_sf, device=self.device)
-                uci_out = out[4] if uci_exp is not None else None
+                            n_cqi = 4 + 2 * cqi_hl_nof_subbands(
+                                self.cell.nof_prb)
+                        else:
+                            n_cqi = (6 if self.tm == 4 else 4) if wc else 0
+                        uci_exp = UciCfg(
+                            cqi_bits=(0,) * n_cqi,
+                            ack=(0,) * (len(exp_acks) + len(sc_exp)),
+                            ri=ri_exp)
+                    out = enb_ul_decode_pusch(self.cell, sf_idx, rx_grid, grant,
+                                              softbuffers=sb_in, uci=uci_exp,
+                                              shortened=short, device=self.device)
+                    uci_out = out[4] if uci_exp is not None else None
+                    if out[1]:
+                        break
                 if out[1]:
                     break
             tb, ok = out[0], out[1]

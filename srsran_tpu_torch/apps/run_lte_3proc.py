@@ -76,23 +76,32 @@ def _frame_recv(sock: socket.socket) -> bytes | None:
     return out
 
 
-def _drain_frames(sock: socket.socket, out: list):
-    """Nonblocking: append any complete frames queued on `sock`."""
+def _drain_frames(sock: socket.socket, out: list, buf: bytearray) -> None:
+    """Nonblocking: append every whole frame queued on `sock` to `out`.
+
+    `buf` is the socket's receive buffer, held by the caller from one call
+    to the next: the bytes of a frame whose header or body has not all
+    arrived wait there, so a frame split across calls comes out whole and
+    the stream keeps its framing.  A closed peer ends the read as an empty
+    socket does."""
     sock.setblocking(False)
     try:
         while True:
-            sock.setblocking(True)
-            sock.settimeout(0.0005)
             try:
-                msg = _frame_recv(sock)
-            except (socket.timeout, BlockingIOError):
-                return
-            if msg is None:
-                return
-            out.append(msg)
+                chunk = sock.recv(65536)
+            except (BlockingIOError, InterruptedError):
+                break
+            if not chunk:
+                break
+            buf += chunk
     finally:
         sock.setblocking(True)
-        sock.settimeout(None)
+    while len(buf) >= 4:
+        n = struct.unpack_from(">I", buf)[0]
+        if len(buf) < 4 + n:
+            break
+        out.append(bytes(buf[4 : 4 + n]))
+        del buf[: 4 + n]
 
 
 class _Clock:
@@ -170,6 +179,7 @@ def run_epc(args):
     print(json.dumps({"epc": "listening"}), flush=True)
 
     conn, _addr = ls.accept()
+    conn_buf = bytearray()
     enb_gtpu_addr = None
     if args.tun:
         spgw.attach_tun(name="tun_sgi3p")
@@ -184,7 +194,7 @@ def run_epc(args):
     last_dl = 0.0
     while (t_end is None or time.time() < t_end) and time.time() < t_hard:
         msgs: list = []
-        _drain_frames(conn, msgs)
+        _drain_frames(conn, msgs, conn_buf)
         for m in msgs:
             for resp in mme.handle(m, enb_id=0x19B):
                 _frame_send(conn, resp)
@@ -236,6 +246,7 @@ class MmeProxy:
 
     def __init__(self, sock: socket.socket):
         self.sock = sock
+        self._rx = bytearray()  # a frame not yet whole (`_drain_frames`)
         self._link = None
 
     def register_enb(self, enb_id: int, link):
@@ -247,7 +258,7 @@ class MmeProxy:
 
     def pump(self):
         msgs: list = []
-        _drain_frames(self.sock, msgs)
+        _drain_frames(self.sock, msgs, self._rx)
         for m in msgs:
             if self._link is not None:
                 self._link(m)

@@ -27,6 +27,10 @@ def crs_v(port: int, ref_symbol_idx: int) -> int:
     return 3 if ref_symbol_idx == 0 else 0
 
 
+def crs_nof_ref_symbols_slot(port: int) -> int:
+    return 2 if port < 2 else 1
+
+
 def crs_symbol_in_slot(ref_idx: int, cp: CP, port: int) -> int:
     """OFDM symbol within slot of CRS ref symbol (ports 0/1: 0 and nsymb-3)."""
     if port < 2:
@@ -65,6 +69,13 @@ def crs_positions(cell: Cell, port: int):
             v0 = 3 * (slot % 2) if port == 2 else (3 + 3 * (slot % 2)) % 6
             freqs.append((v0 + cell.id % 6) % 6 + 6 * np.arange(2 * cell.nof_prb))
     return np.array(syms, np.int32), np.stack(freqs).astype(np.int32)
+
+
+def crs_sequence(cell: Cell, sf_idx: int) -> np.ndarray:
+    """CRS values of ports 0 and 1 (they share the sequence): (2, 4,
+    2*nof_prb) complex64, the ref symbols in subframe order (slot 0 l = 0,
+    slot 0 l = nsymb-3, slot 1 l = 0, slot 1 l = nsymb-3)."""
+    return np.stack([crs_sequence_port(cell, sf_idx, 0)] * 2)
 
 
 @lru_cache(maxsize=256)

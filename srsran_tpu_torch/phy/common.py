@@ -1,10 +1,10 @@
 """LTE numerology and cell configuration (host side, pure Python).
 
-Copy of the parts of `srsran_tpu/phy/common.py` that the port uses: the CP
-enum, the frozen `Cell` dataclass (with the PCI's N_id_1 and N_id_2), FFT and
-CP sizes, and the CRC
-polynomials (TS 36.211, TS 36.212 §5.1.1).  Tests hold every value equal
-to the reference.
+Copy of `srsran_tpu/phy/common.py`: the numerology's limits, the CP
+enum, the frozen `Cell` dataclass (with the PCI's N_id_1 and N_id_2, its
+REs and CRS shift), FFT, CP and subframe sizes, the CRS symbols, and the
+CRC polynomials (TS 36.211, TS 36.212 §5.1.1).  Tests hold every value
+equal to the reference.
 """
 
 from __future__ import annotations
@@ -12,10 +12,17 @@ from __future__ import annotations
 import dataclasses
 import enum
 import math
+from functools import lru_cache
 
 NRE = 12  # subcarriers per PRB
 MAX_PRB = 110
-NUM_PCI = 504
+MAX_PORTS = 4
+MAX_LAYERS = 4
+MAX_CODEWORDS = 2
+MAX_CODEBLOCKS = 32
+NOF_NID_1 = 168
+NOF_NID_2 = 3
+NUM_PCI = NOF_NID_1 * NOF_NID_2
 
 CP_NORM_NSYMB = 7
 CP_EXT_NSYMB = 6
@@ -35,6 +42,8 @@ SIRNTI = 0xFFFF
 PRNTI = 0xFFFE
 MRNTI = 0xFFFD
 
+NOF_CFI = 3
+
 
 class CP(enum.IntEnum):
     NORM = 0
@@ -43,6 +52,9 @@ class CP(enum.IntEnum):
     @property
     def nsymb(self) -> int:
         return CP_NORM_NSYMB if self == CP.NORM else CP_EXT_NSYMB
+
+
+VALID_NOF_PRB = (6, 15, 25, 50, 75, 100)
 
 
 def symbol_sz(nof_prb: int, use_standard_rates: bool = True) -> int:
@@ -58,6 +70,13 @@ def symbol_sz(nof_prb: int, use_standard_rates: bool = True) -> int:
         if nof_prb <= prb:
             return sz
     raise ValueError(f"invalid nof_prb {nof_prb}")
+
+
+def nof_prb_from_symbol_sz(sz: int, use_standard_rates: bool = True) -> int:
+    for prb in VALID_NOF_PRB:
+        if symbol_sz(prb, use_standard_rates) == sz:
+            return prb
+    raise ValueError(f"invalid symbol size {sz}")
 
 
 def cp_len(sym_sz: int, c: int) -> int:
@@ -79,6 +98,10 @@ def slot_len(sym_sz: int) -> int:
 
 def sf_len(sym_sz: int) -> int:
     return sym_sz * 15
+
+
+def sf_len_prb(nof_prb: int, use_standard_rates: bool = True) -> int:
+    return sf_len(symbol_sz(nof_prb, use_standard_rates))
 
 
 def srate(nof_prb: int, use_standard_rates: bool = True) -> float:
@@ -131,6 +154,11 @@ class Cell:
         return self.nof_prb * NRE
 
     @property
+    def nof_re(self) -> int:
+        """REs in one subframe (one port)."""
+        return self.nsymb_per_sf * self.nof_re_per_symbol
+
+    @property
     def sf_len(self) -> int:
         """Time-domain samples in one 1 ms subframe."""
         return sf_len(self.symbol_sz)
@@ -149,3 +177,18 @@ class Cell:
         if self.cp == CP.NORM:
             return tuple(cp_len_norm(i, n) for i in range(CP_NORM_NSYMB))
         return tuple(cp_len_ext(n) for _ in range(CP_EXT_NSYMB))
+
+    def vshift(self) -> int:
+        """CRS frequency shift (`SRSLTE_RS_VSHIFT`)."""
+        return self.id % 6
+
+
+def symbol_has_ref(l: int, cp: CP, nof_ports: int) -> bool:
+    """Which OFDM symbols in a slot carry CRS (`SRSLTE_SYMBOL_HAS_REF`)."""
+    return (l == 1 and nof_ports == 4) or l == 0 or l == cp.nsymb - 3
+
+
+@lru_cache(maxsize=None)
+def re_grid_shape(nof_prb: int, cp: CP = CP.NORM) -> tuple[int, int]:
+    """(nsymb_per_sf, n_subcarriers) shape of the subframe resource grid."""
+    return (2 * cp.nsymb, nof_prb * NRE)

@@ -37,6 +37,8 @@ from . import turbo_cuda
 from .cbsegm import qpp_interleaver_np
 
 NEG_INF = np.float32(-1e30)
+RATE = 3
+TOTAL_TAIL = 12
 TRAIN = 32  # boundary training length for windows shorter than 96
 
 

@@ -5,7 +5,9 @@ max-log approximation — the first I/Q LLR pair is the negated symbol, each
 further pair is ``abs(prev) - threshold``.  Positive LLR ⇒ bit 1.
 `modulate_np` is the reference's host mapper (constellations from the 3GPP
 Gray-mapping recursion), for stimuli; `modulate` is the device mapper, the
-same constellations in closed form.
+same constellations in closed form.  `demod_hard` and `quantize_llr` (the
+int16/int8 soft bits at `LLR_SCALE_I16`/`LLR_SCALE_I8`) are the reference's
+too.
 """
 
 from __future__ import annotations
@@ -27,6 +29,11 @@ class Mod(enum.IntEnum):
     @property
     def bits_per_symbol(self) -> int:
         return (1, 2, 4, 6, 8)[self]
+
+
+# the reference's per-modulation scales of its int16 and int8 soft bits
+LLR_SCALE_I16 = {Mod.BPSK: 100, Mod.QPSK: 100, Mod.QAM16: 400, Mod.QAM64: 700, Mod.QAM256: 1000}
+LLR_SCALE_I8 = {Mod.BPSK: 20, Mod.QPSK: 20, Mod.QAM16: 30, Mod.QAM64: 40, Mod.QAM256: 50}
 
 
 def _pam_levels(nbits: int) -> np.ndarray:
@@ -128,3 +135,20 @@ def demod_soft(mod: Mod, symbols: torch.Tensor) -> torch.Tensor:
         l4, l5 = l2.abs() - t2, l3.abs() - t2
         return _interleave(-re, -im, l2, l3, l4, l5, l4.abs() - t3, l5.abs() - t3)
     raise ValueError(f"unsupported modulation {mod}")
+
+
+def quantize_llr(llr: torch.Tensor, mod: Mod, dtype: torch.dtype = torch.int16) -> torch.Tensor:
+    """Float LLRs → int16/int8 with the reference's per-modulation scales
+    (rounded half to even, saturated)."""
+    if dtype == torch.int16:
+        scale, lim = LLR_SCALE_I16[mod], 32767
+    elif dtype == torch.int8:
+        scale, lim = LLR_SCALE_I8[mod], 127
+    else:
+        raise ValueError(dtype)
+    return torch.clamp(torch.round(llr * scale), -lim - 1, lim).to(dtype)
+
+
+def demod_hard(mod: Mod, symbols: torch.Tensor) -> torch.Tensor:
+    """Hard decisions from LLR signs (positive ⇒ 1), uint8."""
+    return (demod_soft(mod, symbols) > 0).to(torch.uint8)

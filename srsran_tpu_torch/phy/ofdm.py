@@ -55,6 +55,10 @@ class OfdmConfig:
         return self.cp.nsymb
 
     @property
+    def nsymb_sf(self) -> int:
+        return 2 * self.cp.nsymb
+
+    @property
     def slot_sz(self) -> int:
         return self.symbol_sz * 15 // 2
 
@@ -147,7 +151,7 @@ def ofdm_tx_sf(cfg: OfdmConfig, grid: torch.Tensor) -> torch.Tensor:
     (..., sf_sz) complex64 (the reference's `_ofdm_tx_sf_impl`)."""
     n = cfg.symbol_sz
     nre = cfg.nof_re
-    nsym = 2 * cfg.nsymb_slot
+    nsym = cfg.nsymb_sf
     bins = grid.new_zeros(grid.shape[:-2] + (nsym, n), dtype=torch.complex64)
     bins[..., 1 : 1 + nre // 2] = grid[..., nre // 2 :]
     bins[..., n - nre // 2 :] = grid[..., : nre // 2]
@@ -163,6 +167,28 @@ def ofdm_tx_sf(cfg: OfdmConfig, grid: torch.Tensor) -> torch.Tensor:
     if shift is not None:
         out = out * shift
     return out.to(torch.complex64)
+
+
+def ofdm_tx_sf_np(cfg: OfdmConfig, grid: np.ndarray) -> np.ndarray:
+    """`ofdm_tx_sf` in numpy, for a waveform made on the host (the
+    reference's PUCCH-only UL subframes of its windowed control plane)."""
+    n = cfg.symbol_sz
+    nre = cfg.nof_re
+    bins = np.zeros(grid.shape[:-2] + (cfg.nsymb_sf, n), np.complex64)
+    bins[..., 1 : 1 + nre // 2] = grid[..., nre // 2 :]
+    bins[..., n - nre // 2 :] = grid[..., : nre // 2]
+    sym = np.fft.ifft(bins, axis=-1) * n
+    if cfg.normalize:
+        sym = sym * (1.0 / np.sqrt(n))
+    pieces = []
+    for i, l in enumerate(list(range(cfg.nsymb_slot)) * 2):
+        cp = cp_len_norm(l, n) if cfg.cp == CP.NORM else cp_len_ext(n)
+        pieces += [sym[..., i, n - cp :], sym[..., i, :]]
+    out = np.concatenate(pieces, axis=-1)
+    shift, _ = _phase_tables(cfg)
+    if shift is not None:
+        out = out * shift
+    return out.astype(np.complex64)
 
 
 # ---------------------------------------------------------------------------

@@ -16,3 +16,14 @@ def scramble_bits(bits: np.ndarray, seq: np.ndarray) -> np.ndarray:
 def scramble_soft(values: torch.Tensor, seq_signs: torch.Tensor) -> torch.Tensor:
     """Apply (1-2c) signs to float LLRs or complex symbols (last axis)."""
     return values * seq_signs
+
+
+def pdsch_cinit(rnti: int, q: int, sf_idx: int, cell_id: int) -> int:
+    """c_init for PDSCH/PUSCH scrambling, TS 36.211 §6.3.1 (the argument
+    order of the reference's module; `phch.pdsch.pdsch_cinit` takes `q`
+    last)."""
+    return (rnti << 14) + (q << 13) + (sf_idx << 9) + cell_id
+
+
+def pbch_cinit(cell_id: int) -> int:
+    return cell_id

@@ -18,6 +18,7 @@ import torch
 from ...device import sized_table, table
 
 PSS_ROOTS = (25, 29, 34)  # u for N_id_2 = 0, 1, 2
+PSS_LEN = 62
 
 
 @lru_cache(maxsize=8)

@@ -16,6 +16,8 @@ import torch
 
 from ...device import table
 
+SSS_LEN = 62
+
 
 def _mseq(poly_taps, init) -> np.ndarray:
     """Length-31 binary m-sequence x(i+5) = sum(taps) mod 2, as ±1."""

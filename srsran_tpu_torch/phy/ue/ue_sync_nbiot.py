@@ -65,6 +65,21 @@ def nbiot_modulate_np(grids: np.ndarray) -> np.ndarray:
     return out.reshape(-1)
 
 
+def nbiot_demodulate_np(samples: np.ndarray, offset: int = 0) -> np.ndarray:
+    """`nbiot_demodulate` on the host: samples (aligned at a subframe
+    boundary + `offset`) → (nsf, 14, 12) grids."""
+    x = samples[offset:]
+    nsf = len(x) // SF_LEN
+    bins = _sc_map()
+    out = np.zeros((nsf, 14, 12), np.complex64)
+    for s in range(nsf):
+        sf = x[s * SF_LEN : (s + 1) * SF_LEN]
+        for l in range(14):
+            st = SYM_STARTS[l]
+            out[s, l] = (np.fft.fft(sf[st : st + FFT]) / np.sqrt(FFT))[bins]
+    return out
+
+
 def _demod_index() -> np.ndarray:
     """(14, FFT) sample index of each symbol's FFT window in a subframe."""
     return (np.asarray(SYM_STARTS)[:, None] + np.arange(FFT)[None, :]).astype(np.int64)

@@ -14,9 +14,12 @@
   largest magnitude; the measurements within 1e-4 relative.
 - Lockstep attaches at 15 PRB under `TddConfig(1, 4)` and `TddConfig(2,
   4)` with SR on: in every TTI both ends' samples within 2e-6 of their largest magnitude and stats,
-  RRC and NAS states equal; the same IP and packets at the end.  (With SRS
-  and SR both on, the reference's stack does not attach under TDD, and the
-  port's fails with it TTI by TTI: ROADMAP Queue 3.)
+  RRC and NAS states equal; the same IP and packets at the end.
+- The two faults of the reference's TDD stack that the port repairs, each
+  run on both packages, identical up to the TTI on which the repair first
+  acts: with SRS and SR on, one UE attaches (the reference's is released);
+  two UEs under `TddConfig(2, 4)`, with and without SRs, both stay attached
+  (the reference releases UE 0).
 Inputs are numpy arrays made from a seed and given to both packages.
 """
 
@@ -448,3 +451,169 @@ def test_stack_link_run_tdd():
     assert rec["dl_bits"] > 0 and rec["ul_bits"] > 0
     kinds = {tdd.sf_type(s.enb.tdd, sf) for sf in rec["sf"]}
     assert kinds == {tdd.SfType.D, tdd.SfType.S, tdd.SfType.U}
+
+
+# --- the two TDD faults of the reference, repaired in the port ----------------------
+
+# the eNB TTI that decodes the UE's PUSCH of TTI 23 (subframe 3, the SRS
+# subframe): the first on which the port's repair acts
+SRS_SR_REPAIR_TTI = 24
+# two UEs under `TddConfig(2, 4)` at 15 PRB through phase 36's link: the
+# setting the fault was found in (no SRs; the first TTI whose stats differ
+# is UE 0's RRC release, which the reference sends and the port, having
+# heard UE 0's PUCCH, does not) and phase 36's run (a) (SRs; the port first
+# reads UE 0's channel-selection ACKs where the reference reads DTX)
+TWO_UE_RUNS = {"no SRs": (dict(tdd=(2, 4), n_ues=2, kw={}), 95),
+               "SRs": (next(T for T in chip_smoke.STACK_LINK_TDD["runs"] if T["tag"] == "a"), 118)}
+
+
+def test_tdd_srs_and_sr_attach_repaired_against_the_reference():
+    """`TddConfig(1, 4)`, 15 PRB, one UE, SRS and SR on.  Both packages in
+    lockstep within the file's bars up to TTI 24.  There the eNB decodes the
+    UE's PUSCH of subframe 3, the SRS subframe: the UE, not yet RRC_ACTIVE,
+    sent it at full length, and the shortened decode fails its CRC; in
+    configuration 1 every retransmission falls on subframe 3 again.  The
+    port decodes it again at full length.  From there the port registers
+    and carries every packet, and the reference's eNB passes no PUSCH after
+    Msg3: the UE is never registered and is released."""
+    kw = dict(srs_enabled=True, sr_enabled=True)
+    rcfg = r_tdd.TddConfig(1, 4)
+    r = chip_smoke.stack_pair(REF, 15, enb_kw=dict(kw, tdd_cfg=rcfg), ue_kw=[dict(kw, tdd_cfg=rcfg)])
+    tcfg = from_reference(rcfg)
+    t = chip_smoke.stack_pair(PORT, 15, enb_kw=dict(kw, tdd_cfg=tcfg), ue_kw=[dict(kw, tdd_cfg=tcfg)],
+                              device=CPU)
+    traffic = dict(dl=chip_smoke.STACK_TDD["dl"], ul=chip_smoke.STACK_TDD["ul"])
+    rr = chip_smoke.StackRun(r.enb, r.ues[0], r.mme, r.spgw, **traffic)
+    tr = chip_smoke.StackRun(t.enb, t.ues[0], t.mme, t.spgw, **traffic)
+    while rr.tti < SRS_SR_REPAIR_TTI:
+        dl_r, ul_r = rr.step()
+        dl_t, ul_t = tr.step()
+        tti = rr.tti - 1
+        for got, ref, what in ((dl_t, dl_r, "DL"), (ul_t, ul_r, "UL")):
+            assert (got is None) == (ref is None), f"{what} of TTI {tti}"
+            if ref is not None:
+                ref = np.asarray(ref)
+                scale = max(float(np.abs(ref).max()), 1e-30)
+                assert float(np.abs(got.numpy() - ref).max()) <= SAMPLE_ATOL * scale, f"{what} of TTI {tti}"
+        assert tr.records[-1] == rr.records[-1], f"TTI {tti}"
+    assert tr.records[-1]["enb"].get("srs_meas", 0) > 0 and tr.records[-1]["ue"].get("sr_sent", 0) > 0
+    rr.step()
+    tr.step()
+    assert rr.records[-1]["enb"]["ul_crc_ko"] == tr.records[-1]["enb"]["ul_crc_ko"] + 1
+    assert tr.records[-1]["enb"]["ul_crc_ok"] == rr.records[-1]["enb"]["ul_crc_ok"] + 1
+    tr.run()
+    tr.check_traffic("port")
+    assert tr.records[-1]["enb"]["ue_released"] == 0 and tr.records[-1]["enb"]["srs_meas"] > 0
+    rr.run(70)
+    assert rr.reg_tti is None and rr.records[-1]["enb"]["ue_released"] == 1
+    assert rr.records[-1]["enb"]["ul_crc_ok"] == 1 and not rr.delivered()  # Msg3 alone
+
+
+class _Released(Exception):
+    pass
+
+
+class _Tensors:
+    """A reference stack whose `run_tti` takes and gives tensors, as the
+    port's does; everything else is the reference stack's own."""
+
+    def __init__(self, stack):
+        self._stack = stack
+
+    def __getattr__(self, name):
+        return getattr(self._stack, name)
+
+    def run_tti(self, x):
+        y = self._stack.run_tti(None if x is None else x.numpy())
+        return None if y is None else torch.from_numpy(np.array(y))
+
+
+def tensors(stack) -> _Tensors:
+    """`stack` behind `_Tensors`, with its class's RRC states."""
+    states = {k: v for k, v in vars(type(stack)).items() if k.startswith("RRC_")}
+    return type(type(stack).__name__, (_Tensors,), states)(stack)
+
+
+def link_records(ref: bool, T: dict, recs=None) -> tuple[list, SimpleNamespace]:
+    """Phase 36's link at 15 PRB in the run `T` on the reference's stacks
+    (`ref`) or the port's: the eNB's and the UEs' stats after each TTI,
+    appended to `recs`.  Stops at the eNB's first release of a UE, and
+    names the UEs it released."""
+    recs, run = [] if recs is None else recs, SimpleNamespace(stack=None, owner={}, contexts=set(), released=[])
+    pair = chip_smoke.stack_pair
+
+    def to_ref(kw: dict) -> dict:
+        cfg = kw.get("tdd_cfg")
+        return kw if cfg is None else dict(kw, tdd_cfg=r_tdd.TddConfig(cfg.sf_config, cfg.ss_config))
+
+    def keep(m, nof_prb, n_ues=1, enb_kw=None, ue_kw=(), **dev_kw):
+        if ref:
+            s = pair(REF, nof_prb, n_ues, to_ref(enb_kw), [to_ref(k) for k in ue_kw])
+            s.enb, s.ues = tensors(s.enb), [tensors(u) for u in s.ues]
+        else:
+            s = pair(m, nof_prb, n_ues, enb_kw, ue_kw, **dev_kw)
+        run.stack = s
+        return s
+
+    def on_step(_tti, _phase):
+        s = run.stack
+        recs.append((dict(s.enb.stats), [dict(u.stats) for u in s.ues]))
+        run.owner.update({u.crnti: i for i, u in enumerate(s.ues) if u.crnti is not None})
+        if s.enb.stats["ue_released"]:
+            run.released = sorted(run.owner[c] for c in run.contexts - set(s.enb.ues))
+            raise _Released
+        run.contexts = set(s.enb.ues)
+
+    chip_smoke.stack_pair = keep
+    try:
+        run.rec = chip_smoke.stack_link_run(CPU, 15, tdd=T["tdd"], n_ues=T["n_ues"], kw=T["kw"],
+                                            on_step=on_step)
+    except _Released:
+        pass
+    finally:
+        chip_smoke.stack_pair = pair
+    return recs, run
+
+
+@pytest.mark.parametrize("setting", list(TWO_UE_RUNS))
+def test_two_tdd_ues_stay_attached_against_the_reference(setting):
+    """Two UEs under `TddConfig(2, 4)` at 15 PRB through
+    `chip_smoke.stack_link_run` on both packages, with and without SRs:
+    both ends' stats equal TTI by TTI up to the TTI of `TWO_UE_RUNS`.  UE
+    0's uplink is faded 11 dB under UE 1's, and both UEs' format-1 PUCCHs
+    share the band-edge PRB, whose energy is the DTX metric's denominator:
+    the reference reads UE 0's ACKs (and SRs) as DTX, hears nothing of UE 0
+    for 40 TTIs and releases it.  The port judges each PUCCH against the
+    energy the other UE's resources leave, counts a detected PUCCH as UL
+    activity, keeps both UEs (none released) and carries every packet, with
+    the TDD gates: ACKs from each UE, no ACK sent on PUCCH read as DTX, and
+    no ACK or SR read where its UE sent none."""
+    T, n = TWO_UE_RUNS[setting]
+    ref, r_run = link_records(True, T)
+    got, t_run = link_records(False, T)
+    assert got[:n] == ref[:n] and got[n] != ref[n]
+    assert ref[-1][0]["ue_released"] == 1 and len(ref) < len(got)
+    assert r_run.released == [0]
+    assert got[-1][0]["ue_released"] == 0
+    assert all(u.get("sr_sent", 0) > 0 for u in got[-1][1]) == bool(T["kw"])
+    assert all(chip_smoke.stack_registered(u) for u in t_run.stack.ues)
+    assert min(t_run.rec["dl_acks"]) > 0
+    assert all(c["ack_dtx"] == c["false_alarm"] == 0 for c in t_run.rec["pucch"])
+
+
+def test_no_sounding_in_a_d_subframe_against_the_reference():
+    """SRS and SR on under `TddConfig(2, 4)`, one UE, 15 PRB, through
+    `chip_smoke.stack_link_run` on both packages.  The SRS subframe 3 is a
+    D subframe in configuration 2: the reference's UE sounds in it once
+    RRC_ACTIVE, and the link's TDD gate (no UE energy outside U subframes)
+    stops the run; both ends' stats equal the port's up to there.  The
+    port sounds only where subframe 3 is U, so here never: its UE
+    registers and carries every packet, with no SRS measured."""
+    T = dict(tdd=(2, 4), n_ues=1, kw=dict(srs_enabled=True, sr_enabled=True))
+    ref = []
+    with pytest.raises(RuntimeError, match=r"UE 0 sent in TTI \d+ \(D\)"):
+        link_records(True, T, ref)
+    got, t_run = link_records(False, T)
+    assert len(ref) > 0 and got[:len(ref)] == ref
+    assert got[-1][0]["ue_released"] == 0 and got[-1][0].get("srs_meas", 0) == 0
+    assert chip_smoke.stack_registered(t_run.stack.ues[0])
