@@ -17,6 +17,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ...runtime.trace import count
 from ..common import Cell
 from .chest_dl import _smooth_matrix
 from .refsignal_ul import dmrs_symbol_in_slot, pusch_dmrs
@@ -65,6 +66,9 @@ def chest_ul(rx_grid: torch.Tensor, cell: Cell, prb_start: int, nof_prb_alloc: i
     m_sc = 12 * nof_prb_alloc
     k0 = prb_start * 12
     r, sm, t = _tables(cell, nof_prb_alloc, cyclic_shift, smooth_len, rx_grid.device)
+    # the list becomes an index tensor copied from pageable host memory,
+    # which makes the host wait for the device's queue: a host read
+    count("host_reads")
     pilots = rx_grid[..., list(dmrs_symbols(cell)), k0 : k0 + m_sc]  # (..., 2, m_sc)
     ls = pilots * r
     ls_s = torch.einsum("np,...sp->...sn", sm, ls)

@@ -16,6 +16,9 @@ Counterpart of the decoder in `srsran_tpu/phy/fec/turbo.py`:
   (`unlane`).
 * Iterations stop once every codeblock passes its CRC; converged
   codeblocks are frozen (one host read of ``done.all()`` per iteration).
+  `turbo_decode` marks each read (`turbo.stop_read`, counted as
+  `host_reads`) and each iteration (`turbo.iter`) with the spans of
+  `runtime.trace`.
 * `turbo_encode_np` is the reference's host encoder (numpy), for stimuli;
   `turbo_encode_device` is the batched encoder on the device, a closed-form
   GF(2) polynomial division with no sequential step, and
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 
 from ...device import table
+from ...runtime.trace import count, span
 from . import turbo_cuda
 from .cbsegm import qpp_interleaver_np
 
@@ -555,15 +559,21 @@ def turbo_decode(d_llr: torch.Tensor, k: int, max_iterations: int = 5,
     post = torch.zeros_like(ext2)
     done = torch.zeros((b,), dtype=torch.bool, device=d_llr.device)
     n_it = 0
-    while n_it < max_iterations and not bool(done.all()):
-        x1 = sys + ext2
-        ext1 = map_decoder(x1, p1, lx1_t, lz1_t, k) - x1
-        in2 = sys_int + ext1[:, per]
-        new_ext2 = (map_decoder(in2, p2, lx2_t, lz2_t, k) - in2)[:, inv]
-        # the APP in natural order is the extrinsic sum; converged
-        # codeblocks stay frozen
-        ext2 = torch.where(done[:, None], ext2, new_ext2)
-        post = torch.where(done[:, None], post, sys + ext1 + new_ext2)
-        done = done | crc_pass(post)
+    while n_it < max_iterations:
+        with span("turbo.stop_read"):
+            count("host_reads")
+            stop = bool(done.all())
+        if stop:
+            break
+        with span("turbo.iter"):
+            x1 = sys + ext2
+            ext1 = map_decoder(x1, p1, lx1_t, lz1_t, k) - x1
+            in2 = sys_int + ext1[:, per]
+            new_ext2 = (map_decoder(in2, p2, lx2_t, lz2_t, k) - in2)[:, inv]
+            # the APP in natural order is the extrinsic sum; converged
+            # codeblocks stay frozen
+            ext2 = torch.where(done[:, None], ext2, new_ext2)
+            post = torch.where(done[:, None], post, sys + ext1 + new_ext2)
+            done = done | crc_pass(post)
         n_it += 1
     return (post > 0).to(torch.uint8), post, n_it

@@ -5,8 +5,9 @@ with filler bits pinned to a strong 0, one batched turbo decode per
 distinct codeblock layout, CB CRC24B (when C > 1), reassembly and the TB
 CRC24A.  `dlsch_decode_multi_device` writes out a leading batch axis of
 subframes: every codeblock of every subframe in a (K, poly) group decodes
-in one `turbo_decode`.  `dlsch_decode` is the per-TB, host-orchestrated
-decode of the facades, with HARQ softbuffers.
+in one `turbo_decode`, its stages marked by the spans `tbd.rate_match`,
+`tbd.turbo` and `tbd.crc` (`runtime.trace.span`).  `dlsch_decode` is the
+per-TB, host-orchestrated decode of the facades, with HARQ softbuffers.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from ..crc import crc_attach_np, crc_check_np, crc_compute, crc_table
 from ..fec.cbsegm import CbSegm, cbsegm
 from ..fec.rate_match import turbo_rate_match_rx, turbo_rate_match_tx
 from ..fec.turbo import turbo_decode, turbo_encode_np
+from ...runtime.trace import span
 
 FILLER_LLR = np.float32(-1e4)  # filler bits are known 0 (LLR>0 ⇒ 1)
 
@@ -81,46 +83,52 @@ def dlsch_decode_multi_device(llrs, cfgs, max_iterations: int = 5):
     """
     # (codeword, cb index, k, e, f, codeword offset, crc poly)
     groups: dict[tuple[int, int], list[tuple]] = {}
-    for ci, cfg in enumerate(cfgs):
-        s = cfg.segm
-        es = cfg.e_sizes()
-        offs = np.concatenate([[0], np.cumsum(es)])
-        poly = LTE_CRC24B if s.C > 1 else LTE_CRC24A
-        for i, k in enumerate(s.cb_sizes):
-            f = s.F if i == 0 else 0
-            groups.setdefault((k, poly), []).append((ci, i, es[i], f, int(offs[i])))
+    with span("tbd.rate_match"):
+        for ci, cfg in enumerate(cfgs):
+            s = cfg.segm
+            es = cfg.e_sizes()
+            offs = np.concatenate([[0], np.cumsum(es)])
+            poly = LTE_CRC24B if s.C > 1 else LTE_CRC24A
+            for i, k in enumerate(s.cb_sizes):
+                f = s.F if i == 0 else 0
+                groups.setdefault((k, poly), []).append((ci, i, es[i], f, int(offs[i])))
 
     decoded: dict[tuple[int, int], torch.Tensor] = {}
     ok: dict[tuple[int, int], torch.Tensor] = {}
     for (k, poly), ents in groups.items():
-        rows = []
-        for ci, _i, e, f, off in ents:
-            d = turbo_rate_match_rx(llrs[ci][:, off : off + e], k, cfgs[ci].rv, n_filler=f)
-            if f:
-                d[:, 0, :f] = float(FILLER_LLR)
-            rows.append(d)
-        d_llr = torch.stack(rows, dim=1)  # (B, ncb, 3, K+4)
+        with span("tbd.rate_match"):
+            rows = []
+            for ci, _i, e, f, off in ents:
+                d = turbo_rate_match_rx(llrs[ci][:, off : off + e], k, cfgs[ci].rv, n_filler=f)
+                if f:
+                    d[:, 0, :f] = float(FILLER_LLR)
+                rows.append(d)
+            d_llr = torch.stack(rows, dim=1)  # (B, ncb, 3, K+4)
         b, ncb = d_llr.shape[:2]
-        bits, _post, _n_it = turbo_decode(d_llr.reshape(b * ncb, 3, k + 4), k, max_iterations,
-                                          crc_table=crc_table(poly, k, d_llr.device))
-        # the CRC over all K bits (message and its CRC) is zero iff it passes
-        cb_ok = torch.all(crc_compute(bits, poly) == 0, dim=-1)
-        bits, cb_ok = bits.reshape(b, ncb, k), cb_ok.reshape(b, ncb)
-        for j, (ci, i, *_rest) in enumerate(ents):
-            decoded[(ci, i)] = bits[:, j]
-            ok[(ci, i)] = cb_ok[:, j]
+        with span("tbd.turbo"):
+            bits, _post, _n_it = turbo_decode(d_llr.reshape(b * ncb, 3, k + 4), k,
+                                              max_iterations,
+                                              crc_table=crc_table(poly, k, d_llr.device))
+        with span("tbd.crc"):
+            # the CRC over all K bits (message and its CRC) is zero iff it passes
+            cb_ok = torch.all(crc_compute(bits, poly) == 0, dim=-1)
+            bits, cb_ok = bits.reshape(b, ncb, k), cb_ok.reshape(b, ncb)
+            for j, (ci, i, *_rest) in enumerate(ents):
+                decoded[(ci, i)] = bits[:, j]
+                ok[(ci, i)] = cb_ok[:, j]
 
     out = []
-    for ci, cfg in enumerate(cfgs):
-        s = cfg.segm
-        crc_len = 24 if s.C > 1 else 0
-        parts = [decoded[(ci, i)][:, (s.F if i == 0 else 0) : k - crc_len]
-                 for i, k in enumerate(s.cb_sizes)]
-        bits = torch.cat(parts, dim=-1)
-        tb = bits[:, : cfg.tbs]
-        tb_ok = torch.all(crc_compute(tb, LTE_CRC24A) == bits[:, cfg.tbs :], dim=-1)
-        cw_ok = torch.stack([ok[(ci, i)] for i in range(s.C)], dim=-1).all(dim=-1)
-        out.append((tb, tb_ok & cw_ok))
+    with span("tbd.crc"):
+        for ci, cfg in enumerate(cfgs):
+            s = cfg.segm
+            crc_len = 24 if s.C > 1 else 0
+            parts = [decoded[(ci, i)][:, (s.F if i == 0 else 0) : k - crc_len]
+                     for i, k in enumerate(s.cb_sizes)]
+            bits = torch.cat(parts, dim=-1)
+            tb = bits[:, : cfg.tbs]
+            tb_ok = torch.all(crc_compute(tb, LTE_CRC24A) == bits[:, cfg.tbs :], dim=-1)
+            cw_ok = torch.stack([ok[(ci, i)] for i in range(s.C)], dim=-1).all(dim=-1)
+            out.append((tb, tb_ok & cw_ok))
     return out
 
 

@@ -18,6 +18,11 @@ of `srsran_tpu/pipeline.py`.
   shift) → DMRS channel estimate → MRC → IDFT de-precoding → soft demod →
   descramble → de-interleave → UL-SCH turbo decode.
 
+`ue_dl_subframe` and `enb_ul_subframe` mark their front-end stages with
+`runtime.trace.span` (`fe.ofdm`, `fe.chest`, `fe.equalize`, `fe.demap`);
+TB decode and the turbo loop mark theirs (`tbd.*`, `turbo.*`).  Only the
+snr_db tail of each lies outside every span.
+
 The reference vmaps one subframe; here the leading batch axis of subframes
 is written out, and every codeblock of the batch decodes in one
 `turbo_decode`.  Each of them moves its tables to `device` once;
@@ -53,6 +58,7 @@ from .phy.phch.pdsch import DlGrant, DlGrant2, pdsch_cinit, pdsch_re_indices
 from .phy.phch.pusch import UlGrant, _deinterleaver_indices, pusch_cinit, pusch_symbols_data
 from .phy.phch.sch import TbCoding, _e_split, dlsch_decode_device, dlsch_decode_multi_device
 from .phy.sequence import gold_sequence, gold_sequence_signs
+from .runtime.trace import span
 
 
 def _check_on(samples: torch.Tensor, device: torch.device):
@@ -88,21 +94,26 @@ def ue_dl_subframe(cell: Cell, sf_idx: int, cfi: int, grant: DlGrant,
 
     def fn(samples: torch.Tensor):
         _check_on(samples, device)
-        rx_grid = ofdm_rx_sf(ofdm, samples)  # (B, nrx, nsymb, nre)
-        res = chest_dl(rx_grid, cell, sf_idx, nof_ports=nof_ports)
-        noise = torch.mean(res["noise"], dim=(1, 2))[:, None]  # (B, 1)
-        b, nrx = rx_grid.shape[:2]
-        y = rx_grid.reshape(b, nrx, -1)[..., idx]  # (B, nrx, M)
-        h = res["ce"].reshape(b, nrx, nof_ports, -1)[..., idx]
-        if grant.tx_scheme == "port0":
-            x, csi = predecode_single_mrc(y, h[:, :, 0], noise)
-        elif grant.tx_scheme == "diversity":
-            x, csi = predecode_diversity2(y, h)
-        else:
-            xl, csil = predecode_zf_mmse(y, h, grant.nof_layers, noise, pmi=grant.pmi)
-            x, csi = layerdemap(xl, 1)[0], layerdemap(csil, 1)[0]
-        llr = demod_soft(grant.mod, x) * torch.repeat_interleave(csi, grant.qm, dim=-1)
-        tb, ok = dlsch_decode_device(llr * signs, coding, max_iterations)
+        with span("fe.ofdm"):
+            rx_grid = ofdm_rx_sf(ofdm, samples)  # (B, nrx, nsymb, nre)
+        with span("fe.chest"):
+            res = chest_dl(rx_grid, cell, sf_idx, nof_ports=nof_ports)
+            noise = torch.mean(res["noise"], dim=(1, 2))[:, None]  # (B, 1)
+        with span("fe.equalize"):
+            b, nrx = rx_grid.shape[:2]
+            y = rx_grid.reshape(b, nrx, -1)[..., idx]  # (B, nrx, M)
+            h = res["ce"].reshape(b, nrx, nof_ports, -1)[..., idx]
+            if grant.tx_scheme == "port0":
+                x, csi = predecode_single_mrc(y, h[:, :, 0], noise)
+            elif grant.tx_scheme == "diversity":
+                x, csi = predecode_diversity2(y, h)
+            else:
+                xl, csil = predecode_zf_mmse(y, h, grant.nof_layers, noise, pmi=grant.pmi)
+                x, csi = layerdemap(xl, 1)[0], layerdemap(csil, 1)[0]
+        with span("fe.demap"):
+            llr = demod_soft(grant.mod, x) * torch.repeat_interleave(csi, grant.qm, dim=-1)
+            llr = llr * signs
+        tb, ok = dlsch_decode_device(llr, coding, max_iterations)
         return tb, ok, _snr_db(res["snr"])
 
     return fn
@@ -207,20 +218,25 @@ def enb_ul_subframe(cell: Cell, sf_idx: int, grant: UlGrant, max_iterations: int
 
     def fn(samples: torch.Tensor):
         _check_on(samples, device)
-        rx_grid = ofdm_rx_sf(ofdm, samples)  # (B, nrx, nsymb, nre)
-        ce, noise = chest_ul(rx_grid, cell, grant.prb_start, grant.nof_prb)
-        noise = torch.mean(noise, dim=1)  # (B,)
-        b, nrx = rx_grid.shape[:2]
-        y = rx_grid[:, :, data_syms, k0 : k0 + m_sc]
-        h = ce[:, :, data_syms, :]
-        xf, csi = predecode_single_mrc(y.reshape(b, nrx, -1), h.reshape(b, nrx, -1),
-                                       noise[:, None])
-        x = dft_predecode(xf.reshape(b, nsym, m_sc))
-        llr = demod_soft(grant.mod, x.reshape(b, -1))
-        # the CSI of an SC-FDMA symbol is its mean over the allocation
-        csi_t = torch.mean(csi.reshape(b, nsym, m_sc), dim=-1)
-        llr = llr * torch.repeat_interleave(csi_t, m_sc * grant.qm, dim=-1)
-        tb, ok = dlsch_decode_device((llr * signs)[:, deint], coding, max_iterations)
+        with span("fe.ofdm"):
+            rx_grid = ofdm_rx_sf(ofdm, samples)  # (B, nrx, nsymb, nre)
+        with span("fe.chest"):
+            ce, noise = chest_ul(rx_grid, cell, grant.prb_start, grant.nof_prb)
+            noise = torch.mean(noise, dim=1)  # (B,)
+        with span("fe.equalize"):
+            b, nrx = rx_grid.shape[:2]
+            y = rx_grid[:, :, data_syms, k0 : k0 + m_sc]
+            h = ce[:, :, data_syms, :]
+            xf, csi = predecode_single_mrc(y.reshape(b, nrx, -1), h.reshape(b, nrx, -1),
+                                           noise[:, None])
+            x = dft_predecode(xf.reshape(b, nsym, m_sc))
+        with span("fe.demap"):
+            llr = demod_soft(grant.mod, x.reshape(b, -1))
+            # the CSI of an SC-FDMA symbol is its mean over the allocation
+            csi_t = torch.mean(csi.reshape(b, nsym, m_sc), dim=-1)
+            llr = llr * torch.repeat_interleave(csi_t, m_sc * grant.qm, dim=-1)
+            llr = (llr * signs)[:, deint]
+        tb, ok = dlsch_decode_device(llr, coding, max_iterations)
         sig = torch.mean(ce.abs() ** 2, dim=(1, 2, 3))
         return tb, ok, 10.0 * torch.log10(sig / (noise + 1e-12))
 

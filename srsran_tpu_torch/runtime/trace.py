@@ -8,6 +8,17 @@ Perfetto). Duration events via the `trace_duration` context manager /
 decorator, complete events via `trace_complete`, instant events via
 `trace_instant`. Disabled (zero-cost no-op) until `enable()` is called —
 the analog of the ENABLE_SRSLOG_EVENT_TRACE compile flag.
+
+The port adds two things the reference has not.  `span(name)` marks a
+stage of the device pipelines: while the tracer is off it returns one
+shared no-op context manager (a flag test, nothing allocated, no torch
+call); while it is on it opens `torch.profiler.record_function(name)`,
+which stamps the range on the profiler's own clock beside the host
+operations and kernels it encloses, and records the same Chrome "X" event
+as `duration`.  `count(name, n)` adds to a module-level dict of integers
+that is always on, as `phy/fec/turbo_cuda.LAUNCHES` is; `counts()` returns
+a copy.  The pipelines count `host_reads`: every wait of the host for the
+device on their path.
 """
 
 from __future__ import annotations
@@ -31,6 +42,9 @@ class EventTracer:
         self.enabled = True
         self._t0 = time.perf_counter()
 
+    def disable(self):
+        self.enabled = False
+
     def _us(self) -> float:
         return (time.perf_counter() - self._t0) * 1e6
 
@@ -51,6 +65,30 @@ class EventTracer:
                 dict(name=name, cat=category, ph="X", ts=t0, dur=self._us() - t0,
                      pid=os.getpid(), tid=threading.get_ident() & 0xFFFF, args=args)
             )
+
+    def span(self, name: str):
+        """A stage of a device pipeline: `_NO_SPAN` while off; while on, a
+        `torch.profiler.record_function` range and the Chrome "X" event
+        that `duration` records."""
+        if not self.enabled:
+            return _NO_SPAN
+        return self._profiled(name)
+
+    @contextlib.contextmanager
+    def _profiled(self, name: str):
+        from torch.profiler import record_function  # torch only once a span is taken
+
+        # `duration`'s event, with the process id read once: os.getpid() is
+        # a system call, slow where system calls are trapped
+        with record_function(name):
+            t0 = self._us()
+            try:
+                yield
+            finally:
+                self._emit(
+                    dict(name=name, cat="phy", ph="X", ts=t0, dur=self._us() - t0,
+                         pid=_pid(), tid=threading.get_ident() & 0xFFFF, args={})
+                )
 
     def instant(self, name: str, category: str = "phy", **args):
         if not self.enabled:
@@ -93,8 +131,37 @@ class EventTracer:
             self._events.clear()
 
 
+# the span of a tracer that is off: reused by every call, it allocates nothing
+_NO_SPAN = contextlib.nullcontext()
+# this process's id once a span has read it; a forked child reads its own
+_PID = []
+
+
+def _pid() -> int:
+    if not _PID:
+        _PID.append(os.getpid())
+        os.register_at_fork(after_in_child=_PID.clear)
+    return _PID[0]
+
+
+# the port's counters since the process started: name -> int
+COUNTS = {}
+_COUNTS_LOCK = threading.Lock()
+
+
+def count(name: str, n: int = 1):
+    with _COUNTS_LOCK:
+        COUNTS[name] = COUNTS.get(name, 0) + n
+
+
+def counts() -> dict[str, int]:
+    with _COUNTS_LOCK:
+        return dict(COUNTS)
+
+
 # module-level tracer (like the srslog singleton)
 tracer = EventTracer()
 trace_duration = tracer.duration
 trace_instant = tracer.instant
 trace_counter = tracer.counter
+span = tracer.span

@@ -79,6 +79,7 @@ _NATIVE_BUILD = ("the port builds the library from native/sample_ring.cpp and it
                  "srsran_tpu_torch/_build/ (a hashed name, an atomic rename), never into native/")
 _TTCN3_DEVICE = ("the port's UeStack runs on the card when device=None, so the fake PHY and "
                  "the SYS server take device= and pass it through to UeStack(cell, usim, device=)")
+_PORT_SPANS = "spans on the profiler's clock and the port's counters: the port only"
 EXCLUDED = {
     ("runtime/state.py", None, "ue_sync_state"):
         "the port's UeSync.buf is a complex64 tensor on its device: read to the host",
@@ -94,6 +95,12 @@ EXCLUDED = {
     **{("native.py", None, name): _NATIVE_BUILD
        for name in ("_LIB_PATH", "_PKG", "SOURCES", "BUILD_DIR", "CXXFLAGS", "_cpu_flags",
                     "build")},
+    **{("runtime/trace.py", cls, name): _PORT_SPANS
+       for cls, name in (("EventTracer", "disable"), ("EventTracer", "span"),
+                         ("EventTracer", "_profiled"), (None, "_NO_SPAN"), (None, "_PID"),
+                         (None, "_pid"), (None, "COUNTS"),
+                         (None, "_COUNTS_LOCK"), (None, "count"), (None, "counts"),
+                         (None, "span"))},
 }
 # passages inside a held function that the port replaces on purpose:
 # module -> [(the reference's text, the port's, the reason)].  Each passage
