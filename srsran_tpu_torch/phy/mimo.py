@@ -28,6 +28,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..device import table
+
 SQRT2_INV = np.float32(1.0 / np.sqrt(2.0))
 
 
@@ -187,9 +189,9 @@ def precode_spatialmux4(layers: np.ndarray, codebook_idx: int) -> np.ndarray:
 # --- predecoding (equalization, device) -------------------------------------
 
 
-def _fold_precoder(h: torch.Tensor, w: np.ndarray) -> torch.Tensor:
+def _fold_precoder(h: torch.Tensor, w) -> torch.Tensor:
     """Effective channel (..., nrx, L, M) of h (..., nrx, P, M) behind the
-    (P, L) precoder w."""
+    (P, L) precoder w (numpy, or a tensor on h's device)."""
     return torch.einsum("...rpm,pl->...rlm", h, torch.as_tensor(w, device=h.device))
 
 
@@ -276,7 +278,9 @@ def predecode_zf_mmse(y: torch.Tensor, h: torch.Tensor, nof_layers: int, noise_e
     (..., nof_layers, M), csi float32.  As in the reference the Gram entries
     stay complex64 and 1/det is a complex reciprocal."""
     if pmi is not None:
-        h = _fold_precoder(h, _codebook_2x2(pmi, nof_layers))
+        # the codebook entry as a table on h's device, copied there once: a
+        # copy from the host on every call would wait for the device
+        h = _fold_precoder(h, table(_codebook_2x2, pmi, nof_layers, device=h.device))
     if nof_layers == 1:
         heff = h[..., 0, :] if h.shape[-2] == 1 else h.sum(dim=-2)
         x, csi = predecode_single_mrc(y, heff, noise_est)

@@ -18,10 +18,13 @@ of `srsran_tpu/pipeline.py`.
   shift) → DMRS channel estimate → MRC → IDFT de-precoding → soft demod →
   descramble → de-interleave → UL-SCH turbo decode.
 
-`ue_dl_subframe` and `enb_ul_subframe` mark their front-end stages with
-`runtime.trace.span` (`fe.ofdm`, `fe.chest`, `fe.equalize`, `fe.demap`);
-TB decode and the turbo loop mark theirs (`tbd.*`, `turbo.*`).  Only the
-snr_db tail of each lies outside every span.
+`ue_dl_subframe`, `ue_dl_subframe_mimo` and `enb_ul_subframe` mark their
+front-end stages with `runtime.trace.span` (`fe.ofdm`, `fe.chest`,
+`fe.equalize`, `fe.demap`; `fe.mimo`, inside `fe.equalize`, around the
+precoder fold, the 2x2 MMSE solve and the layer demapping); TB decode and
+the turbo loop mark theirs (`tbd.*`, `turbo.*`).  Only the snr_db tail of
+each lies outside every span.  The two DL entries share their front end
+(`_dl_front_end`).
 
 The reference vmaps one subframe; here the leading batch axis of subframes
 is written out, and every codeblock of the batch decodes in one
@@ -31,6 +34,8 @@ the tests pass "cpu".
 """
 
 from __future__ import annotations
+
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -70,6 +75,34 @@ def _snr_db(snr: torch.Tensor) -> torch.Tensor:
     return 10.0 * torch.log10(torch.mean(snr, dim=(1, 2)))
 
 
+def _dl_front_end(cell: Cell, sf_idx: int, cfi: int, prb: tuple[int, ...], nof_ports: int,
+                  device: torch.device):
+    """The DL entries' front end for one (cell, subframe, allocation):
+    returns (the number of PDSCH REs, front_end), where
+    `with front_end(samples) as (y, h, noise, snr):` runs OFDM demod
+    (`fe.ofdm`), CRS estimation of `nof_ports` ports and the noise mean
+    (`fe.chest`), then opens `fe.equalize` with the RE gathers and keeps it
+    open around the caller's equalizer.  y (B, nrx, M), h (B, nrx,
+    nof_ports, M), noise (B, 1), snr (B, nrx, nof_ports)."""
+    ofdm = OfdmConfig.from_cell(cell, normalize=True)
+    idx = table(pdsch_re_indices, cell, sf_idx, cfi, prb, device=device, dtype=torch.int64)
+
+    @contextmanager
+    def front_end(samples: torch.Tensor):
+        with span("fe.ofdm"):
+            rx_grid = ofdm_rx_sf(ofdm, samples)  # (B, nrx, nsymb, nre)
+        with span("fe.chest"):
+            res = chest_dl(rx_grid, cell, sf_idx, nof_ports=nof_ports)
+            noise = torch.mean(res["noise"], dim=(1, 2))[:, None]  # (B, 1)
+        with span("fe.equalize"):
+            b, nrx = rx_grid.shape[:2]
+            y = rx_grid.reshape(b, nrx, -1)[..., idx]  # (B, nrx, M)
+            h = res["ce"].reshape(b, nrx, nof_ports, -1)[..., idx]
+            yield y, h, noise, res["snr"]
+
+    return idx.numel(), front_end
+
+
 def ue_dl_subframe(cell: Cell, sf_idx: int, cfi: int, grant: DlGrant,
                    max_iterations: int = 5, *, device=None):
     """Build the UE DL subframe decode for one (cell, subframe, grant), for
@@ -81,40 +114,31 @@ def ue_dl_subframe(cell: Cell, sf_idx: int, cfi: int, grant: DlGrant,
     """
     if grant.tx_scheme not in ("port0", "diversity", "spatialmux"):
         raise NotImplementedError(grant.tx_scheme)
-    ofdm = OfdmConfig.from_cell(cell, normalize=True)
     device = resolve(device)
-    idx = table(pdsch_re_indices, cell, sf_idx, cfi, grant.prb, device=device,
-                dtype=torch.int64)
+    nof_ports = 1 if grant.tx_scheme == "port0" else 2
+    n_re, front_end = _dl_front_end(cell, sf_idx, cfi, grant.prb, nof_ports, device)
     nof_layers = grant.nof_layers if grant.tx_scheme == "spatialmux" else 1
-    g = idx.numel() * grant.qm * nof_layers
+    g = n_re * grant.qm * nof_layers
     coding = TbCoding(tbs=grant.tbs, g=g, qm=grant.qm, rv=grant.rv, nof_layers=nof_layers)
     signs = table(gold_sequence_signs, pdsch_cinit(grant.rnti, sf_idx, cell.id), g,
                   device=device)
-    nof_ports = 1 if grant.tx_scheme == "port0" else 2
 
     def fn(samples: torch.Tensor):
         _check_on(samples, device)
-        with span("fe.ofdm"):
-            rx_grid = ofdm_rx_sf(ofdm, samples)  # (B, nrx, nsymb, nre)
-        with span("fe.chest"):
-            res = chest_dl(rx_grid, cell, sf_idx, nof_ports=nof_ports)
-            noise = torch.mean(res["noise"], dim=(1, 2))[:, None]  # (B, 1)
-        with span("fe.equalize"):
-            b, nrx = rx_grid.shape[:2]
-            y = rx_grid.reshape(b, nrx, -1)[..., idx]  # (B, nrx, M)
-            h = res["ce"].reshape(b, nrx, nof_ports, -1)[..., idx]
+        with front_end(samples) as (y, h, noise, snr):
             if grant.tx_scheme == "port0":
                 x, csi = predecode_single_mrc(y, h[:, :, 0], noise)
             elif grant.tx_scheme == "diversity":
                 x, csi = predecode_diversity2(y, h)
             else:
-                xl, csil = predecode_zf_mmse(y, h, grant.nof_layers, noise, pmi=grant.pmi)
-                x, csi = layerdemap(xl, 1)[0], layerdemap(csil, 1)[0]
+                with span("fe.mimo"):
+                    xl, csil = predecode_zf_mmse(y, h, grant.nof_layers, noise, pmi=grant.pmi)
+                    x, csi = layerdemap(xl, 1)[0], layerdemap(csil, 1)[0]
         with span("fe.demap"):
             llr = demod_soft(grant.mod, x) * torch.repeat_interleave(csi, grant.qm, dim=-1)
             llr = llr * signs
         tb, ok = dlsch_decode_device(llr, coding, max_iterations)
-        return tb, ok, _snr_db(res["snr"])
+        return tb, ok, _snr_db(snr)
 
     return fn
 
@@ -163,11 +187,8 @@ def ue_dl_subframe_mimo(cell: Cell, sf_idx: int, cfi: int, grant: DlGrant2,
     Returns fn(samples (B, 2, sf_len) complex64 on `device`) ->
       ((tb1 (B, tbs1) uint8, ok1 (B,) bool), (tb2, ok2), snr_db (B,) float32).
     """
-    ofdm = OfdmConfig.from_cell(cell, normalize=True)
     device = resolve(device)
-    idx = table(pdsch_re_indices, cell, sf_idx, cfi, grant.prb, device=device,
-                dtype=torch.int64)
-    n_re = idx.numel()
+    n_re, front_end = _dl_front_end(cell, sf_idx, cfi, grant.prb, 2, device)
     cws = ((grant.mod1, grant.qm1, grant.tbs1, grant.rv1),
            (grant.mod2, grant.qm2, grant.tbs2, grant.rv2))
     signs = [table(gold_sequence_signs, pdsch_cinit(grant.rnti, sf_idx, cell.id, q=q),
@@ -179,20 +200,17 @@ def ue_dl_subframe_mimo(cell: Cell, sf_idx: int, cfi: int, grant: DlGrant2,
         _check_on(samples, device)
         if samples.shape[-2] != 2:
             raise ValueError(f"the 2x2 decode takes 2 receive antennas, got {samples.shape[-2]}")
-        rx_grid = ofdm_rx_sf(ofdm, samples)  # (B, 2 rx, nsymb, nre)
-        res = chest_dl(rx_grid, cell, sf_idx, nof_ports=2)
-        noise = torch.mean(res["noise"], dim=(1, 2))[:, None]
-        b = rx_grid.shape[0]
-        y = rx_grid.reshape(b, 2, -1)[..., idx]
-        h = res["ce"].reshape(b, 2, 2, -1)[..., idx]
-        x, csi = predecode_zf_mmse(y, h, 2, noise, pmi=grant.pmi)
-        sym_cws, csi_cws = layerdemap(x, 2), layerdemap(csi, 2)
-        llrs = [demod_soft(mod, sym_cws[q]) * torch.repeat_interleave(csi_cws[q], qm, dim=-1)
-                * signs[q] for q, (mod, qm, _, _) in enumerate(cws)]
+        with front_end(samples) as (y, h, noise, snr):
+            with span("fe.mimo"):
+                x, csi = predecode_zf_mmse(y, h, 2, noise, pmi=grant.pmi)
+                sym_cws, csi_cws = layerdemap(x, 2), layerdemap(csi, 2)
+        with span("fe.demap"):
+            llrs = [demod_soft(mod, sym_cws[q]) * torch.repeat_interleave(csi_cws[q], qm, dim=-1)
+                    * signs[q] for q, (mod, qm, _, _) in enumerate(cws)]
         # both codewords' codeblocks decode in one batched turbo call per
         # distinct (K, CRC polynomial), not in per-codeword chains
         outs = dlsch_decode_multi_device(llrs, codings, max_iterations)
-        return outs[0], outs[1], _snr_db(res["snr"])
+        return outs[0], outs[1], _snr_db(snr)
 
     return fn
 
