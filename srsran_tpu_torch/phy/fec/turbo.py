@@ -16,9 +16,13 @@ Counterpart of the decoder in `srsran_tpu/phy/fec/turbo.py`:
   (`unlane`).
 * Iterations stop once every codeblock passes its CRC; converged
   codeblocks are frozen (one host read of ``done.all()`` per iteration).
-  `turbo_decode` marks each read (`turbo.stop_read`, counted as
-  `host_reads`) and each iteration (`turbo.iter`) with the spans of
-  `runtime.trace`.
+  The exact tail betas are computed once a call.  `turbo_decode` marks
+  each read (`turbo.stop_read`, counted as `host_reads`) and each
+  iteration (`turbo.iter`) with the spans of `runtime.trace`, and counts
+  the iterations (`turbo_iterations`) and those a CUDA graph replayed
+  (`turbo_graph_replays`).  A caller of fixed shape asks for CUDA graphs
+  (`graphed=True`): one launch for the set-up and one an iteration, of the
+  eager loop's kernels.
 * `turbo_encode_np` is the reference's host encoder (numpy), for stimuli;
   `turbo_encode_device` is the batched encoder on the device, a closed-form
   GF(2) polynomial division with no sequential step, and
@@ -30,6 +34,8 @@ share one K.
 
 from __future__ import annotations
 
+import contextlib
+from collections import OrderedDict
 from functools import lru_cache
 
 import numpy as np
@@ -532,48 +538,190 @@ def dstream_tails(d_tail: torch.Tensor):
     return lx1, lz1, lx2, lz2
 
 
+class _Loop:
+    """The inputs and the state of one `turbo_decode`, and its iteration.
+
+    `start` makes, from the d-stream LLRs, the inputs: the systematic LLRs
+    `sys` and their interleaving `sys_int`, the parities `p1`, `p2` (B, K)
+    and the exact tail betas `beta1`, `beta2` (B, 8), fixed for the call
+    and so computed once; and the state `ext2`, `post` (B, K) and `done`
+    (B,), cleared.  `step` runs one iteration on the state, in place."""
+
+    def __init__(self, d_llr: torch.Tensor, k: int, per, inv, crc_table):
+        self.k, self.per, self.inv, self.crc_table = k, per, inv, crc_table
+        self.start(d_llr)
+
+    def start(self, d_llr: torch.Tensor):
+        b, k = d_llr.shape[0], self.k
+        self.sys = d_llr[:, 0, :k]
+        self.p1 = d_llr[:, 1, :k].contiguous()  # the kernel reads whole rows
+        self.p2 = d_llr[:, 2, :k].contiguous()
+        lx1_t, lz1_t, lx2_t, lz2_t = dstream_tails(d_llr[:, :, k:])
+        self.sys_int = self.sys[:, self.per]
+        self.beta1, self.beta2 = _beta_tail(lx1_t, lz1_t), _beta_tail(lx2_t, lz2_t)
+        self.ext2 = torch.zeros((b, k), dtype=torch.float32, device=d_llr.device)
+        self.post = torch.zeros_like(self.ext2)
+        self.done = torch.zeros((b,), dtype=torch.bool, device=d_llr.device)
+
+    def step(self):
+        """One iteration, in place: two constituent passes, the extrinsic
+        exchange through the QPP interleaver, the posterior, the CRC test."""
+        k, per, inv = self.k, self.per, self.inv
+        x1 = self.sys + self.ext2
+        ext1 = map_pass(x1, self.p1, self.beta1, k) - x1
+        in2 = self.sys_int + ext1[:, per]
+        new_ext2 = (map_pass(in2, self.p2, self.beta2, k) - in2)[:, inv]
+        # the APP in natural order is the extrinsic sum; converged
+        # codeblocks stay frozen
+        frozen = self.done[:, None]
+        torch.where(frozen, self.ext2, new_ext2, out=self.ext2)
+        torch.where(frozen, self.post, self.sys + ext1 + new_ext2, out=self.post)
+        if self.crc_table is not None:
+            acc = torch.matmul((self.post > 0).to(torch.float32), self.crc_table)
+            self.done |= torch.all((acc.to(torch.int32) & 1) == 0, dim=-1)
+
+    def iterate(self) -> bool:
+        """Run one iteration; True where a CUDA graph replayed it."""
+        self.step()
+        return False
+
+    def posteriors(self) -> torch.Tensor:
+        return self.post
+
+
+# CUDA graphs of the batched decode's loop kept per device, the least
+# recently used dropped first, and the keys seen once (whose next call
+# captures)
+GRAPHS_PER_DEVICE = 4
+SEEN_KEYS = 64
+_GRAPHS: dict[torch.device, OrderedDict] = {}
+_SEEN: OrderedDict = OrderedDict()
+_CAPTURE_STREAMS: dict[torch.device, torch.cuda.Stream] = {}
+
+
+@contextlib.contextmanager
+def _on_capture_stream(dev: torch.device):
+    """Run the block on the device's capture stream (a graph cannot be
+    captured on the default one), after the current stream's work and
+    before its next."""
+    current = torch.cuda.current_stream(dev)
+    side = _CAPTURE_STREAMS.get(dev)
+    if side is None:
+        side = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
+    side.wait_stream(current)
+    with torch.cuda.device(dev), torch.cuda.stream(side):
+        yield
+    current.wait_stream(side)
+
+
+def _captured(fn) -> torch.cuda.CUDAGraph:
+    """`fn()` captured as a CUDA graph on the current stream: nothing runs;
+    the tensors it makes are the graph's, rewritten by every replay."""
+    graph = torch.cuda.CUDAGraph()
+    graph.capture_begin()
+    fn()
+    graph.capture_end()
+    return graph
+
+
+class _GraphedLoop(_Loop):
+    """A `_Loop` for one key (device, B, K, CRC matrix) whose `start` and
+    `step` are each captured once as a CUDA graph and replayed from then
+    on: the same kernels in the same order on the same buffers, so the
+    bits, posteriors and iteration counts are the eager loop's.
+
+    `load` copies a call's LLRs into the buffer `d_llr` and replays
+    `start` over it, whose outputs (the graph's own tensors) are the
+    inputs and state that the graph of `step` reads and rewrites."""
+
+    def __init__(self, d_llr: torch.Tensor, k: int, per, inv, crc_table):
+        self.k, self.per, self.inv, self.crc_table = k, per, inv, crc_table
+        self.d_llr = torch.empty(d_llr.shape, dtype=torch.float32, device=d_llr.device)
+        self.graphs: list[torch.cuda.CUDAGraph] = []  # start's, then step's
+        self.launches = None  # the MAP launches the graph of step holds, by shape
+        table(_tail_tables, device=d_llr.device)  # on the device before a capture
+
+    def load(self, d_llr: torch.Tensor):
+        self.d_llr.copy_(d_llr)
+        if not self.graphs:
+            with _on_capture_stream(self.d_llr.device):
+                self.graphs.append(_captured(lambda: self.start(self.d_llr)))
+        self.graphs[0].replay()
+
+    def iterate(self) -> bool:
+        if len(self.graphs) == 1:
+            # the first iteration runs for real on the capture stream, which
+            # warms it (cuBLAS's workspace for it); capturing the same step
+            # then runs nothing, so the state stays as that iteration left it
+            with _on_capture_stream(self.d_llr.device):
+                self.step()
+                with turbo_cuda.uncounted() as self.launches:
+                    self.graphs.append(_captured(self.step))
+            return False
+        self.graphs[1].replay()
+        turbo_cuda.replayed(self.launches)
+        return True
+
+    def posteriors(self) -> torch.Tensor:
+        return self.post.clone()  # the graph's tensor is the next call's
+
+
+def _graphed_loop(d_llr: torch.Tensor, k: int, per, inv, crc_table) -> _GraphedLoop | None:
+    """The graphed loop of this call's key with the call's LLRs loaded,
+    made on the key's second call; None on its first, which runs eagerly,
+    so that a shape decoded once is never captured."""
+    dev = d_llr.device
+    # the CRC matrix by identity: the loop holds it, so the id stays its own
+    key = (d_llr.shape[0], k, None if crc_table is None else id(crc_table))
+    graphs = _GRAPHS.setdefault(dev, OrderedDict())
+    loop = graphs.get(key)
+    if loop is not None:
+        graphs.move_to_end(key)
+    elif _SEEN.pop((dev, key), None) is None:
+        _SEEN[(dev, key)] = True
+        if len(_SEEN) > SEEN_KEYS:
+            _SEEN.popitem(last=False)
+        return None
+    else:
+        loop = graphs[key] = _GraphedLoop(d_llr, k, per, inv, crc_table)
+        if len(graphs) > GRAPHS_PER_DEVICE:
+            graphs.popitem(last=False)
+    loop.load(d_llr)
+    return loop
+
+
 def turbo_decode(d_llr: torch.Tensor, k: int, max_iterations: int = 5,
-                 crc_table: torch.Tensor | None = None):
+                 crc_table: torch.Tensor | None = None, graphed: bool = False):
     """Iteratively decode a batch of codeblocks.
 
     d_llr: (B, 3, K+4) float32 LLRs in d-stream layout (positive ⇒ bit 1).
     crc_table: optional (K, 24) float32 CRC matrix over the whole K (its
     trailing CRC included); iterations stop once every codeblock passes.
+    graphed: the caller decodes the same (B, K) call after call (a batched
+    entry of fixed shape).  On a CUDA device the loop's set-up and its
+    iteration are then captured as CUDA graphs on the second call with a
+    key (device, B, K, crc_table) and replayed from then on
+    (`_GraphedLoop`); elsewhere, and on a key's first call, the loop runs
+    eagerly.
     Returns (bits (B, K) uint8, llr (B, K) float32, n_iterations int).
     """
-    b = d_llr.shape[0]
     per, inv = table(_perm_tables, k, device=d_llr.device, dtype=torch.int64)
-    sys = d_llr[:, 0, :k]
-    p1 = d_llr[:, 1, :k].contiguous()  # the kernel reads whole rows
-    p2 = d_llr[:, 2, :k].contiguous()
-    lx1_t, lz1_t, lx2_t, lz2_t = dstream_tails(d_llr[:, :, k:])
-    sys_int = sys[:, per]
-
-    def crc_pass(post):
-        if crc_table is None:
-            return torch.zeros((b,), dtype=torch.bool, device=post.device)
-        acc = torch.matmul((post > 0).to(torch.float32), crc_table)
-        return torch.all((acc.to(torch.int32) & 1) == 0, dim=-1)
-
-    ext2 = torch.zeros((b, k), dtype=torch.float32, device=d_llr.device)
-    post = torch.zeros_like(ext2)
-    done = torch.zeros((b,), dtype=torch.bool, device=d_llr.device)
+    loop = None
+    if graphed and d_llr.device.type == "cuda":
+        loop = _graphed_loop(d_llr, k, per, inv, crc_table)
+    if loop is None:
+        loop = _Loop(d_llr, k, per, inv, crc_table)
     n_it = 0
     while n_it < max_iterations:
         with span("turbo.stop_read"):
             count("host_reads")
-            stop = bool(done.all())
+            stop = bool(loop.done.all())
         if stop:
             break
         with span("turbo.iter"):
-            x1 = sys + ext2
-            ext1 = map_decoder(x1, p1, lx1_t, lz1_t, k) - x1
-            in2 = sys_int + ext1[:, per]
-            new_ext2 = (map_decoder(in2, p2, lx2_t, lz2_t, k) - in2)[:, inv]
-            # the APP in natural order is the extrinsic sum; converged
-            # codeblocks stay frozen
-            ext2 = torch.where(done[:, None], ext2, new_ext2)
-            post = torch.where(done[:, None], post, sys + ext1 + new_ext2)
-            done = done | crc_pass(post)
+            replayed = loop.iterate()
+        count("turbo_iterations")
+        if replayed:
+            count("turbo_graph_replays")
         n_it += 1
-    return (post > 0).to(torch.uint8), post, n_it
+    return (loop.post > 0).to(torch.uint8), loop.posteriors(), n_it

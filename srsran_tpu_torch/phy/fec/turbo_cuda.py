@@ -20,6 +20,7 @@ changed source is rebuilt and an unchanged one is reused.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -52,6 +53,8 @@ LAUNCHES_DYN = 0
 # launches by shape (B, nw, lw, T, dynamic-K mode) since the record was last
 # cleared: the shapes a path gave the kernel
 SHAPES: collections.Counter = collections.Counter()
+# (a CUDA graph's launches count when it replays them: `uncounted`,
+# `replayed`)
 
 _lib = None
 _lock = threading.Lock()
@@ -185,3 +188,29 @@ def map_pass(lx: torch.Tensor, lz: torch.Tensor, beta_k: torch.Tensor, nw: int, 
     LAUNCHES_DYN += k_vec is not None
     SHAPES[(b, nw, lw, T, k_vec is not None)] += 1
     return out
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches made inside are taken out of LAUNCHES, LAUNCHES_DYN and
+    SHAPES again on exit, for a CUDA graph's capture, in which nothing
+    runs.  Yields a Counter that holds them by shape on exit."""
+    global LAUNCHES, LAUNCHES_DYN
+    before = LAUNCHES, LAUNCHES_DYN, SHAPES.copy()
+    taken: collections.Counter = collections.Counter()
+    try:
+        yield taken
+    finally:
+        taken.update(SHAPES - before[2])
+        LAUNCHES, LAUNCHES_DYN = before[:2]
+        SHAPES.clear()
+        SHAPES.update(before[2])
+
+
+def replayed(shapes: collections.Counter):
+    """Count the launches of one replay of a CUDA graph that captured
+    `shapes` (as `uncounted` gave them)."""
+    global LAUNCHES, LAUNCHES_DYN
+    LAUNCHES += sum(shapes.values())
+    LAUNCHES_DYN += sum(n for shape, n in shapes.items() if shape[-1])
+    SHAPES.update(shapes)

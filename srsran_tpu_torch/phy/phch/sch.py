@@ -6,8 +6,11 @@ distinct codeblock layout, CB CRC24B (when C > 1), reassembly and the TB
 CRC24A.  `dlsch_decode_multi_device` writes out a leading batch axis of
 subframes: every codeblock of every subframe in a (K, poly) group decodes
 in one `turbo_decode`, its stages marked by the spans `tbd.rate_match`,
-`tbd.turbo` and `tbd.crc` (`runtime.trace.span`).  `dlsch_decode` is the
-per-TB, host-orchestrated decode of the facades, with HARQ softbuffers.
+`tbd.turbo` and `tbd.crc` (`runtime.trace.span`); its callers decode the
+same shapes call after call, so it asks for the turbo loop as CUDA
+graphs.  `dlsch_decode` is the per-TB, host-orchestrated decode of the
+facades, with HARQ softbuffers, whose group sizes change from TTI to TTI:
+its loop runs eagerly.
 """
 
 from __future__ import annotations
@@ -108,7 +111,8 @@ def dlsch_decode_multi_device(llrs, cfgs, max_iterations: int = 5):
         with span("tbd.turbo"):
             bits, _post, _n_it = turbo_decode(d_llr.reshape(b * ncb, 3, k + 4), k,
                                               max_iterations,
-                                              crc_table=crc_table(poly, k, d_llr.device))
+                                              crc_table=crc_table(poly, k, d_llr.device),
+                                              graphed=True)
         with span("tbd.crc"):
             # the CRC over all K bits (message and its CRC) is zero iff it passes
             cb_ok = torch.all(crc_compute(bits, poly) == 0, dim=-1)

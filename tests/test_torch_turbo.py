@@ -365,3 +365,88 @@ def test_turbo_decode_matches_reference(k, ebn0):
     ok = (bits.numpy() == cbs).all(axis=1)
     assert ok.any()
     np.testing.assert_allclose(post.numpy()[ok], np.asarray(r_post)[ok], atol=1e-3, rtol=1e-5)
+
+
+def parent_turbo_decode(d_llr, k, max_iterations=5, crc_table=None):
+    """`turbo_decode` as it was before the tail betas were computed once a
+    call: `map_decoder` works them out again on every pass."""
+    b = d_llr.shape[0]
+    per, inv = t_turbo._perm_tables(k)
+    per, inv = torch.from_numpy(per).to(torch.int64), torch.from_numpy(inv).to(torch.int64)
+    sys = d_llr[:, 0, :k]
+    p1 = d_llr[:, 1, :k].contiguous()
+    p2 = d_llr[:, 2, :k].contiguous()
+    lx1_t, lz1_t, lx2_t, lz2_t = t_turbo.dstream_tails(d_llr[:, :, k:])
+    sys_int = sys[:, per]
+
+    def crc_pass(post):
+        if crc_table is None:
+            return torch.zeros((b,), dtype=torch.bool)
+        acc = torch.matmul((post > 0).to(torch.float32), crc_table)
+        return torch.all((acc.to(torch.int32) & 1) == 0, dim=-1)
+
+    ext2 = torch.zeros((b, k), dtype=torch.float32)
+    post = torch.zeros_like(ext2)
+    done = torch.zeros((b,), dtype=torch.bool)
+    n_it = 0
+    while n_it < max_iterations and not bool(done.all()):
+        x1 = sys + ext2
+        ext1 = t_turbo.map_decoder(x1, p1, lx1_t, lz1_t, k) - x1
+        in2 = sys_int + ext1[:, per]
+        new_ext2 = (t_turbo.map_decoder(in2, p2, lx2_t, lz2_t, k) - in2)[:, inv]
+        ext2 = torch.where(done[:, None], ext2, new_ext2)
+        post = torch.where(done[:, None], post, sys + ext1 + new_ext2)
+        done = done | crc_pass(post)
+        n_it += 1
+    return (post > 0).to(torch.uint8), post, n_it
+
+
+def coded_rows(k, ebn0s, seed):
+    """d-stream LLRs (B, 3, K+4) of CRC24B codeblocks, one row per Eb/N0
+    in dB (None: noise alone, a row that never passes)."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for ebn0 in ebn0s:
+        cb = r_crc.crc_attach_np(rng.integers(0, 2, k - 24).astype(np.uint8), LTE_CRC24B)
+        d = t_turbo.turbo_encode_np(cb).astype(np.float32)
+        if ebn0 is None:
+            rows.append(2.0 * rng.standard_normal(d.shape))
+            continue
+        sigma2 = 1.0 / (2.0 / 3.0 * 10 ** (ebn0 / 10))
+        rows.append(2.0 * ((2.0 * d - 1.0) + rng.standard_normal(d.shape) * np.sqrt(sigma2)) / sigma2)
+    return torch.from_numpy(np.stack(rows).astype(np.float32))
+
+
+@pytest.mark.parametrize("capped", [False, True], ids=["converges", "capped"])
+@pytest.mark.parametrize("with_crc", [True, False], ids=["crc", "no_crc"])
+@pytest.mark.parametrize("k", [40, 5632, 6144])
+def test_turbo_decode_with_tail_betas_once_is_the_parents(k, with_crc, capped):
+    """The loop that computes the tail betas once a call gives, bit for
+    bit, the bits, posteriors and iteration count of the loop that worked
+    them out on every pass: on codeblocks that converge in different
+    iterations, and on a batch with a row of noise alone, which holds the
+    loop to max_iterations.  With `graphed=True` a CPU tensor runs the same
+    eager loop and captures nothing."""
+    from srsran_tpu_torch.runtime.trace import counts
+
+    max_iterations = 3 if capped else 8
+    d_llr = coded_rows(k, [4.0, 1.2, 0.9] + ([None] if capped else []), seed=k + capped)
+    table = crc_table(LTE_CRC24B, k, "cpu") if with_crc else None
+    want = parent_turbo_decode(d_llr, k, max_iterations, table)
+    before = counts()
+    launches = turbo_cuda.LAUNCHES
+    for graphed in (False, True):
+        bits, post, n_it = t_turbo.turbo_decode(d_llr, k, max_iterations, crc_table=table,
+                                                graphed=graphed)
+        assert torch.equal(bits, want[0]) and torch.equal(post, want[1]) and n_it == want[2]
+    after = counts()
+    assert after["turbo_iterations"] - before.get("turbo_iterations", 0) == 2 * want[2]
+    assert after.get("turbo_graph_replays", 0) == before.get("turbo_graph_replays", 0)
+    assert turbo_cuda.LAUNCHES == launches and torch.device("cpu") not in t_turbo._GRAPHS
+    if with_crc and not capped:
+        # the rows converge in different iterations, before the cap
+        first = parent_turbo_decode(d_llr, k, 1, table)[0]
+        passed = [bool(r_crc.crc_check_np(row.numpy(), LTE_CRC24B)) for row in first]
+        assert any(passed) and not all(passed) and 1 < want[2] < max_iterations
+    else:
+        assert want[2] == max_iterations
