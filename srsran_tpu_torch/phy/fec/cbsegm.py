@@ -9,9 +9,12 @@ device work.  Tests hold it equal to the reference over all 188 K.
 from __future__ import annotations
 
 import dataclasses
-from functools import lru_cache
+from functools import cached_property, lru_cache
+from typing import NamedTuple
 
 import numpy as np
+
+from ..common import LTE_CRC24A, LTE_CRC24B
 
 # TS 36.212 Table 5.1.3-3: K from 40 to 6144
 # 40..512 step 8, 528..1024 step 16, 1056..2048 step 32, 2112..6144 step 64
@@ -77,6 +80,31 @@ class CbSegm:
     @property
     def cb_sizes(self) -> tuple[int, ...]:
         return (self.K_minus,) * self.C_minus + (self.K_plus,) * self.C_plus
+
+    @cached_property
+    def blocks(self) -> tuple[CbBlock, ...]:
+        """Each code block's layout, in order; `e` and `off` are 0."""
+        crc, poly = (CB_CRC_LEN, LTE_CRC24B) if self.C > 1 else (0, LTE_CRC24A)
+        out, pos = [], 0
+        for i, k in enumerate(self.cb_sizes):
+            f = self.F if i == 0 else 0
+            out.append(CbBlock(k, f, crc, k - f - crc, pos, poly))
+            pos += k - f - crc
+        return tuple(out)
+
+
+class CbBlock(NamedTuple):
+    """One code block of a TB: the layout of `CbSegm.blocks`, and in
+    `sch.TbCoding.blocks` its place on the channel too."""
+
+    k: int  # its size K
+    f: int  # filler bits at its head: F on block 0, else 0
+    crc: int  # its CRC24B bits: 24 when C > 1, else 0
+    msg: int  # the bits of TB||CRC24A it carries, k - f - crc
+    pos: int  # where they start in TB||CRC24A
+    poly: int  # the CRC its decode checks: CRC24B, or the TB's CRC24A when C = 1
+    e: int = 0  # its rate-matched bits
+    off: int = 0  # where they start in the codeword
 
 
 @lru_cache(maxsize=1024)

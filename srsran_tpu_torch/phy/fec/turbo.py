@@ -16,11 +16,11 @@ Counterpart of the decoder in `srsran_tpu/phy/fec/turbo.py`:
   (`unlane`).
 * Iterations stop once every codeblock passes its CRC; converged
   codeblocks are frozen (one host read of ``done.all()`` per iteration).
-  The exact tail betas are computed once a call.  `turbo_decode` marks
-  each read (`turbo.stop_read`, counted as `host_reads`) and each
-  iteration (`turbo.iter`) with the spans of `runtime.trace`, and counts
-  the iterations (`turbo_iterations`) and those a CUDA graph replayed
-  (`turbo_graph_replays`).  A caller of fixed shape asks for CUDA graphs
+  The exact tail betas are computed once a call.  `_run`, the loop of
+  this decoder and `turbo_dyn`'s, marks each read (`turbo.stop_read`,
+  counted as `host_reads`) and each iteration (`turbo.iter`) with the
+  spans of `runtime.trace`, and counts the iterations (`turbo_iterations`)
+  and those a CUDA graph replayed (`turbo_graph_replays`).  A caller of fixed shape asks for CUDA graphs
   (`graphed=True`): one launch for the set-up and one an iteration, of the
   eager loop's kernels.
 * `turbo_encode_np` is the reference's host encoder (numpy), for stimuli;
@@ -711,6 +711,14 @@ def turbo_decode(d_llr: torch.Tensor, k: int, max_iterations: int = 5,
         loop = _graphed_loop(d_llr, k, per, inv, crc_table)
     if loop is None:
         loop = _Loop(d_llr, k, per, inv, crc_table)
+    n_it = _run(loop, max_iterations)
+    return (loop.post > 0).to(torch.uint8), loop.posteriors(), n_it
+
+
+def _run(loop: _Loop, max_iterations: int) -> int:
+    """Run at most `max_iterations` iterations of `loop`, each after a read
+    of `loop.done.all()` that stops it once every codeblock is done; return
+    how many ran."""
     n_it = 0
     while n_it < max_iterations:
         with span("turbo.stop_read"):
@@ -724,4 +732,4 @@ def turbo_decode(d_llr: torch.Tensor, k: int, max_iterations: int = 5,
         if replayed:
             count("turbo_graph_replays")
         n_it += 1
-    return (loop.post > 0).to(torch.uint8), loop.posteriors(), n_it
+    return n_it

@@ -17,8 +17,8 @@ data:
   initial value: each row's bits are rolled to the tail of the K_max buffer
   and multiplied with one fixed (K_max, 48) CRC24A|CRC24B matrix.
 
-The early stop is a host loop with one `done.all()` read per iteration, as
-in `turbo.turbo_decode`.
+The early stop is `turbo.turbo_decode`'s loop (`turbo._run`), with one
+`done.all()` read per iteration, spanned and counted.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ import torch
 
 from ..common import LTE_CRC24A, LTE_CRC24B
 from ..crc import crc_matrix_np
-from .turbo import _beta_tail, dstream_tails, map_pass
+from .turbo import _beta_tail, _Loop, _run, dstream_tails, map_pass
 
 
 def map_decoder_dyn(lx, lz, beta_k, k_vec, k_max: int) -> torch.Tensor:
@@ -63,6 +63,68 @@ def crc_ok_ab(bits: torch.Tensor, k_vec, crc_table, crc_is_b) -> torch.Tensor:
     return torch.where(crc_is_b, zero[:, 24:].all(dim=-1), zero[:, :24].all(dim=-1))
 
 
+class _DynLoop(_Loop):
+    """`turbo_decode_dyn`'s inputs, masked beyond each K_i, its state and
+    its iteration, with per-row interleaves; `it_vec` keeps the iteration
+    at which each row's CRC first passed."""
+
+    def __init__(self, d_llr, k_vec, valid, k_max: int, perms, crc_table, crc_is_b):
+        self.k, self.crc_table, self.crc_is_b = k_max, crc_table, crc_is_b
+        self.start(d_llr, k_vec, valid, perms)
+
+    def start(self, d_llr, k_vec, valid, perms):
+        b, k_max, dev = d_llr.shape[0], self.k, d_llr.device
+        per, inv, perm_groups, class_perms = perms
+        self.k_vec = k_vec.to(torch.int64)
+        if perm_groups is not None:
+            per3, inv3, cls = perm_groups
+            cls = cls.to(torch.int64)
+            w_idx = torch.arange(cls.shape[0], device=cls.device)[:, None]
+            per, inv = (t[w_idx, cls].reshape(b, k_max).to(torch.int64) for t in (per3, inv3))
+        elif class_perms is not None:
+            per_c, inv_c, cls = class_perms
+            per, inv = per_c[cls], inv_c[cls]
+        self.per, self.inv = per, inv
+        self.in_mask = in_mask = torch.arange(k_max, device=dev)[None, :] < self.k_vec[:, None]
+        self.sys, self.p1, self.p2 = (torch.where(in_mask, d_llr[:, i, :k_max], 0.0)
+                                      for i in range(3))
+        tail_cols = (self.k_vec[:, None, None] + torch.arange(4, device=dev)).expand(b, 3, 4)
+        lx1_t, lz1_t, lx2_t, lz2_t = dstream_tails(torch.gather(d_llr, 2, tail_cols))
+        self.beta1 = _beta_tail(lx1_t, lz1_t)  # (B, 8)
+        self.beta2 = _beta_tail(lx2_t, lz2_t)
+        self.sys_int = torch.where(in_mask, torch.gather(self.sys, 1, per), 0.0)
+        self.k_i32 = self.k_vec.to(torch.int32)  # the kernel's k_vec
+        self.ext2 = torch.zeros((b, k_max), dtype=torch.float32, device=dev)
+        self.post = torch.zeros_like(self.ext2)
+        self.done = ~valid
+        self.it_vec = torch.zeros((b,), dtype=torch.int32, device=dev)
+        self.n_it = 0
+
+    def step(self):
+        """One iteration: two interleaves (natural→interleaved of ext1,
+        interleaved→natural of ext2); the posterior for output and early
+        stop is the natural-order sum sys + ext1 + ext2."""
+        k_max, in_mask, done = self.k, self.in_mask, self.done
+        x1 = self.sys + self.ext2
+        ext1 = torch.where(in_mask, map_decoder_dyn(x1, self.p1, self.beta1, self.k_i32, k_max)
+                           - x1, 0.0)
+        in2 = self.sys_int + torch.gather(ext1, 1, self.per)
+        ext2_int = map_decoder_dyn(in2, self.p2, self.beta2, self.k_i32, k_max) - in2
+        new_ext2 = torch.where(in_mask, torch.gather(ext2_int, 1, self.inv), 0.0)
+        # converged rows stay frozen
+        self.ext2 = torch.where(done[:, None], self.ext2, new_ext2)
+        self.post = torch.where(done[:, None], self.post, self.sys + ext1 + new_ext2)
+        if self.crc_table is None:
+            passed = torch.zeros_like(done)
+        else:
+            passed = crc_ok_ab((in_mask & (self.post > 0)).to(torch.uint8), self.k_vec,
+                               self.crc_table, self.crc_is_b)
+        new_done = done | passed
+        self.n_it += 1
+        self.it_vec = torch.where(new_done & ~done, self.n_it, self.it_vec)
+        self.done = new_done
+
+
 def turbo_decode_dyn(d_llr, k_vec, per, inv, valid, k_max: int, max_iterations: int = 5,
                      crc_table=None, crc_is_b=None, perm_groups=None, class_perms=None):
     """Decode a batch of dynamic-size codeblocks.
@@ -89,60 +151,12 @@ def turbo_decode_dyn(d_llr, k_vec, per, inv, valid, k_max: int, max_iterations: 
     n_iters (B,) int32 — the iteration at which each row's CRC first
     passed, or the loop's iteration count if it never did).
 
-    One iteration does two interleaves (natural→interleaved of ext1,
-    interleaved→natural of ext2): the posterior for output and early stop
-    is the natural-order sum sys + ext1 + ext2."""
-    b = d_llr.shape[0]
-    dev = d_llr.device
-    k_vec = k_vec.to(torch.int64)
-    if perm_groups is not None:
-        per3, inv3, cls = perm_groups
-        cls = cls.to(torch.int64)
-        w_idx = torch.arange(cls.shape[0], device=cls.device)[:, None]
-        per, inv = (t[w_idx, cls].reshape(b, k_max).to(torch.int64) for t in (per3, inv3))
-    elif class_perms is not None:
-        per_c, inv_c, cls = class_perms
-        per, inv = per_c[cls], inv_c[cls]
-    in_mask = torch.arange(k_max, device=dev)[None, :] < k_vec[:, None]  # (B, K_max)
-    zero = d_llr.new_zeros(())
-
-    sys = torch.where(in_mask, d_llr[:, 0, :k_max], zero)
-    p1 = torch.where(in_mask, d_llr[:, 1, :k_max], zero)
-    p2 = torch.where(in_mask, d_llr[:, 2, :k_max], zero)
-
-    tail_cols = (k_vec[:, None, None] + torch.arange(4, device=dev)).expand(b, 3, 4)
-    lx1_t, lz1_t, lx2_t, lz2_t = dstream_tails(torch.gather(d_llr, 2, tail_cols))
-    beta_k1 = _beta_tail(lx1_t, lz1_t)  # (B, 8)
-    beta_k2 = _beta_tail(lx2_t, lz2_t)
-    sys_int = torch.where(in_mask, torch.gather(sys, 1, per), zero)
-    k_i32 = k_vec.to(torch.int32)  # the kernel's k_vec
-
-    def crc_pass(post):
-        if crc_table is None:
-            return torch.zeros((b,), dtype=torch.bool, device=dev)
-        return crc_ok_ab((in_mask & (post > 0)).to(torch.uint8), k_vec, crc_table, crc_is_b)
-
-    ext2 = torch.zeros((b, k_max), dtype=torch.float32, device=dev)
-    post = torch.zeros_like(ext2)
-    done = ~valid
-    it_vec = torch.zeros((b,), dtype=torch.int32, device=dev)
-    n_loop = 0
-    while n_loop < max_iterations and not bool(done.all()):
-        x1 = sys + ext2
-        ext1 = torch.where(in_mask, map_decoder_dyn(x1, p1, beta_k1, k_i32, k_max) - x1, zero)
-        in2 = sys_int + torch.gather(ext1, 1, per)
-        ext2_int = map_decoder_dyn(in2, p2, beta_k2, k_i32, k_max) - in2
-        new_ext2 = torch.where(in_mask, torch.gather(ext2_int, 1, inv), zero)
-        # converged rows stay frozen
-        ext2 = torch.where(done[:, None], ext2, new_ext2)
-        post = torch.where(done[:, None], post, sys + ext1 + new_ext2)
-        new_done = done | crc_pass(post)
-        n_loop += 1
-        it_vec = torch.where(new_done & ~done, n_loop, it_vec)
-        done = new_done
-    it_vec = torch.where(done, it_vec, n_loop)  # never converged: the loop count
-    bits = (in_mask & (post > 0)).to(torch.uint8)
-    return bits, post, it_vec
+    The loop is `turbo._run`'s, spans and counters included."""
+    loop = _DynLoop(d_llr, k_vec, valid, k_max, (per, inv, perm_groups, class_perms),
+                    crc_table, crc_is_b)
+    n_it = _run(loop, max_iterations)
+    it_vec = torch.where(loop.done, loop.it_vec, n_it)  # never converged: the loop count
+    return (loop.in_mask & (loop.post > 0)).to(torch.uint8), loop.post, it_vec
 
 
 @lru_cache(maxsize=64)

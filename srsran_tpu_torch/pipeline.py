@@ -61,7 +61,7 @@ from .phy.modem import demod_soft, modulate
 from .phy.ofdm import OfdmConfig, ofdm_rx_sf, ofdm_tx_sf
 from .phy.phch.pdsch import DlGrant, DlGrant2, pdsch_cinit, pdsch_re_indices
 from .phy.phch.pusch import UlGrant, _deinterleaver_indices, pusch_cinit, pusch_symbols_data
-from .phy.phch.sch import TbCoding, _e_split, dlsch_decode_device, dlsch_decode_multi_device
+from .phy.phch.sch import TbCoding, dlsch_decode_device, dlsch_decode_multi_device
 from .phy.sequence import gold_sequence, gold_sequence_signs
 from .runtime.trace import span
 
@@ -278,14 +278,14 @@ def enb_dl_subframe_encode(cell: Cell, sf_idx: int, cfi: int, grant: DlGrant, *,
     idx = table(pdsch_re_indices, cell, sf_idx, cfi, grant.prb, device=device,
                 dtype=torch.int64)
     g = idx.numel() * grant.qm
-    es = _e_split(g, segm.C, grant.qm, 1)
-    rm_idx = [table(turbo_rm_indices, ka, es[i], grant.rv, segm.F if i == 0 else 0,
-                    device=device, dtype=torch.int64) for i in range(segm.C)]
+    blocks = TbCoding(grant.tbs, g, grant.qm).blocks
+    rm_idx = [table(turbo_rm_indices, ka, blk.e, grant.rv, blk.f, device=device,
+                    dtype=torch.int64) for blk in blocks]
     seq = table(gold_sequence, pdsch_cinit(grant.rnti, sf_idx, cell.id), g, device=device,
                 dtype=torch.uint8)
     tmpl = table(_crs_template, cell, sf_idx, device=device)
     ofdm = OfdmConfig.from_cell(cell, normalize=True)
-    crc_len = 24 if segm.C > 1 else 0
+    f0, crc_len = blocks[0].f, blocks[0].crc
 
     def fn(tb_bits: torch.Tensor):
         _check_on(tb_bits, device)
@@ -293,8 +293,8 @@ def enb_dl_subframe_encode(cell: Cell, sf_idx: int, cfi: int, grant: DlGrant, *,
         nb = tb_bits.shape[0]
         b = torch.cat([tb_bits, crc_compute(tb_bits, LTE_CRC24A)], dim=-1)
         # segment: filler zeros on codeblock 0, a CRC24B each when C > 1
-        cbs = torch.cat([b.new_zeros((nb, segm.F)), b], dim=-1).reshape(nb, segm.C, ka - crc_len)
-        if segm.C > 1:
+        cbs = torch.cat([b.new_zeros((nb, f0)), b], dim=-1).reshape(nb, segm.C, ka - crc_len)
+        if crc_len:
             cbs = torch.cat([cbs, crc_compute(cbs, LTE_CRC24B)], dim=-1)
         d = turbo_encode_device(cbs.reshape(nb * segm.C, ka), ka)  # (B*C, 3, ka+4)
         flat = d.reshape(nb, segm.C, -1)

@@ -63,7 +63,7 @@ from .phy.modem import Mod, demod_soft
 from .phy.ofdm import OfdmConfig, ofdm_rx_sf
 from .phy.phch.pdsch import DlGrant, pdsch_cinit, pdsch_re_indices
 from .phy.phch.pusch import UlGrant, _interleaver_indices, pusch_cinit, pusch_symbols_data
-from .phy.phch.sch import FILLER_LLR, _e_split
+from .phy.phch.sch import FILLER_LLR, TbCoding
 from .phy.scrambling import scramble_soft
 from .phy.sequence import gold_sequence_signs
 
@@ -145,28 +145,27 @@ def _tb_params_v2(tbs: int, g: int, qm: int, nof_layers: int = 1):
     this TB needs, and a small integer parameter template (rv patched per
     call): [rv, tbs, crcb, k3 x3, f3 x3, f1 x3, f2 x3, cb_e xB, cls xB]."""
     segm = cbsegm(tbs)
-    es = _e_split(g, segm.C, qm, nof_layers)
+    blocks = TbCoding(tbs, g, qm, nof_layers=nof_layers).blocks
     k_bucket = _bucket(max(segm.cb_sizes), K_BUCKETS)
     b_bucket = _bucket(segm.C, B_BUCKETS)
     k_minus = segm.K_minus if segm.C_minus > 0 else 40
     k3 = (segm.cb_sizes[0], k_minus, segm.K_plus if segm.C_plus > 0 else 40)
-    f3 = (segm.F, 0, 0)
+    f3 = (blocks[0].f, 0, 0)
     rep_need = 1
     tmpl = np.zeros(15 + 2 * b_bucket, np.int64)
     tmpl[1] = tbs
-    tmpl[2] = 1 if segm.C > 1 else 0
+    tmpl[2] = blocks[0].crc > 0
     for v in range(3):
         ki = cb_size_index(k3[v])
         tmpl[3 + v] = k3[v]
         tmpl[6 + v] = f3[v]
         tmpl[9 + v] = F1[ki]
         tmpl[12 + v] = F2[ki]
-    for c, k in enumerate(segm.cb_sizes):
-        f = segm.F if c == 0 else 0
-        nv = 3 * (k + 4) - 2 * f
-        rep_need = max(rep_need, -(-es[c] // nv))
-        tmpl[15 + c] = es[c]
-        tmpl[15 + b_bucket + c] = 0 if c == 0 else (1 if k == k_minus else 2)
+    for c, blk in enumerate(blocks):
+        nv = 3 * (blk.k + 4) - 2 * blk.f
+        rep_need = max(rep_need, -(-blk.e // nv))
+        tmpl[15 + c] = blk.e
+        tmpl[15 + b_bucket + c] = 0 if c == 0 else (1 if blk.k == k_minus else 2)
     rep_bucket = _bucket(rep_need, REP_BUCKETS)
     return k_bucket, b_bucket, rep_bucket, rep_need, k_bucket * b_bucket, tmpl
 

@@ -78,7 +78,7 @@ from .phy.modem import Mod, demod_soft, modulate
 from .phy.ofdm import OfdmConfig, ofdm_rx_sf, ofdm_tx_sf
 from .phy.phch.pdsch import pdsch_cinit
 from .phy.phch.pusch import pusch_cinit, pusch_symbols_data
-from .phy.phch.sch import FILLER_LLR, _e_split
+from .phy.phch.sch import FILLER_LLR, TbCoding
 from .phy.sequence import gold_sequence, gold_sequence_signs
 from .phy.sync.pss import put_pss_grid
 from .phy.sync.sss import put_sss_grid
@@ -419,24 +419,19 @@ def pack_window(row_specs) -> WindowPack:
     row_start, row_ncb, row_tbs = [], [], []
     max_e, max_rep = 1, 1
     for r, (tbs, g, qm, rv) in enumerate(row_specs):
-        segm = cbsegm(tbs)
-        if segm.C > MAX_CB:
-            raise ValueError(f"tbs {tbs} has {segm.C} codeblocks, more than {MAX_CB}")
-        es = _e_split(g, segm.C, qm, 1)
-        crcb = 1 if segm.C > 1 else 0
+        blocks = TbCoding(tbs, g, qm).blocks
+        if len(blocks) > MAX_CB:
+            raise ValueError(f"tbs {tbs} has {len(blocks)} codeblocks, more than {MAX_CB}")
         row_start.append(len(slots))
-        row_ncb.append(segm.C)
+        row_ncb.append(len(blocks))
         row_tbs.append(tbs)
-        off = 0
-        for c, k in enumerate(segm.cb_sizes):
-            f = segm.F if c == 0 else 0
-            fc = fill_cls.setdefault((k, f, rv), len(fill_cls))
-            qc = qpp_cls.setdefault(k, len(qpp_cls))
-            nv = 3 * (k + 4) - 2 * f
-            slots.append((r, off, es[c], k, f, crcb, fc, qc, nv))
-            max_e = max(max_e, es[c])
-            max_rep = max(max_rep, -(-es[c] // nv))
-            off += es[c]
+        for blk in blocks:
+            fc = fill_cls.setdefault((blk.k, blk.f, rv), len(fill_cls))
+            qc = qpp_cls.setdefault(blk.k, len(qpp_cls))
+            nv = 3 * (blk.k + 4) - 2 * blk.f
+            slots.append((r, blk.off, blk.e, blk.k, blk.f, int(blk.crc > 0), fc, qc, nv))
+            max_e = max(max_e, blk.e)
+            max_rep = max(max_rep, -(-blk.e // nv))
 
     n_rows = len(row_specs)
     tb_cls: dict = {}
@@ -501,19 +496,11 @@ def _tb_gather_dev(tbs: int) -> np.ndarray:
     right-aligned TB||CRC stream (TBS_MAX+24,) the local source index into
     the row's contiguous slot region (MAX_CB*K_MAX bits; the pad reads the
     zero slot MAX_CB*K_MAX).  int32, on the host."""
-    segm = cbsegm(tbs)
-    crcb = 1 if segm.C > 1 else 0
-    dump = MAX_CB * K_MAX
-    idx = np.full(TBS_MAX + 24, dump, np.int32)
+    idx = np.full(TBS_MAX + 24, MAX_CB * K_MAX, np.int32)
     u0 = TBS_MAX + 24 - (tbs + 24)
-    startb = 0
-    for c, k in enumerate(segm.cb_sizes):
-        f = segm.F if c == 0 else 0
-        take = k - f - 24 * crcb
-        u = np.arange(take)
-        idx[u0 + startb + u] = c * K_MAX + f + u
-        startb += take
-    assert startb == tbs + 24
+    for c, blk in enumerate(cbsegm(tbs).blocks):
+        u = np.arange(blk.msg)
+        idx[u0 + blk.pos + u] = c * K_MAX + blk.f + u
     return idx
 
 
@@ -1123,11 +1110,9 @@ def _slot_sources(pack: WindowPack, tb_cap: int) -> np.ndarray:
     bw = tb_cap * 8 + 24
     src = np.zeros(pack.key[1], np.int64)
     for r, tbs in enumerate(pack.tbs):
-        segm = cbsegm(tbs)
         start = r * (K_MAX + bw) + bw - (tbs + 24)
-        for c, k in enumerate(segm.cb_sizes):
-            start += k - (segm.F if c == 0 else 0) - (24 if segm.C > 1 else 0)
-            src[pack.row_start[r] + c] = start
+        for c, blk in enumerate(cbsegm(tbs).blocks):
+            src[pack.row_start[r] + c] = start + blk.pos + blk.msg
     return src
 
 

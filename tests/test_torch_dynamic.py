@@ -18,7 +18,7 @@ import srsran_tpu.phy.fec.rate_match_dev as r_rmd
 import srsran_tpu.phy.fec.turbo_dyn as r_dyn
 import srsran_tpu.pipeline_dynamic as r_pd
 from srsran_tpu.phy.chest.refsignal_dl import put_crs_np
-from srsran_tpu.phy.common import LTE_CRC24A, Cell
+from srsran_tpu.phy.common import LTE_CRC24A, LTE_CRC24B, Cell
 from srsran_tpu.phy.crc import crc_attach_np
 from srsran_tpu.phy.fec.cbsegm import F1, F2, cb_size_index, qpp_interleaver_np
 from srsran_tpu.phy.fec.turbo import turbo_encode_np
@@ -29,7 +29,8 @@ import srsran_tpu_torch.phy.fec.rate_match_dev as t_rmd
 import srsran_tpu_torch.phy.fec.turbo_dyn as t_dyn
 import srsran_tpu_torch.pipeline_dynamic as t_pd
 from srsran_tpu_torch.convert import from_reference, softbuffer_from_reference
-from srsran_tpu_torch.phy.fec import turbo_cuda
+from srsran_tpu_torch.phy.crc import crc_table
+from srsran_tpu_torch.phy.fec import turbo, turbo_cuda
 from srsran_tpu_torch.phy.fec.rate_match import turbo_rate_match_rx
 from srsran_tpu_torch.pipeline import (
     enb_dl_subframe_encode,
@@ -100,6 +101,33 @@ def test_turbo_decode_dyn_matches_reference(k_max, ks, b, amp, iters):
     assert not bits.numpy()[~below_k].any()  # zero beyond K
     if amp < 3.0:
         assert len(set(n_it.numpy()[: len(ks)].tolist())) > 1
+
+
+@pytest.mark.parametrize("k", [40, 5632, 6144])
+@pytest.mark.parametrize("case", ["converges", "capped"])
+def test_turbo_decode_dyn_is_turbo_decode_at_k_max(k, case):
+    """Every row valid at K = K_max: the dynamic loop gives the static
+    loop's bits and posteriors exactly, and its iteration count.  In
+    "capped" the last row is noise, which never passes its CRC."""
+    poly = LTE_CRC24A if k == 40 else LTE_CRC24B  # a TB's one block, or a block of several
+    b, iters = 4, (6 if case == "converges" else 2)
+    rng = np.random.default_rng(k)
+    d = np.zeros((b, 3, k + 4), np.float32)
+    for i in range(b):
+        enc = turbo_encode_np(crc_attach_np(rng.integers(0, 2, k - 24).astype(np.uint8), poly))
+        amp = 0.0 if case == "capped" and i == b - 1 else 2.0
+        d[i] = (2 * enc.astype(np.float32) - 1) * amp + rng.normal(0, 1, enc.shape)
+    d_llr = torch.from_numpy(d)
+    per = i64(np.tile(qpp_interleaver_np(k), (b, 1)))
+    inv = torch.argsort(per, dim=1)
+    crc_ab = torch.from_numpy(t_dyn.crc_table_ab(k))
+    bits, post, it_vec = t_dyn.turbo_decode_dyn(
+        d_llr, torch.full((b,), k), per, inv, torch.ones(b, dtype=torch.bool), k, iters,
+        crc_table=crc_ab, crc_is_b=torch.full((b,), poly == LTE_CRC24B))
+    s_bits, s_post, n_it = turbo.turbo_decode(d_llr, k, iters, crc_table=crc_table(poly, k, "cpu"))
+    assert torch.equal(bits, s_bits) and torch.equal(post, s_post)
+    assert int(it_vec.max()) == n_it
+    assert (n_it < iters) if case == "converges" else (n_it == iters and it_vec[-1] == iters)
 
 
 # --- rate_match_dev -------------------------------------------------------------

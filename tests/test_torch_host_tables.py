@@ -323,6 +323,37 @@ def test_modulate_and_scramble_bits(mod):
                                   r_modem.modulate_np(r_modem.Mod(mod), bits))
 
 
+# (tbs, g, qm, layers): one codeblock with filler, K- and K+ codeblocks with
+# filler, the DL (11 x K 5632) and UL (7 x K 5824) benchmark TBs, two layers
+LAYOUT_CASES = [(100, 408, 2, 1), (7000, 12000, 4, 1), (61664, 90000, 6, 1),
+                (40576, 55296, 4, 1), (61664, 180000, 6, 2)]
+
+
+@pytest.mark.parametrize("tbs,g,qm,layers", LAYOUT_CASES)
+def test_code_block_layout(tbs, g, qm, layers):
+    """`TbCoding.blocks` (on `CbSegm.blocks`) against the reference's
+    segmentation and E split, entry by entry as the coders and decoders
+    worked them out inline: filler bits on block 0, CRC24B when C > 1."""
+    s = t_cbsegm.cbsegm(tbs)
+    assert dataclasses.astuple(s) == dataclasses.astuple(r_cbsegm.cbsegm(tbs))
+    blocks = t_sch.TbCoding(tbs=tbs, g=g, qm=qm, nof_layers=layers).blocks
+    es = r_sch._e_split(g, s.C, qm, layers)
+    assert [b.e for b in blocks] == es and sum(es) == g
+    assert [b.off for b in blocks] == np.cumsum([0] + es[:-1]).tolist()
+    assert [b.pos for b in blocks] == np.cumsum([0] + [b.msg for b in blocks[:-1]]).tolist()
+    assert sum(b.msg for b in blocks) == tbs + 24
+    for i, (b, k) in enumerate(zip(blocks, s.cb_sizes)):
+        f = s.F if i == 0 else 0
+        crc = 24 if s.C > 1 else 0
+        poly = t_common.LTE_CRC24B if s.C > 1 else t_common.LTE_CRC24A
+        assert b[:6] == (k, f, crc, k - f - crc, b.pos, poly)
+    assert s.blocks == tuple(b._replace(e=0, off=0) for b in blocks)
+    if tbs == 7000:
+        assert s.C == 2 and s.C_minus == s.C_plus == 1 and s.F > 0
+    if tbs == 100:
+        assert s.C == 1 and s.F > 0
+
+
 # (nof_prb, cell id, subframe, mcs, first PRB, number of PRB, rv): one
 # codeblock with filler, K- and K+ codeblocks, the PSS/PBCH subframe, a
 # retransmission

@@ -1,7 +1,8 @@
 """The port's spans and counters (`srsran_tpu_torch/runtime/trace.py`) on
-the CPU: `span` with the tracer off and on, and the spans and the
-`host_reads` counter of the two batched entry points, `ue_dl_subframe` and
-`enb_ul_subframe`, under a CPU `torch.profiler` run."""
+the CPU: `span` with the tracer off and on, the spans and the `host_reads`
+counter of the two batched entry points, `ue_dl_subframe` and
+`enb_ul_subframe`, and those of `turbo_decode_dyn`'s loop, under a CPU
+`torch.profiler` run."""
 
 import json
 import os
@@ -11,7 +12,11 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from srsran_tpu_torch.phy.common import Cell
+from srsran_tpu_torch.phy.common import LTE_CRC24A, Cell
+from srsran_tpu_torch.phy.crc import crc_attach_np
+from srsran_tpu_torch.phy.fec.cbsegm import qpp_interleaver_np
+from srsran_tpu_torch.phy.fec.turbo import turbo_encode_np
+from srsran_tpu_torch.phy.fec.turbo_dyn import crc_table_ab, turbo_decode_dyn
 from srsran_tpu_torch.phy.modem import Mod
 from srsran_tpu_torch.phy.phch import ra
 from srsran_tpu_torch.phy.phch.pdsch import DlGrant
@@ -135,3 +140,40 @@ def test_entry_spans_nest_and_host_reads_count_the_loop(make, other_reads):
     iters, stop_reads = names.count("turbo.iter"), names.count("turbo.stop_read")
     assert 1 <= iters < 6 and stop_reads == iters + 1
     assert reads == stop_reads + other_reads
+
+
+def test_turbo_decode_dyn_reads_and_iterations_are_spanned_and_counted():
+    """`turbo_decode_dyn` runs the static decoder's loop: a `turbo.stop_read`
+    before each `turbo.iter` and one more that finds every row passed, each
+    read counted in `host_reads` and each iteration in `turbo_iterations`."""
+    k_max, ks = 512, (512, 128, 40)
+    rng = np.random.default_rng(10)  # rows pass at iterations 3, 2, 1
+    d = np.zeros((len(ks), 3, k_max + 4), np.float32)
+    per = np.tile(np.arange(k_max), (len(ks), 1))
+    inv = per.copy()
+    msgs = []
+    for i, k in enumerate(ks):
+        msgs.append(crc_attach_np(rng.integers(0, 2, k - 24).astype(np.uint8), LTE_CRC24A))
+        enc = turbo_encode_np(msgs[-1]).astype(np.float32)
+        d[i, :, : k + 4] = (2 * enc - 1) * 0.9 + rng.normal(0, 1, enc.shape)
+        per[i, :k] = qpp_interleaver_np(k)
+        inv[i, per[i, :k]] = np.arange(k)
+    args = (torch.from_numpy(d), torch.tensor(ks), torch.from_numpy(per), torch.from_numpy(inv),
+            torch.ones(len(ks), dtype=torch.bool), k_max, 6)
+    kw = dict(crc_table=torch.from_numpy(crc_table_ab(k_max)),
+              crc_is_b=torch.zeros(len(ks), dtype=torch.bool))
+    before = trace.counts()
+    trace.tracer.enable()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            bits, _post, it_vec = turbo_decode_dyn(*args, **kw)
+    finally:
+        trace.tracer.disable()
+        trace.tracer.clear()
+    after = trace.counts()
+    assert all(np.array_equal(bits[i, :k].numpy(), msgs[i]) for i, k in enumerate(ks))
+    names = [n for n, _a, _b in _annotations(prof)]
+    iters, stop_reads = names.count("turbo.iter"), names.count("turbo.stop_read")
+    assert it_vec.tolist() == [3, 2, 1] and iters == 3 and stop_reads == iters + 1
+    assert after["host_reads"] - before.get("host_reads", 0) == stop_reads
+    assert after["turbo_iterations"] - before.get("turbo_iterations", 0) == iters
