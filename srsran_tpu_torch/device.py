@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 from functools import lru_cache
 
 import numpy as np
@@ -50,7 +51,33 @@ def _table(fn, *args, device: torch.device, dtype: torch.dtype | None = None):
 def sized_table(maxsize: int):
     """A `table` with a cache of its own that keeps the `maxsize` entries
     used last: for families of large tables whose working set is bounded."""
-    return lru_cache(maxsize=maxsize)(_table)
+    cached = lru_cache(maxsize=maxsize)(_table)
+
+    def lookup(fn, *args, device: torch.device, dtype: torch.dtype | None = None):
+        out = cached(fn, *args, device=device, dtype=dtype)
+        if _PINNED:
+            _PINNED[-1].append(out)
+        return out
+
+    lookup.cache_info, lookup.cache_clear = cached.cache_info, cached.cache_clear
+    return lookup
+
+
+# the lists of the `pinned` blocks open, innermost last
+_PINNED: list[list] = []
+
+
+@contextlib.contextmanager
+def pinned():
+    """Collect every table fetched inside the block into the list it
+    yields: a CUDA graph captured in the block reads them by address, so
+    its holder keeps them, wherever a cache drops them."""
+    got: list = []
+    _PINNED.append(got)
+    try:
+        yield got
+    finally:
+        _PINNED.pop()
 
 
 table = sized_table(1024)

@@ -34,14 +34,13 @@ share one K.
 
 from __future__ import annotations
 
-import contextlib
-from collections import OrderedDict
 from functools import lru_cache
 
 import numpy as np
 import torch
 
 from ...device import table
+from ...graphs import Cache, captured, on_capture_stream
 from ...runtime.trace import count, span
 from . import turbo_cuda
 from .cbsegm import qpp_interleaver_np
@@ -594,34 +593,8 @@ class _Loop:
 # captures)
 GRAPHS_PER_DEVICE = 4
 SEEN_KEYS = 64
-_GRAPHS: dict[torch.device, OrderedDict] = {}
-_SEEN: OrderedDict = OrderedDict()
-_CAPTURE_STREAMS: dict[torch.device, torch.cuda.Stream] = {}
-
-
-@contextlib.contextmanager
-def _on_capture_stream(dev: torch.device):
-    """Run the block on the device's capture stream (a graph cannot be
-    captured on the default one), after the current stream's work and
-    before its next."""
-    current = torch.cuda.current_stream(dev)
-    side = _CAPTURE_STREAMS.get(dev)
-    if side is None:
-        side = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
-    side.wait_stream(current)
-    with torch.cuda.device(dev), torch.cuda.stream(side):
-        yield
-    current.wait_stream(side)
-
-
-def _captured(fn) -> torch.cuda.CUDAGraph:
-    """`fn()` captured as a CUDA graph on the current stream: nothing runs;
-    the tensors it makes are the graph's, rewritten by every replay."""
-    graph = torch.cuda.CUDAGraph()
-    graph.capture_begin()
-    fn()
-    graph.capture_end()
-    return graph
+_CACHE = Cache(GRAPHS_PER_DEVICE, SEEN_KEYS)
+_GRAPHS, _SEEN = _CACHE.by_device, _CACHE.seen
 
 
 class _GraphedLoop(_Loop):
@@ -644,8 +617,8 @@ class _GraphedLoop(_Loop):
     def load(self, d_llr: torch.Tensor):
         self.d_llr.copy_(d_llr)
         if not self.graphs:
-            with _on_capture_stream(self.d_llr.device):
-                self.graphs.append(_captured(lambda: self.start(self.d_llr)))
+            with on_capture_stream(self.d_llr.device):
+                self.graphs.append(captured(lambda: self.start(self.d_llr)))
         self.graphs[0].replay()
 
     def iterate(self) -> bool:
@@ -653,10 +626,10 @@ class _GraphedLoop(_Loop):
             # the first iteration runs for real on the capture stream, which
             # warms it (cuBLAS's workspace for it); capturing the same step
             # then runs nothing, so the state stays as that iteration left it
-            with _on_capture_stream(self.d_llr.device):
+            with on_capture_stream(self.d_llr.device):
                 self.step()
                 with turbo_cuda.uncounted() as self.launches:
-                    self.graphs.append(_captured(self.step))
+                    self.graphs.append(captured(self.step))
             return False
         self.graphs[1].replay()
         turbo_cuda.replayed(self.launches)
@@ -670,23 +643,11 @@ def _graphed_loop(d_llr: torch.Tensor, k: int, per, inv, crc_table) -> _GraphedL
     """The graphed loop of this call's key with the call's LLRs loaded,
     made on the key's second call; None on its first, which runs eagerly,
     so that a shape decoded once is never captured."""
-    dev = d_llr.device
     # the CRC matrix by identity: the loop holds it, so the id stays its own
     key = (d_llr.shape[0], k, None if crc_table is None else id(crc_table))
-    graphs = _GRAPHS.setdefault(dev, OrderedDict())
-    loop = graphs.get(key)
+    loop = _CACHE.get(d_llr.device, key, lambda: _GraphedLoop(d_llr, k, per, inv, crc_table))
     if loop is not None:
-        graphs.move_to_end(key)
-    elif _SEEN.pop((dev, key), None) is None:
-        _SEEN[(dev, key)] = True
-        if len(_SEEN) > SEEN_KEYS:
-            _SEEN.popitem(last=False)
-        return None
-    else:
-        loop = graphs[key] = _GraphedLoop(d_llr, k, per, inv, crc_table)
-        if len(graphs) > GRAPHS_PER_DEVICE:
-            graphs.popitem(last=False)
-    loop.load(d_llr)
+        loop.load(d_llr)
     return loop
 
 

@@ -5,8 +5,11 @@ with filler bits pinned to a strong 0, one batched turbo decode per
 distinct codeblock layout, CB CRC24B (when C > 1), reassembly and the TB
 CRC24A.  `dlsch_decode_multi_device` writes out a leading batch axis of
 subframes: every codeblock of every subframe in a (K, poly) group decodes
-in one `turbo_decode`, its stages marked by the spans `tbd.rate_match`,
-`tbd.turbo` and `tbd.crc` (`runtime.trace.span`); its callers decode the
+in one `turbo_decode`.  It runs its stages, `dlsch_rate_match` and
+`dlsch_turbo` per group, then `dlsch_crc`, as the steps `dlsch_steps`
+(`graphs.Step`) under the spans `tbd.rate_match`, `tbd.turbo` and
+`tbd.crc` (`runtime.trace.span`); the DL entries take the same steps and
+replay them as CUDA graphs around the turbo loop.  Its callers decode the
 same shapes call after call, so it asks for the turbo loop as CUDA
 graphs.  `dlsch_decode` is the per-TB, host-orchestrated decode of the
 facades, with HARQ softbuffers, whose group sizes change from TTI to TTI:
@@ -26,7 +29,7 @@ from ..crc import crc_attach_np, crc_check_np, crc_compute, crc_table
 from ..fec.cbsegm import CbBlock, CbSegm, cbsegm
 from ..fec.rate_match import turbo_rate_match_rx, turbo_rate_match_tx
 from ..fec.turbo import turbo_decode, turbo_encode_np
-from ...runtime.trace import span
+from ...graphs import Step, run
 
 FILLER_LLR = np.float32(-1e4)  # filler bits are known 0 (LLR>0 ⇒ 1)
 
@@ -89,45 +92,91 @@ def _cb_groups(cfgs: tuple[TbCoding, ...]):
     return tuple((key, tuple(m)) for key, m in groups.items()), tuple(map(tuple, where))
 
 
+def dlsch_rate_match(llrs, cfgs, group: int) -> torch.Tensor:
+    """TB decode's first stage for (K, CRC) group `group` of the codewords
+    `cfgs` (LLRs `llrs`, (B, g_i) each): its code blocks de-rate-matched,
+    fillers pinned to a strong 0, as d-stream LLRs (B * ncb, 3, K + 4)."""
+    (k, _poly), members = _cb_groups(tuple(cfgs))[0][group]
+    rows = []
+    for ci, blk in members:
+        d = turbo_rate_match_rx(llrs[ci][:, blk.off : blk.off + blk.e], k, cfgs[ci].rv,
+                                n_filler=blk.f)
+        if blk.f:
+            d[:, 0, : blk.f] = float(FILLER_LLR)
+        rows.append(d)
+    return torch.stack(rows, dim=1).reshape(-1, 3, k + 4)  # (B, ncb, 3, K+4) row by row
+
+
+def dlsch_turbo(d_llr: torch.Tensor, cfgs, group: int, max_iterations: int = 5) -> torch.Tensor:
+    """The second stage: group `group`'s d-stream LLRs turbo-decoded, with
+    the CRC stop, into (B * ncb, K) uint8 bits.  Its callers decode the same
+    shapes call after call, so the loop replays CUDA graphs from a shape's
+    second call (`turbo_decode(graphed=True)`)."""
+    (k, poly), _members = _cb_groups(tuple(cfgs))[0][group]
+    bits, _post, _n_it = turbo_decode(d_llr, k, max_iterations,
+                                      crc_table=crc_table(poly, k, d_llr.device), graphed=True)
+    return bits
+
+
+def dlsch_crc(bits, cfgs):
+    """The last stage: each group's bits (B * ncb, K), in group order, to
+    [(tb_bits (B, tbs) uint8, ok (B,) bool)] per codeword: the code-block
+    CRCs, the reassembly and the TB CRC."""
+    groups, where = _cb_groups(tuple(cfgs))
+    decoded = []  # per group: (bits (B, ncb, K), ok (B, ncb))
+    for ((k, poly), members), group_bits in zip(groups, bits):
+        # the CRC over all K bits (message and its CRC) is zero iff it passes
+        cb_ok = torch.all(crc_compute(group_bits, poly) == 0, dim=-1)
+        decoded.append((group_bits.reshape(-1, len(members), k), cb_ok.reshape(-1, len(members))))
+    out = []
+    for cfg, rows in zip(cfgs, where):
+        cw_bits = torch.cat([decoded[gi][0][:, j, blk.f : blk.k - blk.crc]
+                             for (gi, j), blk in zip(rows, cfg.blocks)], dim=-1)
+        tb = cw_bits[:, : cfg.tbs]
+        tb_ok = torch.all(crc_compute(tb, LTE_CRC24A) == cw_bits[:, cfg.tbs :], dim=-1)
+        cw_ok = torch.stack([decoded[gi][1][:, j] for gi, j in rows], dim=-1).all(dim=-1)
+        out.append((tb, tb_ok & cw_ok))
+    return out
+
+
+@lru_cache(maxsize=64)
+def dlsch_steps(cfgs: tuple[TbCoding, ...], max_iterations: int = 5) -> tuple[Step, ...]:
+    """The decode of the codewords `cfgs` as steps (`graphs.Step`) over a
+    state that holds their LLRs `llr0`, `llr1`, ... (B, g_i): for each
+    (K, CRC) group in turn `dlsch_rate_match` (`tbd.rate_match`, writes
+    `d<group>`) and `dlsch_turbo` (`tbd.turbo`, writes `bits<group>`; not a
+    graph step: its host reads stay eager, and it replays graphs of its
+    own), then `dlsch_crc` (`tbd.crc`), which writes `tb0`, `ok0`, ..."""
+    n_groups = len(_cb_groups(cfgs)[0])
+
+    def rate_match(gi):
+        return lambda s: {f"d{gi}": dlsch_rate_match([s[f"llr{i}"] for i in range(len(cfgs))],
+                                                     cfgs, gi)}
+
+    def decode(gi):
+        return lambda s: {f"bits{gi}": dlsch_turbo(s[f"d{gi}"], cfgs, gi, max_iterations)}
+
+    def crc(s):
+        out = dlsch_crc([s[f"bits{gi}"] for gi in range(n_groups)], cfgs)
+        return {name: v for i, (tb, ok) in enumerate(out) for name, v in ((f"tb{i}", tb),
+                                                                          (f"ok{i}", ok))}
+
+    steps = []
+    for gi in range(n_groups):
+        steps += [Step(("tbd.rate_match",), rate_match(gi)),
+                  Step(("tbd.turbo",), decode(gi), graphed=False)]
+    return (*steps, Step(("tbd.crc",), crc))
+
+
 def dlsch_decode_multi_device(llrs, cfgs, max_iterations: int = 5):
-    """Decode ≥1 codewords jointly.
+    """Decode ≥1 codewords jointly: `dlsch_steps` run eagerly.
 
     llrs: list of codeword LLRs (B, g_i) float32; cfgs: matching TbCoding.
     Returns [(tb_bits (B, tbs) uint8, ok (B,) bool)] per codeword.
     """
-    groups, where = _cb_groups(tuple(cfgs))
-    decoded = []  # per group: (bits (B, ncb, K), ok (B, ncb))
-    for (k, poly), members in groups:
-        with span("tbd.rate_match"):
-            rows = []
-            for ci, blk in members:
-                d = turbo_rate_match_rx(llrs[ci][:, blk.off : blk.off + blk.e], k,
-                                        cfgs[ci].rv, n_filler=blk.f)
-                if blk.f:
-                    d[:, 0, : blk.f] = float(FILLER_LLR)
-                rows.append(d)
-            d_llr = torch.stack(rows, dim=1)  # (B, ncb, 3, K+4)
-        b, ncb = d_llr.shape[:2]
-        with span("tbd.turbo"):
-            bits, _post, _n_it = turbo_decode(d_llr.reshape(b * ncb, 3, k + 4), k,
-                                              max_iterations,
-                                              crc_table=crc_table(poly, k, d_llr.device),
-                                              graphed=True)
-        with span("tbd.crc"):
-            # the CRC over all K bits (message and its CRC) is zero iff it passes
-            cb_ok = torch.all(crc_compute(bits, poly) == 0, dim=-1)
-            decoded.append((bits.reshape(b, ncb, k), cb_ok.reshape(b, ncb)))
-
-    out = []
-    with span("tbd.crc"):
-        for cfg, rows in zip(cfgs, where):
-            bits = torch.cat([decoded[gi][0][:, j, blk.f : blk.k - blk.crc]
-                              for (gi, j), blk in zip(rows, cfg.blocks)], dim=-1)
-            tb = bits[:, : cfg.tbs]
-            tb_ok = torch.all(crc_compute(tb, LTE_CRC24A) == bits[:, cfg.tbs :], dim=-1)
-            cw_ok = torch.stack([decoded[gi][1][:, j] for gi, j in rows], dim=-1).all(dim=-1)
-            out.append((tb, tb_ok & cw_ok))
-    return out
+    cfgs = tuple(cfgs)
+    state = run(dlsch_steps(cfgs, max_iterations), {f"llr{i}": x for i, x in enumerate(llrs)})
+    return [(state[f"tb{i}"], state[f"ok{i}"]) for i in range(len(cfgs))]
 
 
 def dlsch_decode_device(llr: torch.Tensor, cfg: TbCoding, max_iterations: int = 5):

@@ -22,9 +22,14 @@ of `srsran_tpu/pipeline.py`.
 front-end stages with `runtime.trace.span` (`fe.ofdm`, `fe.chest`,
 `fe.equalize`, `fe.demap`; `fe.mimo`, inside `fe.equalize`, around the
 precoder fold, the 2x2 MMSE solve and the layer demapping); TB decode and
-the turbo loop mark theirs (`tbd.*`, `turbo.*`).  Only the snr_db tail of
-each lies outside every span.  The two DL entries share their front end
-(`_dl_front_end`).
+the turbo loop mark theirs (`tbd.*`, `turbo.*`).  The two DL entries share
+their front end (`_dl_front_end`) and run as steps (`graphs.Step`), one a
+span, the snr_db tail in the last (`tbd.crc`); on the card a batch shape's
+calls from the second on replay each step as a CUDA graph
+(`graphs.Graphed`) but the turbo loop, which replays graphs of its own
+between its host reads.  The UL entry runs eagerly (its channel estimate
+reads the host), its snr_db tail outside every span.  Each entry counts
+its calls (`entry_calls`).
 
 The reference vmaps one subframe; here the leading batch axis of subframes
 is written out, and every codeblock of the batch decodes in one
@@ -35,12 +40,11 @@ the tests pass "cpu".
 
 from __future__ import annotations
 
-from contextlib import contextmanager
-
 import numpy as np
 import torch
 
 from .device import resolve, table
+from .graphs import Graphed, Step
 from .parallel.mesh import split_rows
 from .phy.chest.chest_dl import chest_dl
 from .phy.chest.chest_ul import chest_ul
@@ -61,9 +65,9 @@ from .phy.modem import demod_soft, modulate
 from .phy.ofdm import OfdmConfig, ofdm_rx_sf, ofdm_tx_sf
 from .phy.phch.pdsch import DlGrant, DlGrant2, pdsch_cinit, pdsch_re_indices
 from .phy.phch.pusch import UlGrant, _deinterleaver_indices, pusch_cinit, pusch_symbols_data
-from .phy.phch.sch import TbCoding, dlsch_decode_device, dlsch_decode_multi_device
+from .phy.phch.sch import TbCoding, dlsch_decode_device, dlsch_steps
 from .phy.sequence import gold_sequence, gold_sequence_signs
-from .runtime.trace import span
+from .runtime.trace import count, span
 
 
 def _check_on(samples: torch.Tensor, device: torch.device):
@@ -78,29 +82,34 @@ def _snr_db(snr: torch.Tensor) -> torch.Tensor:
 def _dl_front_end(cell: Cell, sf_idx: int, cfi: int, prb: tuple[int, ...], nof_ports: int,
                   device: torch.device):
     """The DL entries' front end for one (cell, subframe, allocation):
-    returns (the number of PDSCH REs, front_end), where
-    `with front_end(samples) as (y, h, noise, snr):` runs OFDM demod
-    (`fe.ofdm`), CRS estimation of `nof_ports` ports and the noise mean
-    (`fe.chest`), then opens `fe.equalize` with the RE gathers and keeps it
-    open around the caller's equalizer.  y (B, nrx, M), h (B, nrx,
-    nof_ports, M), noise (B, 1), snr (B, nrx, nof_ports)."""
+    returns (the number of PDSCH REs, its steps (`graphs.Step`)), which take
+    `samples` (B, nrx, sf_len) to y (B, nrx, M), h (B, nrx, nof_ports, M),
+    noise (B, 1) and snr (B, nrx, nof_ports): OFDM demod (`fe.ofdm`), CRS
+    estimation of `nof_ports` ports and the noise mean (`fe.chest`), then
+    the RE gathers (`fe.equalize`, which the caller's equalizer joins)."""
     ofdm = OfdmConfig.from_cell(cell, normalize=True)
     idx = table(pdsch_re_indices, cell, sf_idx, cfi, prb, device=device, dtype=torch.int64)
 
-    @contextmanager
-    def front_end(samples: torch.Tensor):
-        with span("fe.ofdm"):
-            rx_grid = ofdm_rx_sf(ofdm, samples)  # (B, nrx, nsymb, nre)
-        with span("fe.chest"):
-            res = chest_dl(rx_grid, cell, sf_idx, nof_ports=nof_ports)
-            noise = torch.mean(res["noise"], dim=(1, 2))[:, None]  # (B, 1)
-        with span("fe.equalize"):
-            b, nrx = rx_grid.shape[:2]
-            y = rx_grid.reshape(b, nrx, -1)[..., idx]  # (B, nrx, M)
-            h = res["ce"].reshape(b, nrx, nof_ports, -1)[..., idx]
-            yield y, h, noise, res["snr"]
+    def demod(s):
+        return {"grid": ofdm_rx_sf(ofdm, s["samples"])}  # (B, nrx, nsymb, nre)
 
-    return idx.numel(), front_end
+    def estimate(s):
+        res = chest_dl(s["grid"], cell, sf_idx, nof_ports=nof_ports)
+        return {"ce": res["ce"], "snr": res["snr"],
+                "noise": torch.mean(res["noise"], dim=(1, 2))[:, None]}
+
+    def gather(s):
+        b, nrx = s["grid"].shape[:2]
+        return {"y": s["grid"].reshape(b, nrx, -1)[..., idx],
+                "h": s["ce"].reshape(b, nrx, nof_ports, -1)[..., idx]}
+
+    return idx.numel(), [Step(("fe.ofdm",), demod), Step(("fe.chest",), estimate),
+                         Step(("fe.equalize",), gather)]
+
+
+def _snr_step() -> Step:
+    """The snr_db tail, in the last graph (`tbd.crc`)."""
+    return Step(("tbd.crc",), lambda s: {"snr_db": _snr_db(s["snr"])})
 
 
 def ue_dl_subframe(cell: Cell, sf_idx: int, cfi: int, grant: DlGrant,
@@ -111,6 +120,8 @@ def ue_dl_subframe(cell: Cell, sf_idx: int, cfi: int, grant: DlGrant,
 
     Returns fn(samples (B, nrx, sf_len) complex64 on `device`) ->
       (tb_bits (B, tbs) uint8, crc_ok (B,) bool, snr_db (B,) float32).
+    On the card a batch shape's calls from the second on replay CUDA
+    graphs (`graphs.Graphed`), with the same kernels in the same order.
     """
     if grant.tx_scheme not in ("port0", "diversity", "spatialmux"):
         raise NotImplementedError(grant.tx_scheme)
@@ -123,22 +134,30 @@ def ue_dl_subframe(cell: Cell, sf_idx: int, cfi: int, grant: DlGrant,
     signs = table(gold_sequence_signs, pdsch_cinit(grant.rnti, sf_idx, cell.id), g,
                   device=device)
 
+    def equalize(s):
+        if grant.tx_scheme == "port0":
+            x, csi = predecode_single_mrc(s["y"], s["h"][:, :, 0], s["noise"])
+        else:
+            x, csi = predecode_diversity2(s["y"], s["h"])
+        return {"x": x, "csi": csi}
+
+    def mimo(s):
+        xl, csil = predecode_zf_mmse(s["y"], s["h"], grant.nof_layers, s["noise"], pmi=grant.pmi)
+        return {"x": layerdemap(xl, 1)[0], "csi": layerdemap(csil, 1)[0]}
+
+    def demap(s):
+        llr = demod_soft(grant.mod, s["x"]) * torch.repeat_interleave(s["csi"], grant.qm, dim=-1)
+        return {"llr0": llr * signs}
+
+    eq = (Step(("fe.equalize", "fe.mimo"), mimo) if grant.tx_scheme == "spatialmux"
+          else Step(("fe.equalize",), equalize))
+    run = Graphed([*front_end, eq, Step(("fe.demap",), demap),
+                   *dlsch_steps((coding,), max_iterations), _snr_step()],
+                  ("tb0", "ok0", "snr_db"))
+
     def fn(samples: torch.Tensor):
         _check_on(samples, device)
-        with front_end(samples) as (y, h, noise, snr):
-            if grant.tx_scheme == "port0":
-                x, csi = predecode_single_mrc(y, h[:, :, 0], noise)
-            elif grant.tx_scheme == "diversity":
-                x, csi = predecode_diversity2(y, h)
-            else:
-                with span("fe.mimo"):
-                    xl, csil = predecode_zf_mmse(y, h, grant.nof_layers, noise, pmi=grant.pmi)
-                    x, csi = layerdemap(xl, 1)[0], layerdemap(csil, 1)[0]
-        with span("fe.demap"):
-            llr = demod_soft(grant.mod, x) * torch.repeat_interleave(csi, grant.qm, dim=-1)
-            llr = llr * signs
-        tb, ok = dlsch_decode_device(llr, coding, max_iterations)
-        return tb, ok, _snr_db(snr)
+        return tuple(run(samples))
 
     return fn
 
@@ -186,6 +205,8 @@ def ue_dl_subframe_mimo(cell: Cell, sf_idx: int, cfi: int, grant: DlGrant2,
 
     Returns fn(samples (B, 2, sf_len) complex64 on `device`) ->
       ((tb1 (B, tbs1) uint8, ok1 (B,) bool), (tb2, ok2), snr_db (B,) float32).
+    On the card a batch shape's calls from the second on replay CUDA
+    graphs (`graphs.Graphed`), with the same kernels in the same order.
     """
     device = resolve(device)
     n_re, front_end = _dl_front_end(cell, sf_idx, cfi, grant.prb, 2, device)
@@ -193,24 +214,31 @@ def ue_dl_subframe_mimo(cell: Cell, sf_idx: int, cfi: int, grant: DlGrant2,
            (grant.mod2, grant.qm2, grant.tbs2, grant.rv2))
     signs = [table(gold_sequence_signs, pdsch_cinit(grant.rnti, sf_idx, cell.id, q=q),
                    n_re * qm, device=device) for q, (_, qm, _, _) in enumerate(cws)]
-    codings = [TbCoding(tbs=tbs, g=n_re * qm, qm=qm, rv=rv, nof_layers=1)
-               for _, qm, tbs, rv in cws]
+    codings = tuple(TbCoding(tbs=tbs, g=n_re * qm, qm=qm, rv=rv, nof_layers=1)
+                    for _, qm, tbs, rv in cws)
+
+    def mimo(s):
+        x, csi = predecode_zf_mmse(s["y"], s["h"], 2, s["noise"], pmi=grant.pmi)
+        sym_cws, csi_cws = layerdemap(x, 2), layerdemap(csi, 2)
+        return {"x0": sym_cws[0], "x1": sym_cws[1], "csi0": csi_cws[0], "csi1": csi_cws[1]}
+
+    def demap(s):
+        return {f"llr{q}": demod_soft(mod, s[f"x{q}"])
+                * torch.repeat_interleave(s[f"csi{q}"], qm, dim=-1) * signs[q]
+                for q, (mod, qm, _, _) in enumerate(cws)}
+
+    # both codewords' codeblocks decode in one batched turbo call per
+    # distinct (K, CRC polynomial), not in per-codeword chains
+    run = Graphed([*front_end, Step(("fe.equalize", "fe.mimo"), mimo),
+                   Step(("fe.demap",), demap), *dlsch_steps(codings, max_iterations),
+                   _snr_step()], ("tb0", "ok0", "tb1", "ok1", "snr_db"))
 
     def fn(samples: torch.Tensor):
         _check_on(samples, device)
         if samples.shape[-2] != 2:
             raise ValueError(f"the 2x2 decode takes 2 receive antennas, got {samples.shape[-2]}")
-        with front_end(samples) as (y, h, noise, snr):
-            with span("fe.mimo"):
-                x, csi = predecode_zf_mmse(y, h, 2, noise, pmi=grant.pmi)
-                sym_cws, csi_cws = layerdemap(x, 2), layerdemap(csi, 2)
-        with span("fe.demap"):
-            llrs = [demod_soft(mod, sym_cws[q]) * torch.repeat_interleave(csi_cws[q], qm, dim=-1)
-                    * signs[q] for q, (mod, qm, _, _) in enumerate(cws)]
-        # both codewords' codeblocks decode in one batched turbo call per
-        # distinct (K, CRC polynomial), not in per-codeword chains
-        outs = dlsch_decode_multi_device(llrs, codings, max_iterations)
-        return outs[0], outs[1], _snr_db(snr)
+        tb0, ok0, tb1, ok1, snr_db = run(samples)
+        return (tb0, ok0), (tb1, ok1), snr_db
 
     return fn
 
@@ -236,6 +264,7 @@ def enb_ul_subframe(cell: Cell, sf_idx: int, grant: UlGrant, max_iterations: int
 
     def fn(samples: torch.Tensor):
         _check_on(samples, device)
+        count("entry_calls")  # an entry call that replays no graph
         with span("fe.ofdm"):
             rx_grid = ofdm_rx_sf(ofdm, samples)  # (B, nrx, nsymb, nre)
         with span("fe.chest"):

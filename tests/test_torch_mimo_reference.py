@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from lte_bench.ref import rx, rx_mimo, tx_mimo
+from srsran_tpu_torch.graphs import run
 from srsran_tpu_torch.phy.chest.refsignal_dl import put_crs_np
 from srsran_tpu_torch.phy.common import Cell
 from srsran_tpu_torch.phy.mimo import layerdemap, predecode_zf_mmse
@@ -111,8 +112,8 @@ def test_equalized_layers_agree(amp):
     c = CFG["cell"]
     _n_re, front_end = _dl_front_end(cell, c["sf_idx"], c["cfi"], grant.prb, 2,
                                      torch.device("cpu"))
-    with front_end(x) as (y, h, noise, _snr):
-        xl, csi = predecode_zf_mmse(y, h, 2, noise, pmi=grant.pmi)
+    s = run(front_end, {"samples": x})
+    xl, csi = predecode_zf_mmse(s["y"], s["h"], 2, s["noise"], pmi=grant.pmi)
     r_x, r_csi, _r_snr = rx_mimo.equalize(x, CFG, rx.Lower(None))
     for got, want in ((xl, r_x), (csi, r_csi)):
         scale = float(want.abs().max())
