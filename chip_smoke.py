@@ -300,7 +300,18 @@ Phases (each prints its own lines; any failure exits non-zero):
      sent one, bits, posteriors and iterations identical to the per-row
      form, the dynamic-K kernel launched and bit for bit its plain version
      on the window's first pass; ms per window by CUDA events and on the
-     host clock.  Phase 12 takes its N = 8 x B_CB.
+     host clock.  Phase 12 takes its N = 8 x B_CB;
+  44. (after 11) the 4x4 rank-4 TM4 decode at the benchmark cell
+     `dl_mimo4x4-b128-hisnr`'s shape (50 PRB, 4 ports, 4 Rx, 2 x MCS 26 on
+     2 layers each, B = 128, one pool batch of its traffic): three calls of
+     `ue_dl_subframe_mimo` (eager, capture, replay), every CRC-passing TB
+     the sent one, half the codewords at least, 4 `mmse4_launches` (the
+     capture runs its step once more); the `mmse4` kernel (`csrc/mmse4.cu`,
+     its registers and spills from ptxas) against `mmse4_plain` on the
+     front end's own y, h and noise (x within 1e-5 of its largest
+     magnitude, the CSI within 1e-5 relative); ms of the kernel, the plain
+     form and `predecode_mmse_nl` (`torch.linalg`), the bound of
+     `lte_bench/mmse4_yardstick.py`, ms per batch.
 Every path is driven with the launch counts set to 0 just before and read
 just after.  Prints one JSON line of kernel results, then as its last line
 {"ok": true, "device": {...}}.  TF32 stays off: the channel-estimate
@@ -332,6 +343,11 @@ FIXTURE_MIMO = TESTDATA / "ue_dl_mimo_20mhz.npz"
 FIXTURE_UL = TESTDATA / "enb_ul_20mhz.npz"
 FIXTURE_UL_DYN = TESTDATA / "enb_ul_dynamic_20mhz.npz"
 B_MIMO = B_ENCODE = 64
+# phase 44: the benchmark's 4x4 cell and a seed of its traffic; the kernel
+# against its plain form: x within MMSE4_TOL of its largest magnitude, the
+# CSI within MMSE4_TOL relative (both float32 in the same order, the
+# kernel's products fused: 6.8e-7 and 9.2e-7 on the H100)
+MMSE4_CELL, MMSE4_SEED, MMSE4_TOL = "dl_mimo4x4-b128-hisnr", 2**31 + 4404, 1e-5
 W_DL, W_DIV, W_MIMO, W_UL = 128, 32, 64, 64
 # the 2x2 channel of `bench.py` `bench_ue_dl_mimo`: rx antenna x tx port
 H_2X2 = np.array([[1.0 + 0.1j, 0.25 - 0.55j], [-0.45 + 0.3j, 0.95 + 0.05j]], np.complex64)
@@ -627,6 +643,114 @@ def phase_mimo(dev) -> tuple[int, int]:
     print(f"mimo: QAM256 row, 2 x MCS 27 (2 x tbs {grant.tbs1}) B={B_MIMO}: codewords ok "
           f"{n_ok}/{2 * B_MIMO}, map launches {launches_q[0]}")
     return launches[0] + launches_q[0], 0
+
+
+def phase_mmse4(dev) -> tuple[tuple[int, int], dict]:
+    """Phase 44.  The 4x4 rank-4 TM4 decode and its MMSE kernel at the cell
+    MMSE4_CELL's shape (50 PRB, 4 ports, 4 Rx, B = 128: 128 x 6800 REs), on
+    one pool batch made as the benchmark makes it.  Returns the (static,
+    dynamic-K) MAP launches of its calls and the kernel's row of the
+    `kernels` line."""
+    from lte_bench import catalog, mmse4_yardstick, stimuli
+    from lte_bench.ref import tx_mimo
+    from srsran_tpu_torch.device import table
+    from srsran_tpu_torch.graphs import run as run_steps
+    from srsran_tpu_torch.phy import mimo_cuda
+    from srsran_tpu_torch.phy.common import Cell
+    from srsran_tpu_torch.phy.fec.turbo_cuda import NVCC_FLAGS, _nvcc
+    from srsran_tpu_torch.phy.mimo import _codebook_4, _fold_precoder, predecode_mmse_nl
+    from srsran_tpu_torch.phy.modem import Mod
+    from srsran_tpu_torch.phy.phch.pdsch import DlGrant2
+    from srsran_tpu_torch.pipeline import _dl_front_end, ue_dl_subframe_mimo
+    from srsran_tpu_torch.runtime import trace
+
+    lib = mimo_cuda.build()
+    usage = subprocess.run([_nvcc(), *NVCC_FLAGS[:4], "-Xptxas", "-v", "-cubin",
+                            "-o", str(lib.with_suffix(".cubin")), str(mimo_cuda.SOURCE)],
+                           capture_output=True, text=True, check=True).stderr
+    regs = re.findall(r"mmse4_kernel.*?frame, (.*?spill loads).*?Used (\d+) registers", usage,
+                      re.DOTALL)
+    check(len(regs) == 1, f"ptxas reported {len(regs)} mmse4 kernels, expected 1")
+    print(f"mmse4: build {lib.name}, {regs[0][1]} registers, {regs[0][0]}")
+
+    _w, cfg, mix = catalog.cell(Path(__file__).resolve().parent, MMSE4_CELL)
+    link = catalog.link(cfg)
+    sent = stimuli.draw_tbs(MMSE4_SEED, mix["n_tbs"], cfg["grant"]["tbs"])
+    clean = torch.from_numpy(stimuli.render(link, cfg, sent)).to(dev)
+    samples = stimuli.build_pool(clean, dict(mix, pool_batches=1), MMSE4_SEED)[0]
+    del clean
+    want = np.stack([sent, tx_mimo.second_tb(cfg, sent)], 1)[stimuli.tb_index(mix)[0]]
+    c, g = cfg["cell"], cfg["grant"]
+    b = mix["batch"]
+    cell = Cell(nof_prb=c["nof_prb"], nof_ports=c["nof_ports"], id=c["cell_id"])
+    mod = Mod[g["mod"]]
+    grant = DlGrant2(prb=tuple(range(g["prb_start"], g["prb_start"] + g["nof_prb"])), mod1=mod,
+                     tbs1=g["tbs"], mod2=mod, tbs2=g["tbs"], rv1=g["rv"], rv2=g["rv"],
+                     pmi=g["pmi"], rnti=g["rnti"], tx_scheme="spatialmux4", nof_layers=4)
+    fn = ue_dl_subframe_mimo(cell, c["sf_idx"], c["cfi"], grant, cfg["max_iterations"], device=dev)
+
+    # the entry: its first (eager) call, then the capture and a replay
+    reset_launches()
+    trace.count("mmse4_launches", -trace.counts().get("mmse4_launches", 0))
+    sent_d = torch.from_numpy(want).to(dev)
+    for call in range(3):
+        (tb0, ok0), (tb1, ok1), snr_db = fn(samples)
+        check(bool(torch.isfinite(snr_db).all()), "4x4: non-finite snr_db")
+        for q, (tb, ok) in enumerate(((tb0, ok0), (tb1, ok1))):
+            tag = f"4x4 cw {q} (call {call + 1})"
+            check(tb.shape == sent_d[:, q].shape and tb.dtype == torch.uint8,
+                  f"{tag}: TB shape/dtype")
+            check(tuple(ok.shape) == (b,) and ok.dtype == torch.bool, f"{tag}: crc_ok shape/dtype")
+            check(bool((tb[ok] == sent_d[:, q][ok]).all()),
+                  f"{tag}: a CRC-passing TB differs from the sent one")
+        n_ok = int(ok0.sum()) + int(ok1.sum())
+        check(n_ok >= b, f"4x4 (call {call + 1}): only {n_ok}/{2 * b} codewords pass CRC")
+    launches = read_launches()
+    entry_launches = trace.counts().get("mmse4_launches", 0)
+    # one a call, and the capture call runs its step once more eagerly
+    check(entry_launches == 4, f"mmse4: {entry_launches} launches over 3 entry calls, expected 4")
+    check(launches[0] > 0 and launches[1] == 0, f"4x4: map launches {launches}")
+    ms_batch = batch_ms(lambda: fn(samples))
+    print(f"4x4: {c['nof_prb']} PRB, 4 ports, 4 Rx, 2 x MCS {g['mcs']} (2 x tbs {g['tbs']}) "
+          f"on 2 layers each, "
+          f"B={b}: codewords ok {n_ok}/{2 * b}, map launches {launches[0]}, mmse4 launches "
+          f"{entry_launches} over 3 calls, {ms_batch:.3f} ms per batch, "
+          f"{n_ok * g['tbs'] / (ms_batch * 1e-3) / 1e6:.1f} Mbps of CRC-passing TBs")
+    del fn
+
+    # the kernel against its plain form on the front end's own y, h and noise
+    _n_re, front_end = _dl_front_end(cell, c["sf_idx"], c["cfi"], grant.prb, 4, dev)
+    s = run_steps(front_end, {"samples": samples})
+    y, h, noise = s["y"], s["h"], s["noise"].reshape(-1)
+    n_sf, n_re = link.mmse_shape(cfg, b)
+    check(tuple(h.shape) == (n_sf, 4, 4, n_re), f"mmse4: h has shape {tuple(h.shape)}")
+    w = table(_codebook_4, g["pmi"], 4, device=dev)
+    x, csi = mimo_cuda.mmse4(y, h, w, noise)
+    px, pcsi = mimo_cuda.mmse4_plain(y, h, w, noise)
+    torch.cuda.synchronize()
+    x_err = float((x - px).abs().max()) / float(px.abs().max())
+    csi_err = float(((csi - pcsi) / pcsi).abs().max())
+    print(f"mmse4 at {tuple(h.shape)}: x within {x_err:.3g} of its largest magnitude, csi within "
+          f"{csi_err:.3g} relative, of the plain form")
+    check(bool(torch.isfinite(x).all() and torch.isfinite(csi).all()), "mmse4: non-finite output")
+    check(x_err <= MMSE4_TOL and csi_err <= MMSE4_TOL, "mmse4: the kernel disagrees with plain")
+
+    ms = queued_ms(lambda: mimo_cuda.mmse4(y, h, w, noise), 50)
+    # warm first: the first torch.linalg call sets up its solver (~0.3 s)
+    plain_ms = batch_ms(lambda: mimo_cuda.mmse4_plain(y, h, w, noise))
+    heff = _fold_precoder(h, w)
+    library_ms = batch_ms(lambda: predecode_mmse_nl(y, heff, noise[:, None, None, None]))
+    bound_ms, bound_by = mmse4_yardstick.mmse4_bound(b, y.shape[-1])
+    print(f"mmse4 at {tuple(h.shape)}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, torch.linalg "
+          f"{library_ms:.3f} ms (fold excluded), bound {bound_ms:.4f} ms by {bound_by} "
+          f"({100 * bound_ms / ms:.1f}% of it)")
+    row = dict(name="mmse4", route="cuda", source="srsran_tpu_torch/csrc/mmse4.cu",
+               replaces="srsran_tpu/phy/mimo.py:374", launches=entry_launches,
+               launches_by_path={"ue_dl_subframe_mimo 4x4": entry_launches},
+               max_abs_err=max(x_err, csi_err), ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=bound_ms, bound_by=bound_by, shape=list(h.shape),
+               registers=int(regs[0][1]))
+    return launches, row
 
 
 def phase_encode(dev) -> tuple[int, int]:
@@ -5670,6 +5794,10 @@ def main() -> int:
         by_path[name] = phase(dev)
         torch.cuda.empty_cache()
 
+    mark("phase 44: the 4x4 decode and its MMSE kernel")
+    by_path["ue_dl_subframe_mimo 4x4"], mmse4_row = phase_mmse4(dev)
+    torch.cuda.empty_cache()
+
     # phases 12-16: the windowed engines
     windows = {}
     mark("phase 13: WindowedUeDl")
@@ -5813,7 +5941,8 @@ def main() -> int:
              launches_by_path={k: v[1] for k, v in by_path.items() if v[1]},
              max_abs_err=max_err_dyn, ms=kern_dyn_ms, plain_ms=plain_dyn_ms,
              bound_ms=bound_dyn_ms, bound_by=bound_dyn_by, shape=list(lx_d.shape),
-             other_shapes=win_shapes + stack_dyn_rows)]}))
+             other_shapes=win_shapes + stack_dyn_rows),
+        mmse4_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -19,7 +19,9 @@ never captured; the CPU always runs eagerly.
   step that is not a graph (the turbo loop, which holds host reads and
   replays graphs of its own) runs as it is on every call, its results
   copied into buffers that the next graph reads.  The entries count
-  `entry_calls` and `entry_graph_replays` (`runtime.trace.count`).
+  `entry_calls` and `entry_graph_replays` (`runtime.trace.count`); what a
+  step counts while it is captured, when nothing runs, is taken out again
+  and counted at each replay of its graph (`mmse4_launches`).
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from .device import pinned
-from .runtime.trace import count, span
+from .runtime.trace import count, counts, span
 
 _CAPTURE_STREAMS: dict[torch.device, torch.cuda.Stream] = {}
 
@@ -226,6 +228,7 @@ class _Replay:
         self.plan: list | None = None
         self.pool = None
         self.pins: list = []  # the tables the graphs read
+        self.counts: dict[int, dict[str, int]] = {}  # what each graph counts a replay
 
     def __call__(self, samples: torch.Tensor) -> bool:
         """One call over `samples`; True where it replayed the graphs (False
@@ -238,9 +241,10 @@ class _Replay:
             for i, st in enumerate(self.steps):
                 spans.at(st.spans)
                 if plan is not None:
-                    plan.append(self._capture(st))
+                    plan.append(self._capture(st, i))
                 elif st.graphed:
                     self.plan[i].replay()
+                    _recount(self.counts[i])
                 else:
                     _load(self.plan[i], st.fn(self.state))
         if plan is None:
@@ -248,7 +252,7 @@ class _Replay:
         self.plan = plan
         return False
 
-    def _capture(self, st: Step):
+    def _capture(self, st: Step, i: int):
         if not st.graphed:
             new = st.fn(self.state)
             held = {name: torch.empty_like(v) for name, v in new.items()}
@@ -258,12 +262,36 @@ class _Replay:
         new = {}
         with on_capture_stream(self.state["samples"].device):
             st.fn(self.state)
-            with pinned() as tables:
+            with pinned() as tables, _uncounted() as self.counts[i]:
                 graph = captured(lambda: new.update(st.fn(self.state)), self.pool)
             graph.replay()
+            _recount(self.counts[i])
         self.pins += tables
         self.state.update(new)
         return graph
+
+
+@contextlib.contextmanager
+def _uncounted():
+    """Counts made inside (a capture, in which nothing runs) are taken out
+    of `runtime.trace.counts` again on exit; yields a dict that holds them
+    then."""
+    taken: dict[str, int] = {}
+    before = counts()
+    try:
+        yield taken
+    finally:
+        for name, n in counts().items():
+            if n != before.get(name, 0):
+                taken[name] = n - before.get(name, 0)
+                count(name, -taken[name])
+
+
+def _recount(taken: dict[str, int]):
+    """Count what `_uncounted` took out of a graph's capture, for one run of
+    the graph."""
+    for name, n in taken.items():
+        count(name, n)
 
 
 def _load(buffers: dict, new: dict):

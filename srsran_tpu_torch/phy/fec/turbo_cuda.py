@@ -14,7 +14,9 @@ CPU tensor is made by its callers, `turbo.map_decoder` and
 The kernel is compiled at first use with `nvcc` for sm_90a into a shared
 library with a plain C interface, loaded through ctypes.  The library
 lives in `srsran_tpu_torch/_build/`, named by a hash of the source, so a
-changed source is rebuilt and an unchanged one is reused.
+changed source is rebuilt and an unchanged one is reused;
+`build_library` builds the port's other CUDA sources the same way
+(`phy/mimo_cuda.py`).
 """
 
 from __future__ import annotations
@@ -70,17 +72,23 @@ def _nvcc() -> str:
     return str(path)
 
 
-def build() -> Path:
-    """Compile the kernel library if it is not built yet; returns its path."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    lib_path = BUILD_DIR / f"libmap_window_{digest.hexdigest()[:16]}.so"
+def build_library(source: Path) -> Path:
+    """Compile the CUDA source `source` into `BUILD_DIR/lib<stem>_<hash>.so`
+    if that is not built yet; returns its path."""
+    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    lib_path = BUILD_DIR / f"lib{source.stem}_{digest.hexdigest()[:16]}.so"
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)], check=True)
+    subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)], check=True)
     os.replace(tmp, lib_path)  # atomic: a concurrent build sees all or nothing
     return lib_path
+
+
+def build() -> Path:
+    """Compile the kernel library if it is not built yet; returns its path."""
+    return build_library(SOURCE)
 
 
 def _load():

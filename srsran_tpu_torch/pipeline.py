@@ -8,9 +8,10 @@ of `srsran_tpu/pipeline.py`.
 * `multi_carrier_ue_dl`: `ue_dl_subframe` over a carriers axis, as a batch
   on one device or block by block over the positions of a
   `parallel.carrier_mesh`.
-* `ue_dl_subframe_mimo`: the 2x2 two-codeword (TM3/TM4) decode; both
-  codewords' codeblocks decode in one `turbo_decode` per distinct
-  (K, CRC polynomial).
+* `ue_dl_subframe_mimo`: the two-codeword TM4 decode, 2x2 (2 ports, a
+  codeword a layer) or 4x4 (4 ports, a codeword on two layers, the 4x4
+  MMSE kernel `phy.mimo_cuda.mmse4`); both codewords' codeblocks decode in
+  one `turbo_decode` per distinct (K, CRC polynomial).
 * `enb_dl_subframe_encode`: the DL data-subframe encoder — CRCs as GF(2)
   products → segmentation → closed-form turbo encoder → rate-match gathers →
   scramble → modulate → RE scatter into a CRS template → batched IFFT.
@@ -21,8 +22,9 @@ of `srsran_tpu/pipeline.py`.
 `ue_dl_subframe`, `ue_dl_subframe_mimo` and `enb_ul_subframe` mark their
 front-end stages with `runtime.trace.span` (`fe.ofdm`, `fe.chest`,
 `fe.equalize`, `fe.demap`; `fe.mimo`, inside `fe.equalize`, around the
-precoder fold, the 2x2 MMSE solve and the layer demapping); TB decode and
-the turbo loop mark theirs (`tbd.*`, `turbo.*`).  The two DL entries share
+precoder fold, the 2x2 MMSE solve or the 4x4 MMSE kernel, and the layer
+demapping); TB decode and the turbo loop mark theirs (`tbd.*`,
+`turbo.*`).  The two DL entries share
 their front end (`_dl_front_end`) and run as steps (`graphs.Step`), one a
 span, the snr_db tail in the last (`tbd.crc`); on the card a batch shape's
 calls from the second on replay each step as a CUDA graph
@@ -56,11 +58,13 @@ from .phy.fec.cbsegm import cbsegm
 from .phy.fec.rate_match import turbo_rm_indices
 from .phy.fec.turbo import turbo_encode_device
 from .phy.mimo import (
+    _codebook_4,
     layerdemap,
     predecode_diversity2,
     predecode_single_mrc,
     predecode_zf_mmse,
 )
+from .phy.mimo_cuda import mmse4
 from .phy.modem import demod_soft, modulate
 from .phy.ofdm import OfdmConfig, ofdm_rx_sf, ofdm_tx_sf
 from .phy.phch.pdsch import DlGrant, DlGrant2, pdsch_cinit, pdsch_re_indices
@@ -200,27 +204,49 @@ def multi_carrier_ue_dl(cell: Cell, sf_idx: int, cfi: int, grant: DlGrant, mesh=
 
 
 def ue_dl_subframe_mimo(cell: Cell, sf_idx: int, cfi: int, grant: DlGrant2,
-                        max_iterations: int = 5, *, device=None):
-    """Build the 2x2 spatial-multiplexing (TM4 codebook) two-codeword decode.
+                        max_iterations: int = 5, *, device=None, detected: bool = False):
+    """Build the two-codeword closed-loop spatial-multiplexing (TM4 codebook)
+    decode: 2x2 (`grant.tx_scheme` "spatialmux", 2 ports, 2 receive
+    antennas, a codeword a layer) or 4x4 ("spatialmux4" with 4 layers on the
+    4 ports of a 4-port cell, 4 receive antennas, a codeword on each pair of
+    layers, TS 36.211 §6.3.3.2).
 
-    Returns fn(samples (B, 2, sf_len) complex64 on `device`) ->
-      ((tb1 (B, tbs1) uint8, ok1 (B,) bool), (tb2, ok2), snr_db (B,) float32).
+    Returns fn(samples (B, nrx, sf_len) complex64 on `device`) ->
+      ((tb1 (B, tbs1) uint8, ok1 (B,) bool), (tb2, ok2), snr_db (B,) float32),
+    and with `detected` a fourth result: the equaliser's output of the
+    batch's first subframe, (layers, M) complex64 before the layer
+    demapping, for holding the detector to a reference.
     On the card a batch shape's calls from the second on replay CUDA
     graphs (`graphs.Graphed`), with the same kernels in the same order.
     """
+    four = grant.tx_scheme == "spatialmux4"
+    if four and (grant.nof_layers != 4 or cell.nof_ports != 4):
+        raise NotImplementedError(f"spatialmux4 on {grant.nof_layers} layers of a "
+                                  f"{cell.nof_ports}-port cell: the 4x4 decode takes 4 and 4")
     device = resolve(device)
-    n_re, front_end = _dl_front_end(cell, sf_idx, cfi, grant.prb, 2, device)
+    nof_ports = 4 if four else 2  # and as many receive antennas
+    nof_layers = 2 if four else 1  # a codeword's layers
+    n_re, front_end = _dl_front_end(cell, sf_idx, cfi, grant.prb, nof_ports, device)
     cws = ((grant.mod1, grant.qm1, grant.tbs1, grant.rv1),
            (grant.mod2, grant.qm2, grant.tbs2, grant.rv2))
     signs = [table(gold_sequence_signs, pdsch_cinit(grant.rnti, sf_idx, cell.id, q=q),
-                   n_re * qm, device=device) for q, (_, qm, _, _) in enumerate(cws)]
-    codings = tuple(TbCoding(tbs=tbs, g=n_re * qm, qm=qm, rv=rv, nof_layers=1)
-                    for _, qm, tbs, rv in cws)
+                   n_re * qm * nof_layers, device=device) for q, (_, qm, _, _) in enumerate(cws)]
+    codings = tuple(TbCoding(tbs=tbs, g=n_re * qm * nof_layers, qm=qm, rv=rv,
+                             nof_layers=nof_layers) for _, qm, tbs, rv in cws)
 
     def mimo(s):
-        x, csi = predecode_zf_mmse(s["y"], s["h"], 2, s["noise"], pmi=grant.pmi)
+        if four:
+            x, csi = mmse4(s["y"], s["h"], table(_codebook_4, grant.pmi, 4, device=device),
+                           s["noise"])
+        else:
+            x, csi = predecode_zf_mmse(s["y"], s["h"], 2, s["noise"], pmi=grant.pmi)
         sym_cws, csi_cws = layerdemap(x, 2), layerdemap(csi, 2)
-        return {"x0": sym_cws[0], "x1": sym_cws[1], "csi0": csi_cws[0], "csi1": csi_cws[1]}
+        out = {"x0": sym_cws[0], "x1": sym_cws[1], "csi0": csi_cws[0], "csi1": csi_cws[1]}
+        if detected:
+            # a copy of its own: a graph's output that views x would be
+            # returned as a copy of the whole batch's x
+            out["detected"] = x[0].clone()
+        return out
 
     def demap(s):
         return {f"llr{q}": demod_soft(mod, s[f"x{q}"])
@@ -231,14 +257,16 @@ def ue_dl_subframe_mimo(cell: Cell, sf_idx: int, cfi: int, grant: DlGrant2,
     # distinct (K, CRC polynomial), not in per-codeword chains
     run = Graphed([*front_end, Step(("fe.equalize", "fe.mimo"), mimo),
                    Step(("fe.demap",), demap), *dlsch_steps(codings, max_iterations),
-                   _snr_step()], ("tb0", "ok0", "tb1", "ok1", "snr_db"))
+                   _snr_step()],
+                  ("tb0", "ok0", "tb1", "ok1", "snr_db") + (("detected",) if detected else ()))
 
     def fn(samples: torch.Tensor):
         _check_on(samples, device)
-        if samples.shape[-2] != 2:
-            raise ValueError(f"the 2x2 decode takes 2 receive antennas, got {samples.shape[-2]}")
-        tb0, ok0, tb1, ok1, snr_db = run(samples)
-        return (tb0, ok0), (tb1, ok1), snr_db
+        if samples.shape[-2] != nof_ports:
+            raise ValueError(f"the {nof_ports}x{nof_ports} decode takes {nof_ports} receive "
+                             f"antennas, got {samples.shape[-2]}")
+        tb0, ok0, tb1, ok1, snr_db, *layers = run(samples)
+        return ((tb0, ok0), (tb1, ok1), snr_db, *layers)
 
     return fn
 
